@@ -1,0 +1,131 @@
+"""Gaussian→tile pair expansion ("duplication") and sort (torch).
+
+Port of the semantics of ``stopthepop_tpu/render/duplicate.py``
+(``expand_pairs``, ``sort_expanded``, ``build_pairs``, ``count_pairs``,
+``rect_histogram``); the reference's duplicateWithKeys (forward.cu:25-65).
+
+The pair count is dynamic, as in the reference: ``num_rendered`` is read back
+to the host once per frame (rasterizer_impl.cu:316-321) and every buffer has
+exactly that length. There is no static capacity, padding pool, segment
+alignment or rank key: those exist in the JAX package for the TPU's static
+shapes and sort costs.
+
+The pair stream is Gaussian-major: Gaussian g emits one pair per tile of its
+rect, row-major within the rect, in ascending g. The stable (tile, depth)
+sort then breaks depth ties by ascending Gaussian id, as ``jax.lax.sort`` does
+on the same stream.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import GlobalSortOrder
+from ..ops.sort import identify_tile_ranges, sort_pairs
+from .preprocess import PreprocessOutput
+
+SUPPORTED_ORDERS = (GlobalSortOrder.Z_DEPTH, GlobalSortOrder.DISTANCE)
+
+
+class PairBuffer(NamedTuple):
+    tile_id: torch.Tensor   # [N] int32, sorted
+    depth: torch.Tensor     # [N] float32, sorted within tiles
+    gauss_id: torch.Tensor  # [N] int32 Gaussian index
+    starts: torch.Tensor    # [num_tiles] int32 per-tile range start
+    ends: torch.Tensor      # [num_tiles] int32 per-tile range end
+    num_rendered: int       # N, the exact pair count
+
+
+def check_sort_order(sort_order) -> GlobalSortOrder:
+    order = GlobalSortOrder(sort_order)
+    if order not in SUPPORTED_ORDERS:
+        raise NotImplementedError(
+            f"sort order {order.name} is not ported yet: the per-tile-depth "
+            "orders come with ROADMAP.md Queue 1 item 4 (rest). Use Z_DEPTH "
+            "or DISTANCE."
+        )
+    return order
+
+
+def rect_histogram(prep: PreprocessOutput, grid_x: int, grid_y: int):
+    """Exact per-tile pair counts [T] int32 without touching the pair domain.
+
+    counts[ty, tx] = sum_g 1[rect_g covers (tx, ty)], a product of two 0/1
+    indicator matrices contracted over Gaussians. The indicators are exact
+    in any float format and the sums are exact below 2^24 in float32.
+    """
+    dev = prep.rect_min.device
+    tx = torch.arange(grid_x, dtype=torch.int32, device=dev)
+    ty = torch.arange(grid_y, dtype=torch.int32, device=dev)
+    a = (
+        (tx[None, :] >= prep.rect_min[:, :1])
+        & (tx[None, :] < prep.rect_max[:, :1])
+        & prep.valid[:, None]
+    ).to(torch.float32)  # [P, gx]
+    b = (
+        (ty[None, :] >= prep.rect_min[:, 1:2])
+        & (ty[None, :] < prep.rect_max[:, 1:2])
+    ).to(torch.float32)  # [P, gy]
+    return (b.T @ a).reshape(-1).to(torch.int32)
+
+
+def count_pairs(prep: PreprocessOutput) -> torch.Tensor:
+    """Exact number of (Gaussian, tile) pairs the rect expansion produces."""
+    return prep.tiles_touched.sum()
+
+
+def expand_pairs(
+    prep: PreprocessOutput,
+    *,
+    grid_x: int,
+    sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
+):
+    """The "Duplicate" stage: one (tile, depth, Gaussian) triple per pair.
+
+    Returns (tile_id [N] int32, depth [N] float32, gauss_id [N] int32),
+    unsorted, Gaussian-major.
+    """
+    check_sort_order(sort_order)
+    dev = prep.tiles_touched.device
+    touched = prep.tiles_touched.to(torch.int64)
+    num_rendered = int(touched.sum())  # the reference's one D2H read
+    P = touched.shape[0]
+    g = torch.repeat_interleave(
+        torch.arange(P, device=dev), touched, output_size=num_rendered
+    )
+    base = torch.cumsum(touched, 0) - touched
+    local = torch.arange(num_rendered, device=dev) - base[g]
+    rect_min = prep.rect_min.to(torch.int64)[g]
+    width = (prep.rect_max[:, 0] - prep.rect_min[:, 0]).to(torch.int64)[g]
+    ty = rect_min[:, 1] + local // width
+    tx = rect_min[:, 0] + local % width
+    tile_id = (ty * grid_x + tx).to(torch.int32)
+    return tile_id, prep.depth[g], g.to(torch.int32)
+
+
+def sort_expanded(tile_id, depth, gauss_id, num_tiles: int) -> PairBuffer:
+    """The "Sort" stage: stable (tile, depth) sort + per-tile ranges."""
+    s_tile, s_depth, s_gid = sort_pairs(tile_id, depth, gauss_id)
+    starts, ends = identify_tile_ranges(s_tile, num_tiles)
+    return PairBuffer(
+        tile_id=s_tile,
+        depth=s_depth,
+        gauss_id=s_gid,
+        starts=starts,
+        ends=ends,
+        num_rendered=int(s_tile.shape[0]),
+    )
+
+
+def build_pairs(
+    prep: PreprocessOutput,
+    *,
+    grid_x: int,
+    grid_y: int,
+    sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
+) -> PairBuffer:
+    """Expand, key and sort all Gaussian/tile pairs."""
+    expanded = expand_pairs(prep, grid_x=grid_x, sort_order=sort_order)
+    return sort_expanded(*expanded, num_tiles=grid_x * grid_y)

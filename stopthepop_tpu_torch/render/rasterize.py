@@ -1,0 +1,211 @@
+"""Public rasterization API (torch), forward only.
+
+Port of ``stopthepop_tpu/render/rasterize.py`` for the GLOBAL sort mode. It
+mirrors the reference's Python surface (diff_gaussian_rasterization/
+__init__.py:32-53, 265-314): ``rasterize_gaussians(...)`` and
+``GaussianRasterizer`` with the same argument names and validation messages,
+returning ``(color [3, H, W], radii [P])``. The render runs on the device of
+``means3D``; the settings' tensors follow it there.
+
+This slice is forward-only: the backward kernel is not ported yet, so a call
+that would need gradients raises. ``means2D`` is accepted and its value is
+ignored, as upstream. There is no pair capacity: the pair count is read back
+once per frame, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import GaussianRasterizationSettings, SortMode
+from ..ops.transforms import mark_visible
+from .duplicate import check_sort_order
+from .pipeline import render_tiled
+from .preprocess import preprocess
+
+_MODE_ITEMS = {
+    SortMode.PPX_FULL: "10 (PER_PIXEL_FULL, kernel K7)",
+    SortMode.PPX_KBUFFER: "8 (PER_PIXEL_KBUFFER, kernels K3/K4)",
+    SortMode.HIER: "9 (HIERARCHICAL, kernels K5/K6)",
+}
+
+
+class RenderOutput(NamedTuple):
+    color: torch.Tensor      # [3, H, W]
+    radii: torch.Tensor      # [P] int32
+    final_t: torch.Tensor    # [H, W]
+    n_contrib: torch.Tensor  # [H, W] int32
+    depth_acc: torch.Tensor  # [H, W] sum(depth * alpha * T)
+    num_rendered: int        # (tile, Gaussian) pairs of this frame
+
+
+def _check_forward_only(tensors):
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise NotImplementedError(
+            "stopthepop_tpu_torch renders forward only: the backward blend "
+            "kernel K2 (stopthepop_tpu/kernels/global_blend.py::"
+            "blend_global_backward) and its autograd Function are not "
+            "ported yet (ROADMAP.md Queue 1 item 5, backward half). Render "
+            "under torch.inference_mode() or torch.no_grad()."
+        )
+
+
+def _check_supported(rs: GaussianRasterizationSettings):
+    ext = rs.settings
+    mode = SortMode(ext.sort_settings.sort_mode)
+    if mode != SortMode.GLOBAL:
+        raise NotImplementedError(
+            f"sort mode {mode.name} is not ported yet: ROADMAP.md Queue 1 "
+            f"item {_MODE_ITEMS[mode]}."
+        )
+    order = check_sort_order(ext.sort_settings.sort_order)
+    if ext.culling_settings.tile_based_culling:
+        raise NotImplementedError(
+            "tile_based_culling is not ported yet: it comes with ROADMAP.md "
+            "Queue 1 item 4 (rest)."
+        )
+    if rs.render_depth or rs.debug:
+        raise NotImplementedError(
+            "render_depth (the Depth debug visualization) and debug "
+            "snapshots are not "
+            "ported yet: ROADMAP.md Queue 1 item 11."
+        )
+    return order
+
+
+def rasterize_gaussians(
+    means3D,
+    means2D,
+    sh,
+    colors_precomp,
+    opacities,
+    scales,
+    rotations,
+    cov3Ds_precomp,
+    raster_settings: GaussianRasterizationSettings,
+    *,
+    full_output: bool = False,
+):
+    """Render. Returns (color, radii) like the reference, or RenderOutput."""
+    rs = raster_settings
+
+    def none_if_empty(x):
+        return None if x is None or x.numel() == 0 else x
+
+    sh = none_if_empty(sh)
+    colors_precomp = none_if_empty(colors_precomp)
+    scales = none_if_empty(scales)
+    rotations = none_if_empty(rotations)
+    cov3Ds_precomp = none_if_empty(cov3Ds_precomp)
+    _check_forward_only((means3D, means2D, sh, colors_precomp, opacities,
+                         scales, rotations, cov3Ds_precomp))
+    sort_order = _check_supported(rs)
+    ext = rs.settings
+    dev = means3D.device
+    W, H = int(rs.image_width), int(rs.image_height)
+
+    def on_dev(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    viewmatrix, projmatrix = on_dev(rs.viewmatrix), on_dev(rs.projmatrix)
+    campos, bg = on_dev(rs.campos), on_dev(rs.bg)
+
+    if rs.prefiltered and not bool(mark_visible(means3D, viewmatrix, projmatrix).all()):
+        # The reference __trap()s on this contract violation.
+        raise RuntimeError(
+            "prefiltered=True but some points lie outside the view "
+            "frustum (the reference traps on this contract "
+            "violation, auxiliary.h:228-232). Run markVisible and "
+            "filter, or pass prefiltered=False."
+        )
+
+    prep = preprocess(
+        means3D,
+        opacities,
+        scales=scales,
+        rotations=rotations,
+        cov3d_precomp=cov3Ds_precomp,
+        shs=sh,
+        colors_precomp=colors_precomp,
+        scale_modifier=rs.scale_modifier,
+        viewmatrix=viewmatrix,
+        projmatrix=projmatrix,
+        campos=campos,
+        tanfovx=rs.tanfovx,
+        tanfovy=rs.tanfovy,
+        image_width=W,
+        image_height=H,
+        sh_degree=rs.sh_degree,
+        sort_order=sort_order,
+        rect_bounding=ext.culling_settings.rect_bounding,
+        tight_opacity_bounding=ext.culling_settings.tight_opacity_bounding,
+        proper_ewa_scaling=ext.proper_ewa_scaling,
+    )
+    color, final_t, n_contrib, pairs, depth_acc = render_tiled(
+        prep, bg, image_width=W, image_height=H, sort_order=sort_order,
+    )
+    if full_output:
+        return RenderOutput(color, prep.radii, final_t, n_contrib, depth_acc,
+                            pairs.num_rendered)
+    return color, prep.radii
+
+
+class GaussianRasterizer(torch.nn.Module):
+    """API-parity rasterizer module (reference __init__.py:265-314)."""
+
+    def __init__(self, raster_settings: GaussianRasterizationSettings, **kw):
+        super().__init__()
+        self.raster_settings = raster_settings
+        self._kw = kw
+
+    def markVisible(self, positions):
+        with torch.no_grad():
+            rs = self.raster_settings
+            dev = positions.device
+            return mark_visible(
+                positions,
+                torch.as_tensor(rs.viewmatrix, dtype=torch.float32, device=dev),
+                torch.as_tensor(rs.projmatrix, dtype=torch.float32, device=dev),
+            )
+
+    def forward(
+        self,
+        means3D,
+        means2D,
+        opacities,
+        shs=None,
+        colors_precomp=None,
+        scales=None,
+        rotations=None,
+        cov3D_precomp=None,
+    ):
+        if (shs is None and colors_precomp is None) or (
+            shs is not None and colors_precomp is not None
+        ):
+            raise Exception(
+                "Please provide excatly one of either SHs or precomputed colors!"
+            )
+        if ((scales is None or rotations is None) and cov3D_precomp is None) or (
+            (scales is not None or rotations is not None)
+            and cov3D_precomp is not None
+        ):
+            raise Exception(
+                "Please provide exactly one of either scale/rotation pair or "
+                "precomputed 3D covariance!"
+            )
+        return rasterize_gaussians(
+            means3D,
+            means2D,
+            shs,
+            colors_precomp,
+            opacities,
+            scales,
+            rotations,
+            cov3D_precomp,
+            self.raster_settings,
+            **self._kw,
+        )

@@ -1,0 +1,99 @@
+"""Synthetic scenes and cameras for tests and benchmarks (numpy-drawn).
+
+Port of ``stopthepop_tpu/utils/testing.py``. Camera matrices follow the
+torch-3DGS convention (transposed world-to-view / world-to-clip). Scenes are
+drawn with numpy from a seed, so the same arrays can be handed to both
+packages.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+
+class Camera(NamedTuple):
+    viewmatrix: torch.Tensor          # [4, 4] transposed world-to-view
+    projmatrix: torch.Tensor          # [4, 4] transposed world-to-clip (full)
+    inv_viewprojmatrix: torch.Tensor  # [4, 4]
+    campos: torch.Tensor              # [3]
+    tanfovx: float
+    tanfovy: float
+    width: int
+    height: int
+
+
+def make_camera(
+    width: int,
+    height: int,
+    fovx_deg: float = 60.0,
+    campos=(0.0, 0.0, -4.0),
+    znear: float = 0.01,
+    zfar: float = 100.0,
+    device=None,
+) -> Camera:
+    """Axis-aligned camera at ``campos`` looking along +z (identity rotation)."""
+    dev = resolve_device(device)
+    tanfovx = math.tan(math.radians(fovx_deg) / 2.0)
+    tanfovy = tanfovx * height / width
+    c = np.asarray(campos, dtype=np.float32)
+
+    w2v = np.eye(4, dtype=np.float32)
+    w2v[:3, 3] = -c
+
+    proj = np.zeros((4, 4), dtype=np.float32)
+    proj[0, 0] = 1.0 / tanfovx
+    proj[1, 1] = 1.0 / tanfovy
+    proj[2, 2] = zfar / (zfar - znear)
+    proj[2, 3] = -(zfar * znear) / (zfar - znear)
+    proj[3, 2] = 1.0
+
+    full = proj @ w2v
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)
+
+    return Camera(
+        viewmatrix=t(w2v.T),
+        projmatrix=t(full.T),
+        inv_viewprojmatrix=t(np.linalg.inv(full).T),
+        campos=t(c),
+        tanfovx=tanfovx,
+        tanfovy=tanfovy,
+        width=width,
+        height=height,
+    )
+
+
+class Scene(NamedTuple):
+    means3d: torch.Tensor    # [P, 3]
+    scales: torch.Tensor     # [P, 3]
+    rotations: torch.Tensor  # [P, 4] normalized (r, x, y, z)
+    opacities: torch.Tensor  # [P]
+    shs: torch.Tensor        # [P, 16, 3]
+    colors: torch.Tensor     # [P, 3] precomputed alternative
+
+
+def random_scene(seed: int, num_gaussians: int, extent: float = 1.5,
+                 scale_range=(0.01, 0.12), device=None) -> Scene:
+    """Random scene with the JAX package's distributions, drawn with numpy."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    n = num_gaussians
+    means = rng.uniform(-extent, extent, (n, 3))
+    scales = np.exp(rng.uniform(math.log(scale_range[0]),
+                                math.log(scale_range[1]), (n, 3)))
+    q = rng.standard_normal((n, 4))
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    opac = rng.uniform(0.2, 0.95, (n,))
+    shs = 0.3 * rng.standard_normal((n, 16, 3))
+    colors = rng.uniform(0.0, 1.0, (n, 3))
+    return Scene(*(
+        torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        for x in (means, scales, q, opac, shs, colors)
+    ))

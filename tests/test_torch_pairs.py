@@ -1,0 +1,117 @@
+"""The port's pair expansion and sort against the JAX package's, on the CPU.
+
+Each side preprocesses the same numpy-drawn scene; the per-tile ordered
+Gaussian id lists must be equal exactly (JAX's invalid slots stripped).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stopthepop_tpu.config import GlobalSortOrder as JOrder
+from stopthepop_tpu.render.duplicate import build_pairs as jax_build_pairs
+from stopthepop_tpu.render.duplicate import rect_histogram as jax_rect_histogram
+from stopthepop_tpu.render.preprocess import preprocess as jax_preprocess
+
+from stopthepop_tpu_torch.config import GlobalSortOrder
+from stopthepop_tpu_torch.render.duplicate import (
+    build_pairs,
+    count_pairs,
+    expand_pairs,
+    rect_histogram,
+)
+from stopthepop_tpu_torch.render.pipeline import tile_grid
+from stopthepop_tpu_torch.render.preprocess import preprocess
+from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+
+
+def _preps(w, h, order, cull, seed=11, n=250):
+    scene = random_scene(seed, n, device="cpu")
+    cam = make_camera(w, h, device="cpu")
+    kw = dict(tanfovx=cam.tanfovx, tanfovy=cam.tanfovy, image_width=w,
+              image_height=h, sh_degree=3, rect_bounding=cull,
+              tight_opacity_bounding=cull)
+    t = preprocess(scene.means3d, scene.opacities, scales=scene.scales,
+                   rotations=scene.rotations, shs=scene.shs,
+                   viewmatrix=cam.viewmatrix, projmatrix=cam.projmatrix,
+                   campos=cam.campos, sort_order=order, **kw)
+    j = jax_preprocess(
+        *(jnp.asarray(x.numpy()) for x in (scene.means3d, scene.opacities)),
+        scales=jnp.asarray(scene.scales.numpy()),
+        rotations=jnp.asarray(scene.rotations.numpy()),
+        shs=jnp.asarray(scene.shs.numpy()),
+        viewmatrix=jnp.asarray(cam.viewmatrix.numpy()),
+        projmatrix=jnp.asarray(cam.projmatrix.numpy()),
+        campos=jnp.asarray(cam.campos.numpy()), sort_order=JOrder(int(order)),
+        **kw,
+    )
+    return t, j
+
+
+@pytest.mark.parametrize("order", [GlobalSortOrder.Z_DEPTH, GlobalSortOrder.DISTANCE])
+@pytest.mark.parametrize("size,cull", [((64, 64), False), ((70, 45), True)])
+def test_per_tile_id_lists_match_jax(order, size, cull):
+    w, h = size
+    gx, gy = tile_grid(w, h)
+    t, j = _preps(w, h, order, cull)
+    pairs = build_pairs(t, grid_x=gx, grid_y=gy, sort_order=order)
+    total = int(count_pairs(t))
+    assert pairs.num_rendered == total > 0
+    jp = jax_build_pairs(j, capacity=total + 64, grid_x=gx, grid_y=gy,
+                         sort_order=JOrder(int(order)))
+    jstarts, jends = np.asarray(jp.starts), np.asarray(jp.ends)
+    jgid = np.asarray(jp.gauss_id)
+    starts, ends = pairs.starts.numpy(), pairs.ends.numpy()
+    gid = pairs.gauss_id.numpy()
+    for tile in range(gx * gy):
+        np.testing.assert_array_equal(
+            gid[starts[tile]:ends[tile]], jgid[jstarts[tile]:jends[tile]],
+            err_msg=f"tile {tile}",
+        )
+    # Sorted by tile, then depth; ranges cover exactly their tile.
+    tid = pairs.tile_id.numpy()
+    assert (np.diff(tid) >= 0).all()
+    for tile in range(gx * gy):
+        seg = pairs.depth.numpy()[starts[tile]:ends[tile]]
+        assert (tid[starts[tile]:ends[tile]] == tile).all()
+        assert (np.diff(seg) >= 0).all()
+    np.testing.assert_array_equal(ends - starts,
+                                  rect_histogram(t, gx, gy).numpy())
+
+
+def test_expanded_stream_matches_bruteforce():
+    t, _ = _preps(80, 48, GlobalSortOrder.Z_DEPTH, True)
+    gx, _ = tile_grid(80, 48)
+    tile_id, depth, gid = expand_pairs(t, grid_x=gx)
+    expected = []
+    for g in range(t.valid.shape[0]):
+        if not t.valid[g]:
+            continue
+        (x0, y0), (x1, y1) = t.rect_min[g].tolist(), t.rect_max[g].tolist()
+        expected += [(ty * gx + tx, g) for ty in range(y0, y1) for tx in range(x0, x1)]
+    assert list(zip(tile_id.tolist(), gid.tolist())) == expected
+    torch.testing.assert_close(depth, t.depth[gid.long()], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_rect_histogram_matches_jax(cull):
+    t, j = _preps(70, 45, GlobalSortOrder.Z_DEPTH, cull)
+    gx, gy = tile_grid(70, 45)
+    np.testing.assert_array_equal(rect_histogram(t, gx, gy).numpy(),
+                                  np.asarray(jax_rect_histogram(j, gx, gy)))
+
+
+def test_per_tile_depth_orders_raise():
+    t, _ = _preps(32, 32, GlobalSortOrder.Z_DEPTH, False, n=20)
+    for order in (GlobalSortOrder.PTD_CENTER, GlobalSortOrder.PTD_MAX):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            build_pairs(t, grid_x=2, grid_y=2, sort_order=order)
+
+
+def test_empty_stream():
+    t, _ = _preps(32, 32, GlobalSortOrder.Z_DEPTH, False, n=20)
+    t = t._replace(tiles_touched=torch.zeros_like(t.tiles_touched))
+    pairs = build_pairs(t, grid_x=2, grid_y=2)
+    assert pairs.num_rendered == 0
+    assert (pairs.starts == pairs.ends).all()
