@@ -3,7 +3,9 @@
 
 Run from the root of the repository on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke run below
+    python3 chip_smoke.py --profile  # and a torch.profiler trace of 3
+                                     # training steps (phase train_profile)
 
 Phases, one JSON line each; any failure exits non-zero:
   1. build: compile every CUDA kernel of the port with nvcc (in parallel).
@@ -11,14 +13,31 @@ Phases, one JSON line each; any failure exits non-zero:
      version on the card — a 70x45 random scene and the full 1920x1080 frame
      of the 500K-Gaussian bench scene (color / final_T within atol 1e-5,
      n_contrib exactly) — and time both.
-  3. main path: save a 500K-Gaussian model as PLY, load it back, render 4
+  3. main: save a 500K-Gaussian model as PLY, load it back, render 4
      orbit frames at 1920x1080 through render/cli.py::render_frames (GLOBAL,
      Z_DEPTH, rect + tight-opacity culling) under inference_mode; every frame
      finite and not background, ~1M+ pairs a frame, K1 launched exactly once
      per frame. Then a per-stage breakdown of one frame (CUDA events).
-  4. the kernels line: each ported kernel with its launches on the main path,
-     its error against the plain version, its time, the plain version's
-     time and its bound on this card.
+  4. kernel_bwd: hold kernel K2 (GLOBAL blend, backward) against its plain
+     version on the same two scenes with seeded random cotangents (each of
+     the 9 per-pair gradient columns within 1e-4 of that column's largest
+     value); two K2 launches and two full BlendGlobal backward passes
+     bitwise equal; time K2 and its plain version.
+  5. train: the training path at full width — the bench model, the bench
+     camera at 1920x1080, a seeded random target, one warm-up step and 5
+     timed steps of train/trainer.py's step (K1, K2, L1 + D-SSIM, per-group
+     Adam); loss finite and falling, every gradient finite and nonzero
+     somewhere, K1 and K2 launched once a step. Then a per-stage breakdown
+     (forward, backward, optimizer; and the loss's own forward and backward;
+     CUDA events). With --profile, a torch.profiler trace of 3 more steps:
+     device busy time, idle share and the kernels that take the most time.
+  6. train_cli: the training CLI at small size — a NeRF-synthetic dataset
+     of 8 renders of the procedural scene at 200x200, a few hundred
+     iterations of train/cli.py::main with densification and an opacity
+     reset; eval PSNR rises, the Gaussian count changes, the PLY loads.
+  7. the kernels line: each ported kernel with its launches on the training
+     path (phase 5), its error against the plain version, its time, the
+     plain version's time and its bound on this card.
 The line before the last is the card's name and power limit from nvidia-smi;
 the last line is {"ok": true, "device": {...}}.
 
@@ -28,6 +47,7 @@ it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -49,6 +69,15 @@ PEAK_FP32_S = 67e12
 # quadratic form) and per blend (w, three colour and one depth update);
 # expf, min and compares are not counted, so the bound stays a lower bound.
 OPS_PER_EVAL, OPS_PER_BLEND = 11, 9
+# K2 replays each evaluation as K1 does (11), and per blend forms the alpha
+# gradient and the nine per-pair terms (36 operations) and adds them into
+# the nine per-pair sums (9).
+OPS_PER_BLEND_BWD = 45
+K2_RTOL = 1e-4  # of each gradient column's largest magnitude
+TRAIN_STEPS = 5
+# The training CLI's run: a NeRF-synthetic dataset of CLI_VIEWS renders of
+# a CLI_SCENE-Gaussian procedural scene at CLI_SIZE x CLI_SIZE.
+CLI_ITERS, CLI_VIEWS, CLI_SIZE, CLI_SCENE, CLI_INIT = 300, 8, 200, 20_000, 2_000
 
 
 def emit(obj):
@@ -144,7 +173,112 @@ def compare_kernel(name, args, kw, *, count_evaluations=False):
     return stats
 
 
-def main() -> int:
+def compare_kernel_bwd(name, args, kw, cotangents, *, count_evaluations=False):
+    """K2 against its plain version on K1's output for ``args``; two K2
+    launches must give the same bits. Returns (stats, K2 inputs)."""
+    from stopthepop_tpu_torch.kernels.global_blend import (
+        GRAD_COLS,
+        blend_global_backward,
+        blend_global_backward_plain,
+        blend_global_forward,
+    )
+
+    color, final_t, n_contrib, _ = blend_global_forward(*args, **kw)
+    bwd_args = (*args[:6], color, final_t, n_contrib, *cotangents)
+    before = blend_global_backward.launches
+    got = blend_global_backward(*bwd_args, **kw)
+    again = blend_global_backward(*bwd_args, **kw)
+    torch.cuda.synchronize()
+    check(blend_global_backward.launches == before + 2, "kernel_bwd",
+          f"{name}: launch counter did not move")
+    ref = blend_global_backward_plain(*bwd_args, **kw,
+                                      count_evaluations=count_evaluations)
+    if count_evaluations:
+        ref, evaluations, blends = ref
+    scale = ref.abs().amax(dim=0)
+    err = (got - ref).abs().amax(dim=0)
+    stats = {
+        "max_abs_err": float(err.max()),
+        "max_abs_err_by_column": dict(zip(GRAD_COLS, err.tolist())),
+        "column_max": dict(zip(GRAD_COLS, scale.tolist())),
+        "finite": bool(torch.isfinite(got).all()),
+        "bitwise_repeat": bool(torch.equal(got, again)),
+    }
+    check(stats["finite"] and bool((err <= K2_RTOL * scale).all()),
+          "kernel_bwd", f"{name}: kernel disagrees: {stats}")
+    check(stats["bitwise_repeat"], "kernel_bwd",
+          f"{name}: two K2 launches differ")
+    if count_evaluations:
+        stats["evaluations"], stats["blends"] = evaluations, blends
+    return stats, bwd_args
+
+
+def blend_backward_grads(prep, pairs, kw, cotangents):
+    """Per-Gaussian (xy, conic_opacity, rgb) gradients of one full
+    BlendGlobal backward pass (K1, K2, unsort, segmented sum)."""
+    from stopthepop_tpu_torch.kernels.blend_vjp import BlendGlobal
+
+    rows = [t.detach().clone().requires_grad_(True)
+            for t in (prep.mean2d, prep.conic_opacity, prep.rgb)]
+    color, final_t, _, _ = BlendGlobal.apply(
+        *rows, prep.depth.detach().contiguous(), pairs, kw["grid_x"],
+        kw["grid_y"], kw["width"], kw["height"])
+    torch.autograd.backward([color, final_t], list(cotangents))
+    return [r.grad for r in rows]
+
+
+def profile_steps(step, n: int, unprofiled_ms: float):
+    """torch.profiler over ``n`` calls of ``step``: device busy time (the
+    sum of the kernels' device times; one stream, so no overlap; the
+    device-side copies of host annotations such as Optimizer.step, which
+    span kernels and carry a host event's name, left out), wall time
+    and the kernels with the most device time, all per step. The profiler
+    slows the host, so the idle share is also given against
+    ``unprofiled_ms``, the step's time without it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.key_averages()
+    host_names = {e.key for e in events if e.device_type == DeviceType.CPU}
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and e.key not in host_names]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    check(busy_ms > 0, "train_profile", "the profiler saw no device time")
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "unprofiled_ms_per_step": unprofiled_ms,
+            "device_idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
+            "kernel_launches_per_step": sum(e.count for e in kernels) / n,
+            "top_kernels": [
+                {"name": e.key[:120], "ms_per_step": e.self_device_time_total / 1e3 / n,
+                 "launches_per_step": e.count / n} for e in kernels[:15]]}
+
+
+def reset_launches():
+    from stopthepop_tpu_torch.kernels import global_blend
+
+    global_blend.blend_global_forward.launches = 0
+    global_blend.blend_global_backward.launches = 0
+
+
+def read_launches():
+    from stopthepop_tpu_torch.kernels import global_blend
+
+    return (global_blend.blend_global_forward.launches,
+            global_blend.blend_global_backward.launches)
+
+
+def main(argv=None) -> int:
+    want_profile = "--profile" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -155,7 +289,7 @@ def main() -> int:
     from stopthepop_tpu_torch.io.ply import load_gaussian_model, save_gaussian_model
     from stopthepop_tpu_torch.kernels import build, global_blend
     from stopthepop_tpu_torch.models.gaussians import init_random, to_numpy_params
-    from stopthepop_tpu_torch.render.cli import render_frames
+    from stopthepop_tpu_torch.render.cli import render_frames, render_model
     from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -182,7 +316,8 @@ def main() -> int:
              "scales": scene.scales, "rotations": scene.rotations,
              "shs": scene.shs}
     prep, pairs, kw = prepare(small, make_camera(70, 45, device=dev), 70, 45)
-    small_stats = compare_kernel("70x45", blend_args(prep, pairs), kw)
+    small_args, small_kw = blend_args(prep, pairs), kw
+    small_stats = compare_kernel("70x45", small_args, small_kw)
     emit({"phase": "kernel", "ok": True, "case": "70x45 random scene, 300 Gaussians",
           "pairs": pairs.num_rendered, **small_stats})
     model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3, device=dev)
@@ -226,12 +361,12 @@ def main() -> int:
     render_frames(loaded, cams[:1], settings, dev)  # warm-up (allocator, cuBLAS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    global_blend.blend_global_forward.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     outs = render_frames(loaded, cams, settings, dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = global_blend.blend_global_forward.launches
+    launches, serve_k2 = read_launches()
     bg = torch.zeros(3, device=dev)
     del saved
     pairs_per_frame = [o.num_rendered for o in outs]
@@ -241,6 +376,7 @@ def main() -> int:
         check(bool((o.color != bg[:, None, None]).any()), "main", f"frame {i} is background")
         check(o.num_rendered >= MIN_PAIRS, "main", f"frame {i}: only {o.num_rendered} pairs")
     check(launches == FRAMES, "main", f"K1 launched {launches} times for {FRAMES} frames")
+    check(serve_k2 == 0, "main", f"K2 launched {serve_k2} times while serving")
 
     # Per-stage device times of frame 0 (CUDA events), after the counted run.
     from stopthepop_tpu_torch.io.cameras import to_camera_arrays
@@ -274,17 +410,207 @@ def main() -> int:
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "card": card})
 
-    # 4. kernels ------------------------------------------------------------------
+    del outs, loaded
+
+    # 4. kernel K2 against its plain version ------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def cotangents(width, height):
+        return (torch.randn((3, height, width), generator=gen, device=dev),
+                torch.randn((height, width), generator=gen, device=dev))
+
+    with torch.no_grad():
+        small_bwd, _ = compare_kernel_bwd("70x45", small_args, small_kw,
+                                          cotangents(70, 45))
+    emit({"phase": "kernel_bwd", "ok": True,
+          "case": "70x45 random scene, 300 Gaussians", **small_bwd})
+    bench_cam = make_camera(WIDTH, HEIGHT, campos=(0.0, 0.0, -4.0), device=dev)
+    with torch.no_grad():
+        prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
+    cot = cotangents(WIDTH, HEIGHT)
+    with torch.no_grad():
+        full_bwd, k2_args = compare_kernel_bwd("1080p", blend_args(prep, pairs),
+                                               kw, cot, count_evaluations=True)
+        k2_ms = cuda_ms(lambda: global_blend.blend_global_backward(*k2_args, **kw), 20)
+        k2_plain_ms = cuda_ms(
+            lambda: global_blend.blend_global_backward_plain(*k2_args, **kw), 1, 0)
+    first = blend_backward_grads(prep, pairs, kw, cot)
+    second = blend_backward_grads(prep, pairs, kw, cot)
+    torch.cuda.synchronize()
+    full_bwd["bitwise_repeat_backward"] = all(
+        torch.equal(a, b) for a, b in zip(first, second))
+    check(full_bwd["bitwise_repeat_backward"], "kernel_bwd",
+          "two BlendGlobal backward passes differ")
+    check(all(bool(torch.isfinite(g).all()) and bool((g != 0).any())
+              for g in first), "kernel_bwd", "per-Gaussian gradients not finite or all zero")
+    del first, second
+    N = pairs.num_rendered
+    k2_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3) + WIDTH * HEIGHT * 9 + N * 9)
+    k2_ops = (OPS_PER_EVAL * full_bwd["evaluations"]
+              + OPS_PER_BLEND_BWD * full_bwd["blends"])
+    k2_bytes_ms = k2_bytes / PEAK_BYTES_S * 1e3
+    k2_ops_ms = k2_ops / PEAK_FP32_S * 1e3
+    emit({"phase": "kernel_bwd", "ok": True,
+          "case": "1920x1080, 500K Gaussians, bench camera", "pairs": N,
+          **full_bwd, "k2_ms": k2_ms, "plain_ms": k2_plain_ms,
+          "bytes": k2_bytes, "ops": k2_ops, "bytes_bound_ms": k2_bytes_ms,
+          "ops_bound_ms": k2_ops_ms, "card": card})
+    del prep, pairs, k2_args, cot
+
+    # 5. train: the training step at full width ----------------------------------
+    from stopthepop_tpu_torch.config import GaussianRasterizationSettings
+    from stopthepop_tpu_torch.io.cameras import CameraArrays
+    from stopthepop_tpu_torch.models.gaussians import PARAM_NAMES
+    from stopthepop_tpu_torch.train import trainer
+    from stopthepop_tpu_torch.train.loss import rgb_loss
+
+    static = GaussianRasterizationSettings(
+        image_height=HEIGHT, image_width=WIDTH, tanfovx=bench_cam.tanfovx,
+        tanfovy=bench_cam.tanfovy, bg=torch.zeros(3, device=dev),
+        scale_modifier=1.0, viewmatrix=None, projmatrix=None,
+        inv_viewprojmatrix=None, sh_degree=3, campos=None, prefiltered=False,
+        settings=settings,
+    )
+    cam = CameraArrays(bench_cam.viewmatrix, bench_cam.projmatrix,
+                       bench_cam.inv_viewprojmatrix, bench_cam.campos)
+    target = torch.rand((3, HEIGHT, WIDTH), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    state = trainer.init_train_state(model, trainer.make_3dgs_optimizer(model))
+    stats = trainer.init_densify_stats(NUM_GAUSSIANS, dev)
+    step_fn = trainer.make_train_step(static=static)
+    state, stats, _ = step_fn(state, cam, target, stats)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms, step_pairs = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, stats, aux = step_fn(state, cam, target, stats)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(aux["loss"]))
+        step_pairs.append(aux["num_rendered"])
+    train_k1, train_k2 = read_launches()
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(v) for v in losses), "train", f"loss not finite: {losses}")
+    check(losses[-1] < losses[0], "train", f"loss did not fall: {losses}")
+    check(train_k1 == TRAIN_STEPS and train_k2 == TRAIN_STEPS, "train",
+          f"K1/K2 launched {train_k1}/{train_k2} times in {TRAIN_STEPS} steps")
+    for name in PARAM_NAMES:
+        g = getattr(model, name).grad
+        check(g is not None and bool(torch.isfinite(g).all())
+              and bool((g != 0).any()), "train", f"gradient of {name}")
+    visible = stats.max_radii > 0
+    check(bool(visible.any()) and bool((stats.denom[visible] > 0).all())
+          and bool(torch.isfinite(stats.grad2d_accum).all()), "train",
+          "densification stats")
+    check(min(step_pairs) >= MIN_PAIRS, "train", f"pairs per step {step_pairs}")
+
+    # Per-stage device times of 3 more steps (CUDA events), after the count.
+    stage = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    reps = 3
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _, _ = trainer.step_forward(state, cam, target, static=static)
+        ev[1].record()
+        trainer.step_backward(state, loss)
+        ev[2].record()
+        state = trainer.step_update(state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for key, a, b in (("forward_ms", 0, 1), ("backward_ms", 1, 2),
+                          ("optimizer_ms", 2, 3)):
+            stage[key] += ev[a].elapsed_time(ev[b]) / reps
+    # The loss alone (L1 + D-SSIM at 1080p), forward and backward, on the
+    # last rendered image.
+    with torch.no_grad():
+        color, _ = render_model(model, cam, static=static)
+    color = color.detach().requires_grad_(True)
+    stage["loss_forward_ms"] = cuda_ms(lambda: rgb_loss(color, target), 10)
+    stage["loss_backward_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(rgb_loss(color, target), color),
+        10) - stage["loss_forward_ms"]
+    del color
+    emit({"phase": "train", "ok": True, "steps": TRAIN_STEPS, "width": WIDTH,
+          "height": HEIGHT, "gaussians": NUM_GAUSSIANS, "losses": losses,
+          "ms_per_step": sum(step_ms) / TRAIN_STEPS, "step_ms": step_ms,
+          "stage_ms": stage, "pairs_per_step": step_pairs,
+          "k1_launches": train_k1, "k2_launches": train_k2,
+          "peak_mem_gib": train_peak, "card": card})
+    if want_profile:
+        def one_step():
+            nonlocal state, stats
+            state, stats, _ = step_fn(state, cam, target, stats)
+
+        emit({"phase": "train_profile", "ok": True, "steps": 3,
+              **profile_steps(one_step, 3, sum(step_ms) / TRAIN_STEPS),
+              "card": card})
+    del state, stats, model, target
+
+    # 6. train_cli: the training entry point at small size ----------------------
+    from stopthepop_tpu_torch.io.ply import load_gaussian_model as load_ply
+    from stopthepop_tpu_torch.train import cli as train_cli
+    from stopthepop_tpu_torch.utils.synthetic import (
+        structured_scene,
+        write_nerf_synthetic,
+    )
+
+    data = out_dir / "nerf_synthetic"
+    gt, extent = structured_scene(CLI_SCENE, seed=0, device=dev)
+    write_nerf_synthetic(str(data), gt, views=CLI_VIEWS, size=CLI_SIZE, device=dev)
+    out_ply = out_dir / "trained.ply"
+    init_points = CLI_INIT
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # the CLI's progress lines
+        res = train_cli.main([
+            "--data", str(data), "--iters", str(CLI_ITERS),
+            "--init-points", str(init_points), "--scene-extent", str(extent),
+            "--densify-from", "50", "--densify-every", "50",
+            "--opacity-reset-every", "150", "--densify-until", "250",
+            "--eval-every", "100",
+            "--sh-ramp-every", "100", "--out", str(out_ply),
+            "--device", str(dev), "--seed", "0",
+        ])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_k1, cli_k2 = read_launches()
+    evals = [res.eval_psnr[k] for k in sorted(res.eval_psnr)]
+    trained = load_ply(str(out_ply), device=dev)
+    check(all(math.isfinite(v) for v in evals) and evals[-1] > evals[0],
+          "train_cli", f"eval PSNR did not rise: {res.eval_psnr}")
+    check(res.num_gaussians and res.num_gaussians[-1] != init_points,
+          "train_cli", f"Gaussian count did not change: {res.num_gaussians}")
+    check(trained.num_gaussians == res.state.model.num_gaussians, "train_cli",
+          "PLY does not hold the trained model")
+    check(cli_k2 >= CLI_ITERS and cli_k1 >= CLI_ITERS, "train_cli",
+          f"K1/K2 launched {cli_k1}/{cli_k2} times in {CLI_ITERS} iterations")
+    emit({"phase": "train_cli", "ok": True, "iters": CLI_ITERS,
+          "views": CLI_VIEWS, "size": CLI_SIZE, "eval_psnr": res.eval_psnr,
+          "gaussians": [init_points] + res.num_gaussians, "seconds": cli_s,
+          "k1_launches": cli_k1, "k2_launches": cli_k2, "card": card})
+
+    # 7. kernels ------------------------------------------------------------------
     emit({"kernels": [{
         "name": global_blend.KERNEL, "route": "cuda",
         "source": global_blend.SOURCE, "replaces": global_blend.REPLACES,
-        "launches": launches,
+        "launches": train_k1,
         "max_abs_err": max(small_stats["max_abs_err_color"],
                            small_stats["max_abs_err_final_t"],
                            full_stats["max_abs_err_color"],
                            full_stats["max_abs_err_final_t"]),
         "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }, {
+        "name": global_blend.BWD_KERNEL, "route": "cuda",
+        "source": global_blend.BWD_SOURCE, "replaces": global_blend.BWD_REPLACES,
+        "launches": train_k2,
+        "max_abs_err": max(small_bwd["max_abs_err"], full_bwd["max_abs_err"]),
+        "ms": k2_ms, "plain_ms": k2_plain_ms,
+        "bound_ms": max(k2_bytes_ms, k2_ops_ms),
+        "bound_by": "bytes" if k2_bytes_ms >= k2_ops_ms else "operations",
         "library_ms": None,
     }]})
     print(card)

@@ -1,0 +1,237 @@
+// GLOBAL sort-mode tile blend, backward (kernel K2 of the port).
+//
+// Replaces stopthepop_tpu/kernels/global_blend.py::blend_global_backward (the
+// Pallas _bwd_kernel). It computes what that kernel computes — one
+// front-to-back replay of each tile's sorted pair segment that uses the saved
+// forward output, per-pair gradients written into each pair's own slot, no
+// atomics — in the shape of K1 (global_blend_fwd.cu):
+//
+//   * one block of 256 threads per 16x16 tile, one thread per pixel
+//     (pixels row-major within the tile); pixels outside the image take no
+//     part;
+//   * per pixel: the colour and final-T cotangents g (3), g_T and the saved
+//     raw colour and final_T give S_tot = colour . g and KT = g_T T_final;
+//   * the block stages batches of 256 Gaussians in shared memory through the
+//     sorted ids and replays them exactly as K1 blended them (same expf, same
+//     operation order, built with -fmad=false), so every skip and the "stop
+//     before T < 1e-4" decision fall as in the forward. Per blended pair:
+//       w      = alpha T_before
+//       prefix = prefix + w (rgb . g)
+//       galpha = (rgb . g) T_before - (S_tot - prefix + KT) / (1 - alpha)
+//     gated to 0 where the 0.99 clamp was active; dpower = -alpha galpha;
+//     d(x, y, a, b, c) from dpower, d_opacity = galpha alpha / o and
+//     d_rgb = w g (Pallas global_blend.py:355-396);
+//   * each of the 9 per-pair values is summed over the tile's 256 pixels in
+//     a fixed order: a shuffle-down tree inside each warp (skipped, as a
+//     zero, where no lane of the warp blended the pair), then the 8 warp
+//     partials in warp order, from shared memory, once per group of 32
+//     pairs. The sum goes to the pair's sorted slot: two runs give the same
+//     bits;
+//   * the replay stops at the tile's largest n_contrib (1-based position in
+//     the segment of the last pair blended, as K1 writes it): no pair past it
+//     has a gradient. Its rows stay as the caller allocated them (zeros).
+//
+// Output: d_pair [N, 9] float32 in sorted-slot order, columns
+// (d_x, d_y, d_a, d_b, d_c, d_opacity, d_r, d_g, d_b).
+//
+// What bounds it on an H100: the same (pixel, pair) evaluations as K1, each
+// now about 3-4x K1's FP32 operations (replay, the alpha gradient and its
+// divide, the nine per-pair terms), plus the nine warp reductions per pair
+// and warp: bound by operations, as K1 is. Its design against that bound:
+// every staged Gaussian is read once per tile and served to 256 pixels from
+// shared memory; the replay ends at the tile's last contributor; warps
+// where no pixel blended a pair skip its reductions; one barrier per 32
+// pairs. A faster version (fewer reductions, overlapped staging) is later
+// work.
+//
+// Built by stopthepop_tpu_torch/kernels/build.py with nvcc for sm_90a; plain C
+// interface, loaded with ctypes.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTileX = 16;
+constexpr int kTileY = 16;
+constexpr int kBlock = kTileX * kTileY;
+constexpr int kWarps = kBlock / 32;
+constexpr int kGroup = 32;  // pairs reduced across warps per barrier
+constexpr int kCols = 9;
+constexpr float kAlphaMax = 0.99f;
+constexpr float kAlphaThreshold = 1.0f / 255.0f;
+constexpr float kTThreshold = 1.0e-4f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+  // Lane 0 ends with the sum; the tree is fixed, so the bits are too.
+  for (int off = 16; off > 0; off >>= 1) {
+    v = v + __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kBlock)
+global_blend_bwd_kernel(const int* __restrict__ point_list,
+                        const int* __restrict__ starts,
+                        const int* __restrict__ ends,
+                        const float2* __restrict__ xy,
+                        const float4* __restrict__ conic_opacity,
+                        const float* __restrict__ rgb,
+                        const float* __restrict__ color,
+                        const float* __restrict__ final_t,
+                        const int* __restrict__ n_contrib,
+                        const float* __restrict__ grad_color,
+                        const float* __restrict__ grad_final_t,
+                        int grid_x, int width, int height,
+                        float* __restrict__ d_pair) {
+  __shared__ float2 s_xy[kBlock];
+  __shared__ float4 s_co[kBlock];
+  __shared__ float4 s_rgb[kBlock];
+  __shared__ float s_part[kWarps][kGroup][kCols];
+  __shared__ int s_last[kWarps];
+
+  const int tile = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int px = (tile % grid_x) * kTileX + t % kTileX;
+  const int py = (tile / grid_x) * kTileY + t / kTileX;
+  const bool inside = px < width && py < height;
+  const float pfx = static_cast<float>(px);
+  const float pfy = static_cast<float>(py);
+
+  float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, s_tot = 0.0f, kt = 0.0f;
+  int nc = 0;
+  if (inside) {
+    const int pix = py * width + px;
+    const int plane = width * height;
+    g0 = grad_color[pix];
+    g1 = grad_color[plane + pix];
+    g2 = grad_color[2 * plane + pix];
+    s_tot = color[pix] * g0 + color[plane + pix] * g1 +
+            color[2 * plane + pix] * g2;
+    kt = grad_final_t[pix] * final_t[pix];
+    nc = n_contrib[pix];
+  }
+
+  // The tile's last contributor: a block max of n_contrib.
+  const int warp_last = __reduce_max_sync(0xffffffffu, nc);
+  if (lane == 0) s_last[warp] = warp_last;
+  __syncthreads();
+  int last = s_last[0];
+  for (int w = 1; w < kWarps; ++w) last = max(last, s_last[w]);
+
+  const int start = starts[tile];
+  const int count = min(ends[tile] - start, last);
+
+  float T = 1.0f;
+  float prefix = 0.0f;
+  bool done = !inside;
+
+  for (int base = 0; base < count; base += kBlock) {
+    // Barrier: the previous batch is consumed before it is overwritten.
+    __syncthreads();
+    const int k = base + t;
+    if (k < count) {
+      const int g = point_list[start + k];
+      s_xy[t] = xy[g];
+      s_co[t] = conic_opacity[g];
+      s_rgb[t] = make_float4(rgb[3 * g], rgb[3 * g + 1], rgb[3 * g + 2], 0.0f);
+    }
+    __syncthreads();
+
+    const int n = min(kBlock, count - base);
+    for (int sub = 0; sub < n; sub += kGroup) {
+      const int m = min(kGroup, n - sub);
+      for (int jj = 0; jj < m; ++jj) {
+        const int j = sub + jj;
+        float v[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) v[c] = 0.0f;
+        bool blend = false;
+        if (!done) {
+          const float2 mu = s_xy[j];
+          const float4 co = s_co[j];
+          const float dx = mu.x - pfx;
+          const float dy = mu.y - pfy;
+          const float power =
+              0.5f * (co.x * dx * dx + co.z * dy * dy) + co.y * dx * dy;
+          if (power >= 0.0f) {
+            const float alpha_raw = co.w * expf(-power);
+            const float alpha = fminf(kAlphaMax, alpha_raw);
+            if (alpha >= kAlphaThreshold) {
+              const float test_t = T * (1.0f - alpha);
+              if (test_t < kTThreshold) {
+                done = true;
+              } else {
+                blend = true;
+                const float4 f = s_rgb[j];
+                const float w = alpha * T;
+                const float cdotg = f.x * g0 + f.y * g1 + f.z * g2;
+                prefix = prefix + w * cdotg;
+                float galpha =
+                    cdotg * T - (s_tot - prefix + kt) / (1.0f - alpha);
+                if (!(alpha_raw < kAlphaMax)) galpha = 0.0f;
+                const float dpower = -alpha * galpha;
+                v[0] = dpower * (co.x * dx + co.y * dy);
+                v[1] = dpower * (co.z * dy + co.y * dx);
+                v[2] = dpower * 0.5f * dx * dx;
+                v[3] = dpower * dx * dy;
+                v[4] = dpower * 0.5f * dy * dy;
+                v[5] = galpha * alpha / fmaxf(co.w, 1e-12f);
+                v[6] = w * g0;
+                v[7] = w * g1;
+                v[8] = w * g2;
+                T = test_t;
+              }
+            }
+          }
+        }
+        if (__any_sync(0xffffffffu, blend)) {
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) v[c] = warp_sum(v[c]);
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) s_part[warp][jj][c] = v[c];
+        }
+      }
+      __syncthreads();
+      for (int idx = t; idx < m * kCols; idx += kBlock) {
+        const int jj = idx / kCols;
+        const int c = idx - jj * kCols;
+        float s = s_part[0][jj][c];
+        for (int w = 1; w < kWarps; ++w) s = s + s_part[w][jj][c];
+        d_pair[static_cast<long long>(start + base + sub + jj) * kCols + c] = s;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int stp_global_blend_bwd(const void* point_list, const void* starts,
+                                    const void* ends, const void* xy,
+                                    const void* conic_opacity, const void* rgb,
+                                    const void* color, const void* final_t,
+                                    const void* n_contrib,
+                                    const void* grad_color,
+                                    const void* grad_final_t, int grid_x,
+                                    int grid_y, int width, int height,
+                                    void* d_pair, void* stream) {
+  const int num_tiles = grid_x * grid_y;
+  if (num_tiles > 0) {
+    global_blend_bwd_kernel<<<num_tiles, kBlock, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(point_list), static_cast<const int*>(starts),
+        static_cast<const int*>(ends), static_cast<const float2*>(xy),
+        static_cast<const float4*>(conic_opacity),
+        static_cast<const float*>(rgb), static_cast<const float*>(color),
+        static_cast<const float*>(final_t),
+        static_cast<const int*>(n_contrib),
+        static_cast<const float*>(grad_color),
+        static_cast<const float*>(grad_final_t), grid_x, width, height,
+        static_cast<float*>(d_pair));
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,17 +1,114 @@
-"""8-bit PNG writing (pure Python zlib).
+"""8-bit PNG reading and writing (pure Python zlib + numpy).
 
-Port of ``stopthepop_tpu/io/images.py::write_png`` on its pure-Python path;
-the native codec and the readers are not ported.
+Port of ``stopthepop_tpu/io/images.py`` on its pure-Python path
+(``read_png``, ``read_png_batch``, ``to_float_rgb``, ``write_png``); the
+native codec and the Pillow path for other formats are not ported.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional
 
 import numpy as np
 
 _SIG = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an 8-bit non-interlaced gray/RGB/RGBA PNG into [H, W, C] uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, ihdr = 8, [], None
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        payload = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if ctype == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", payload)
+        elif ctype == b"IDAT":
+            idat.append(payload)
+        elif ctype == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"{path}: missing IHDR")
+    w, h, depth, color, _, _, interlace = ihdr
+    if depth != 8 or interlace != 0 or color not in _CHANNELS:
+        raise ValueError(
+            f"{path}: unsupported PNG (need 8-bit non-interlaced "
+            "gray/RGB/RGBA)"
+        )
+    c = _CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    stride = w * c
+    raw = raw.reshape(h, stride + 1)
+    filters, lines = raw[:, 0], raw[:, 1:].astype(np.int32)
+    out = np.zeros((h, stride), np.int32)
+    for y in range(h):
+        ft, row = int(filters[y]), lines[y].copy()
+        prev = out[y - 1] if y else np.zeros(stride, np.int32)
+        if ft == 0:
+            out[y] = row
+        elif ft == 1:
+            for x in range(c, stride):
+                row[x] = (row[x] + row[x - c]) & 0xFF
+            out[y] = row
+        elif ft == 2:
+            out[y] = (row + prev) & 0xFF
+        elif ft == 3:
+            for x in range(stride):
+                a = row[x - c] if x >= c else 0
+                row[x] = (row[x] + ((a + prev[x]) >> 1)) & 0xFF
+            out[y] = row
+        elif ft == 4:
+            for x in range(stride):
+                a = row[x - c] if x >= c else 0
+                b = prev[x]
+                d = prev[x - c] if x >= c else 0
+                p = a + b - d
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - d)
+                pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else d)
+                row[x] = (row[x] + pred) & 0xFF
+            out[y] = row
+        else:
+            raise ValueError(f"{path}: bad filter {ft}")
+    return out.astype(np.uint8).reshape(h, w, c)
+
+
+def read_png_batch(paths: List[str], n_threads: int = 8) -> List[np.ndarray]:
+    """Decode many PNGs (zlib releases the GIL while it inflates)."""
+    if len(paths) <= 1:
+        return [read_png(p) for p in paths]
+    with ThreadPoolExecutor(max_workers=n_threads) as ex:
+        return list(ex.map(read_png, paths))
+
+
+def to_float_rgb(img: np.ndarray, bg: Optional[np.ndarray] = None) -> np.ndarray:
+    """uint8 [H,W,C] -> float32 [H,W,3] in [0,1], alpha composited on ``bg``.
+
+    As the standard 3DGS loader does: NeRF-synthetic frames are RGBA and are
+    composited onto the training background color.
+    """
+    x = img.astype(np.float32) / 255.0
+    if x.ndim == 2:
+        x = x[:, :, None]
+    if x.shape[2] == 1:
+        return np.repeat(x, 3, axis=2)
+    if x.shape[2] == 2:  # gray + alpha
+        rgb = np.repeat(x[:, :, :1], 3, axis=2)
+        a = x[:, :, 1:2]
+    elif x.shape[2] == 4:
+        rgb, a = x[:, :, :3], x[:, :, 3:4]
+    else:
+        return x[:, :, :3]
+    if bg is None:
+        bg = np.zeros(3, np.float32)
+    return rgb * a + np.asarray(bg, np.float32) * (1.0 - a)
 
 
 def write_png(path: str, img: np.ndarray) -> None:

@@ -1,0 +1,67 @@
+"""Differentiable GLOBAL blend: a ``torch.autograd.Function`` pairing K1 and K2.
+
+The counterpart of ``stopthepop_tpu/kernels/blend_vjp.py::make_blend_global``.
+The seam sits where the reference splits its hand-written backward: the
+blend-level gradients with respect to the per-Gaussian rows (xy, conic and
+opacity, rgb) come from kernel K2; everything upstream (preprocess) is plain
+torch and differentiates by autograd.
+
+Forward: K1. Saved: the per-Gaussian rows, the pair buffer and K1's raw
+color, final_T and n_contrib. Backward:
+  1. K2 gives the per-pair gradients [N, 9] in sorted-slot order;
+  2. ``orig_slot`` unsorts them into the Gaussian-major expansion order, a
+     write to unique indices;
+  3. one segmented sum over each Gaussian's contiguous run gives
+     d_xy [P, 2], d_conic_opacity [P, 4] and d_rgb [P, 3].
+Every step is deterministic: no atomics, no ``index_add_``; each run is
+summed in float32 in run order, so no prefix sum over the whole stream loses
+digits on small Gaussians. ``depth`` gets no gradient, as in the JAX
+package. The background stays outside the Function (render/pipeline.py), so
+autograd folds it into the final_T cotangent.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .global_blend import blend_global_backward, blend_global_forward
+
+
+def reduce_pair_grads(d_pair, orig_slot, gauss_offsets):
+    """Per-pair gradients in sorted-slot order -> per-Gaussian sums [P, 9]."""
+    d_exp = torch.empty_like(d_pair)
+    d_exp[orig_slot] = d_pair
+    return torch.segment_reduce(d_exp, "sum", offsets=gauss_offsets, axis=0,
+                                unsafe=True)
+
+
+class BlendGlobal(torch.autograd.Function):
+    """(xy, conic_opacity, rgb, depth, pairs, grid) -> K1's four outputs,
+    differentiable in xy, conic_opacity and rgb through color and final_T."""
+
+    @staticmethod
+    def forward(ctx, xy, conic_opacity, rgb, depth, pairs, grid_x, grid_y,
+                width, height):
+        kw = dict(grid_x=grid_x, grid_y=grid_y, width=width, height=height)
+        color, final_t, n_contrib, depth_acc = blend_global_forward(
+            pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
+            depth, **kw)
+        ctx.save_for_backward(xy, conic_opacity, rgb, color, final_t,
+                              n_contrib)
+        ctx.pairs = pairs
+        ctx.kw = kw
+        ctx.mark_non_differentiable(n_contrib, depth_acc)
+        return color, final_t, n_contrib, depth_acc
+
+    @staticmethod
+    def backward(ctx, grad_color, grad_final_t, _grad_n, _grad_depth):
+        xy, conic_opacity, rgb, color, final_t, n_contrib = ctx.saved_tensors
+        pairs = ctx.pairs
+        # Autograd hands zeros for an unused output (materialize_grads).
+        d_pair = blend_global_backward(
+            pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
+            color, final_t, n_contrib, grad_color.contiguous(),
+            grad_final_t.contiguous(), **ctx.kw)
+        d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
+        return (d[:, 0:2], d[:, 2:6], d[:, 6:9], None, None, None, None, None,
+                None)

@@ -1,25 +1,30 @@
-"""GLOBAL sort-mode tile blend, forward: the CUDA kernel K1 and its plain
-PyTorch version.
+"""GLOBAL sort-mode tile blend: the CUDA kernels K1 (forward) and K2
+(backward) and their plain PyTorch versions.
 
-Replaces ``stopthepop_tpu/kernels/global_blend.py::blend_global_forward``.
+K1 replaces ``stopthepop_tpu/kernels/global_blend.py::blend_global_forward``.
 The kernel (``csrc/global_blend_fwd.cu``) has the reference renderCUDA's
 shape: one block of 256 threads per 16x16 tile, batches of 256 Gaussians
-staged in shared memory, a sequential early-exit blend per pixel. Its source
-note says what bounds it on an H100.
+staged in shared memory, a sequential early-exit blend per pixel. K2
+(``csrc/global_blend_bwd.cu``) replaces ``blend_global_backward``: the same
+shape, one front-to-back replay per tile that uses the saved forward output,
+per-pair gradients summed over the tile's pixels in a fixed order into each
+pair's own slot. Their source notes say what bounds them on an H100.
 
-``blend_global_forward`` launches the kernel for CUDA tensors and runs
-``blend_global_forward_plain`` for CPU tensors, and nothing else: on a CUDA
-tensor it launches the kernel or raises. The plain version loops over the
-position k in the tile segments, with the 256 pixels of every tile held as
-one [T, 256] state, and repeats the kernel's arithmetic operation by
-operation (the multiplicative transmittance included).
+Each wrapper launches its kernel for CUDA tensors and runs its plain version
+for CPU tensors, and nothing else: on a CUDA tensor it launches the kernel or
+raises. The plain versions loop over the position k in the tile segments,
+with the 256 pixels of every tile held as one [T, 256] state, and repeat the
+kernel's arithmetic operation by operation (the multiplicative
+transmittance, and K2's summation tree, included).
 
 Inputs: the (tile, depth)-sorted Gaussian ids ``point_list`` [N] int32, the
 per-tile ranges ``starts``/``ends`` [T] int32 and the per-Gaussian rows
 ``xy`` [P, 2], ``conic_opacity`` [P, 4], ``rgb`` [P, 3], ``depth`` [P]
 (float32). Outputs: color [3, H, W] (raw; the caller composites the
 background), final_T [H, W], n_contrib [H, W] int32 (1-based position in the
-tile's segment of the last pair blended), depth_acc [H, W].
+tile's segment of the last pair blended), depth_acc [H, W]. K2 takes the same rows, the saved forward output and
+its cotangents, and returns d_pair [N, 9] in sorted-slot order (see
+``blend_global_backward``).
 """
 
 from __future__ import annotations
@@ -42,6 +47,11 @@ from . import build
 KERNEL = "global_blend_fwd"
 SOURCE = "stopthepop_tpu_torch/csrc/global_blend_fwd.cu"
 REPLACES = "stopthepop_tpu/kernels/global_blend.py:238"
+BWD_KERNEL = "global_blend_bwd"
+BWD_SOURCE = "stopthepop_tpu_torch/csrc/global_blend_bwd.cu"
+BWD_REPLACES = "stopthepop_tpu/kernels/global_blend.py:485"
+# Columns of K2's per-pair gradient rows.
+GRAD_COLS = ("x", "y", "a", "b", "c", "opacity", "r", "g", "b_rgb")
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,6 +59,16 @@ def _bind():
     lib = build.load(KERNEL)
     fn = lib.stp_global_blend_fwd
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_bwd():
+    lib = build.load(BWD_KERNEL)
+    fn = lib.stp_global_blend_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -68,8 +88,9 @@ def _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, depth,
         "xy": (xy, torch.float32, (P, 2)),
         "conic_opacity": (conic_opacity, torch.float32, (P, 4)),
         "rgb": (rgb, torch.float32, (P, 3)),
-        "depth": (depth, torch.float32, (P,)),
     }
+    if depth is not None:
+        expect["depth"] = (depth, torch.float32, (P,))
     dev = xy.device
     for name, (t, dtype, shape) in expect.items():
         if t.device != dev:
@@ -82,6 +103,26 @@ def _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, depth,
             raise ValueError(f"{name} must be contiguous")
     if point_list.dim() != 1:
         raise ValueError("point_list must be 1-D")
+
+
+def _check_backward_inputs(color, final_t, n_contrib, grad_color,
+                           grad_final_t, width, height, device):
+    expect = {
+        "color": (color, torch.float32, (3, height, width)),
+        "final_t": (final_t, torch.float32, (height, width)),
+        "n_contrib": (n_contrib, torch.int32, (height, width)),
+        "grad_color": (grad_color, torch.float32, (3, height, width)),
+        "grad_final_t": (grad_final_t, torch.float32, (height, width)),
+    }
+    for name, (t, dtype, shape) in expect.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, xy on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def blend_global_forward(point_list, starts, ends, xy, conic_opacity, rgb,
@@ -134,6 +175,17 @@ def _tile_pixel_coords(grid_x: int, grid_y: int, device):
     pix_x = (tiles[:, None] % grid_x) * TILE_X + j[None, :] % TILE_X
     pix_y = (tiles[:, None] // grid_x) * TILE_Y + j[None, :] // TILE_X
     return pix_x.to(torch.float32), pix_y.to(torch.float32)
+
+
+def pack_image(img, grid_x: int, grid_y: int):
+    """[..., H, W] image -> [..., T, 256] per-tile pixels, zero past the edge
+    (the inverse of ``unpack_image``)."""
+    lead = img.shape[:-2]
+    h, w = img.shape[-2:]
+    full = img.new_zeros((*lead, grid_y * TILE_Y, grid_x * TILE_X))
+    full[..., :h, :w] = img
+    t = full.reshape(*lead, grid_y, TILE_Y, grid_x, TILE_X).movedim(-3, -2)
+    return t.reshape(*lead, grid_x * grid_y, TILE_PIXELS)
 
 
 def unpack_image(tiles, grid_x: int, grid_y: int, width: int, height: int):
@@ -197,3 +249,143 @@ def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
     if count_evaluations:
         return out + (evaluations, blends)
     return out
+
+
+def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
+                          color, final_t, n_contrib, grad_color, grad_final_t,
+                          *, grid_x: int, grid_y: int, width: int,
+                          height: int):
+    """Per-pair gradients of K1's color and final_T (kernel K2).
+
+    Takes K1's inputs (without depth), its saved outputs ``color`` (raw,
+    before the background), ``final_t`` and ``n_contrib``, and the
+    cotangents ``grad_color`` [3, H, W] and ``grad_final_t`` [H, W]. Returns
+    d_pair [N, 9] float32 in sorted-slot order, columns ``GRAD_COLS``: the
+    gradient with respect to the pair's x, y, conic a, b, c, opacity and
+    r, g, b, summed over the tile's pixels. Rows past a tile's last
+    contributor are zero. CUDA tensors go to kernel K2 (counted in
+    ``blend_global_backward.launches``); CPU tensors to the plain version.
+    """
+    _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, None,
+                  grid_x, grid_y, width, height)
+    dev = xy.device
+    _check_backward_inputs(color, final_t, n_contrib, grad_color,
+                           grad_final_t, width, height, dev)
+    if dev.type == "cpu":
+        return blend_global_backward_plain(
+            point_list, starts, ends, xy, conic_opacity, rgb, color, final_t,
+            n_contrib, grad_color, grad_final_t,
+            grid_x=grid_x, grid_y=grid_y, width=width, height=height,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"no blend kernel for device {dev}")
+    if xy.data_ptr() % 8 or conic_opacity.data_ptr() % 16:
+        raise ValueError("xy must be 8-byte and conic_opacity 16-byte aligned")
+    fn = _bind_bwd()
+    d_pair = torch.zeros((point_list.shape[0], len(GRAD_COLS)),
+                         dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(
+        point_list.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+        xy.data_ptr(), conic_opacity.data_ptr(), rgb.data_ptr(),
+        color.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
+        grad_color.data_ptr(), grad_final_t.data_ptr(),
+        grid_x, grid_y, width, height, d_pair.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError_t {err}")
+    blend_global_backward.launches += 1
+    return d_pair
+
+
+blend_global_backward.launches = 0
+
+
+def _warp_tree_sum(v):
+    """Sum [..., 256] over the last axis in K2's order: a shuffle-down tree
+    inside each warp of 32 pixels, then the 8 warp partials in order."""
+    v = v.reshape(*v.shape[:-1], TILE_PIXELS // 32, 32)
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    partial = v[..., 0]
+    total = partial[..., 0]
+    for w in range(1, partial.shape[-1]):
+        total = total + partial[..., w]
+    return total
+
+
+def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
+                                rgb, color, final_t, n_contrib, grad_color,
+                                grad_final_t, *, grid_x: int, grid_y: int,
+                                width: int, height: int,
+                                count_evaluations: bool = False):
+    """Plain PyTorch version of kernel K2, same signature and outputs.
+
+    With ``count_evaluations`` it also returns (evaluations, blends): the
+    (pixel, pair) alphas the replay evaluates and the blends among them.
+    """
+    dev = xy.device
+    T_tiles = grid_x * grid_y
+    n_pairs = point_list.shape[0]
+    d_pair = torch.zeros((n_pairs, len(GRAD_COLS)), dtype=torch.float32,
+                         device=dev)
+    inside = pack_image(torch.ones((height, width), dtype=torch.bool,
+                                   device=dev), grid_x, grid_y)
+    g = pack_image(grad_color, grid_x, grid_y)          # [3, T, 256]
+    c = pack_image(color, grid_x, grid_y)
+    s_tot = c[0] * g[0] + c[1] * g[1] + c[2] * g[2]
+    kt = pack_image(grad_final_t, grid_x, grid_y) * pack_image(
+        final_t, grid_x, grid_y)
+    last = pack_image(n_contrib, grid_x, grid_y).amax(dim=1).to(torch.int64)
+    counts = torch.minimum((ends - starts).to(torch.int64), last)
+    max_count = int(counts.max()) if T_tiles else 0
+    pix_x, pix_y = _tile_pixel_coords(grid_x, grid_y, dev)
+    T = torch.ones((T_tiles, TILE_PIXELS), dtype=torch.float32, device=dev)
+    prefix = torch.zeros_like(T)
+    done = ~inside
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    evaluations = blends = 0
+    for k in range(max_count):
+        live = k < counts  # [T]
+        pos = torch.where(live, starts.to(torch.int64) + k, 0)
+        gid = point_list[pos].to(torch.int64)
+        co = conic_opacity[gid]
+        dx = xy[gid, 0][:, None] - pix_x
+        dy = xy[gid, 1][:, None] - pix_y
+        a, b, cc, o = (co[:, i : i + 1] for i in range(4))
+        power = 0.5 * (a * dx * dx + cc * dy * dy) + b * dx * dy
+        alpha_raw = o * torch.exp(-power)
+        alpha = torch.clamp(alpha_raw, max=ALPHA_MAX)
+        test_t = T * (1.0 - alpha)
+        active = live[:, None] & ~done
+        ok = active & (power >= 0.0) & (alpha >= ALPHA_THRESHOLD)
+        stop = ok & (test_t < T_THRESHOLD)
+        blend = ok & ~stop
+        col = rgb[gid]
+        w = alpha * T
+        cdotg = col[:, 0:1] * g[0] + col[:, 1:2] * g[1] + col[:, 2:3] * g[2]
+        prefix = torch.where(blend, prefix + w * cdotg, prefix)
+        galpha = cdotg * T - (s_tot - prefix + kt) / (1.0 - alpha)
+        galpha = torch.where(alpha_raw < ALPHA_MAX, galpha, zero)
+        dpower = -alpha * galpha
+        vals = torch.stack([
+            dpower * (a * dx + b * dy),
+            dpower * (cc * dy + b * dx),
+            dpower * 0.5 * dx * dx,
+            dpower * dx * dy,
+            dpower * 0.5 * dy * dy,
+            galpha * alpha / torch.clamp(o, min=1e-12),
+            w * g[0],
+            w * g[1],
+            w * g[2],
+        ])  # [9, T, 256]
+        sums = _warp_tree_sum(torch.where(blend, vals, zero))  # [9, T]
+        d_pair[pos[live]] = sums.T[live]
+        T = torch.where(blend, test_t, T)
+        done = done | stop
+        if count_evaluations:
+            evaluations += int(active.sum())
+            blends += int(blend.sum())
+    if count_evaluations:
+        return d_pair, evaluations, blends
+    return d_pair

@@ -5,6 +5,8 @@ parameters — means, log-scales, unnormalized quaternions, opacity logits, SH
 coefficients — with the standard 3DGS activations. ``from_numpy_params`` and
 ``to_numpy_params`` carry weights across from and to the JAX package's model
 (its ``GaussianModel._asdict()`` with every leaf run through ``np.asarray``).
+``from_points`` is the 3DGS point-cloud initialization, with the JAX
+package's Morton-window k-nearest-neighbour scale rule, in numpy.
 """
 
 from __future__ import annotations
@@ -98,6 +100,83 @@ def init_random(num_gaussians: int, seed: int = 0, extent: float = 1.5,
             "opacity_logit": opacity_logit,
             "sh_dc": sh[:, :1],
             "sh_rest": sh[:, 1:],
+        },
+        device,
+    )
+
+
+def _morton_codes(points: np.ndarray, bits: int = 10) -> np.ndarray:
+    """Interleaved-bit Morton codes of points quantized to a 2^bits grid."""
+    lo = points.min(axis=0)
+    hi = points.max(axis=0)
+    q = ((points - lo) / np.maximum(hi - lo, np.float32(1e-12))
+         * np.float32((1 << bits) - 1)).astype(np.int32)
+    code = np.zeros(points.shape[0], dtype=np.int32)
+    for b in range(bits):
+        for axis in range(3):
+            code = code | (((q[:, axis] >> b) & 1) << (3 * b + axis))
+    return code
+
+
+def mean_knn_distance(points: np.ndarray, k: int = 3,
+                      window: int = 8) -> np.ndarray:
+    """Approximate mean distance to the k nearest neighbours per point
+    (float32 [P] for float32 [P, 3] points).
+
+    As the JAX package does it: sort the points along a Morton curve and
+    search only the +-``window`` neighbours in curve order (the upstream
+    trainer's simple_knn stand-in; a few percent off the exact kNN).
+    """
+    points = np.asarray(points, np.float32)
+    P = points.shape[0]
+    order = np.argsort(_morton_codes(points), kind="stable")
+    sorted_pts = points[order]
+    idx = np.arange(P)
+    dists = []
+    for s in range(1, window + 1):
+        for sign in (1, -1):
+            shifted = np.roll(sorted_pts, sign * s, axis=0)
+            d = np.linalg.norm(sorted_pts - shifted, axis=1)
+            wrapped = (idx - sign * s < 0) | (idx - sign * s >= P)
+            dists.append(np.where(wrapped, np.inf, d).astype(np.float32))
+    dmat = np.stack(dists, axis=1)  # [P, 2 * window]
+    knn = np.sort(dmat, axis=1)[:, :k]
+    knn = np.where(np.isfinite(knn), knn, np.float32(0.0))
+    out = np.zeros((P,), np.float32)
+    out[order] = knn.mean(axis=1, dtype=np.float32)
+    return out
+
+
+def from_points(points, colors, sh_degree: int = 3,
+                initial_opacity: float = 0.1, knn_scale_init: bool = True,
+                device=None) -> GaussianModel:
+    """3DGS-style init from a point cloud ([P, 3] points, [P, 3] RGB in
+    [0, 1]): isotropic log-scales from the mean 3-NN distance, DC colour
+    from RGB through the inverse SH_C0 transform, opacity 0.1."""
+    points = np.asarray(points, np.float32)
+    colors = np.asarray(colors, np.float32)
+    P = points.shape[0]
+    m = (sh_degree + 1) ** 2
+    if knn_scale_init and P > 4:
+        d = np.maximum(mean_knn_distance(points, k=3), np.float32(1e-7))
+        scales_log = np.log(d)[:, None] * np.ones((1, 3), np.float32)
+    else:
+        extent = np.maximum(points.max(axis=0) - points.min(axis=0),
+                            np.float32(1e-6))
+        avg_spacing = (np.prod(extent) / P) ** (1.0 / 3.0)
+        scales_log = np.full((P, 3), np.log(max(avg_spacing, 1e-7)))
+    q = np.zeros((P, 4), np.float32)
+    q[:, 0] = 1.0
+    inv_sigmoid = math.log(initial_opacity / (1 - initial_opacity))
+    sh_dc = ((colors - np.float32(0.5)) / np.float32(0.28209479177387814))
+    return from_numpy_params(
+        {
+            "means3d": points,
+            "scales_log": scales_log,
+            "rotations": q,
+            "opacity_logit": np.full((P,), inv_sigmoid),
+            "sh_dc": sh_dc[:, None, :],
+            "sh_rest": np.zeros((P, m - 1, 3)),
         },
         device,
     )

@@ -24,12 +24,13 @@ def sort_pairs(tile_ids, depths, values):
       depths:   [N] float32, all > 0.
       values:   [N] payload (Gaussian ids).
 
-    Returns sorted (tile_ids, depths, values).
+    Returns sorted (tile_ids, depths, values) and the permutation ``order``
+    [N] int64: sorted slot s holds input element ``order[s]``.
     """
     depth_bits = depths.contiguous().view(torch.int32).to(torch.int64)
     key = (tile_ids.to(torch.int64) << 32) | depth_bits
     _, order = torch.sort(key, stable=True)
-    return tile_ids[order], depths[order], values[order]
+    return tile_ids[order], depths[order], values[order], order
 
 
 def identify_tile_ranges(sorted_tile_ids, num_tiles: int):

@@ -13,7 +13,15 @@ shapes and sort costs.
 The pair stream is Gaussian-major: Gaussian g emits one pair per tile of its
 rect, row-major within the rect, in ascending g. The stable (tile, depth)
 sort then breaks depth ties by ascending Gaussian id, as ``jax.lax.sort`` does
-on the same stream.
+on the same stream. With ``tile_based_culling`` the pairs whose tile the
+Gaussian cannot reach above the 1/255 alpha threshold are dropped before the
+sort (JAX ``duplicate.py:342-352``); the stream stays Gaussian-major.
+
+For the backward, the buffer keeps the sort permutation (``orig_slot``) and
+the Gaussian-major run offsets (``gauss_offsets``): unsorting per-pair
+cotangents with ``orig_slot`` lays every Gaussian's pairs out as one
+contiguous run, which one segmented sum reduces (the semantics of the JAX
+package's ``make_segment_gather`` residuals, without its TPU devices).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 
 from ..config import GlobalSortOrder
 from ..ops.sort import identify_tile_ranges, sort_pairs
+from ..ops.stopthepop import max_contrib_power_rect, tile_rect_bounds
 from .preprocess import PreprocessOutput
 
 SUPPORTED_ORDERS = (GlobalSortOrder.Z_DEPTH, GlobalSortOrder.DISTANCE)
@@ -36,6 +45,8 @@ class PairBuffer(NamedTuple):
     starts: torch.Tensor    # [num_tiles] int32 per-tile range start
     ends: torch.Tensor      # [num_tiles] int32 per-tile range end
     num_rendered: int       # N, the exact pair count
+    orig_slot: torch.Tensor  # [N] int64 expansion index of each sorted slot
+    gauss_offsets: torch.Tensor  # [P + 1] int64 Gaussian-major run offsets
 
 
 def check_sort_order(sort_order) -> GlobalSortOrder:
@@ -81,11 +92,14 @@ def expand_pairs(
     *,
     grid_x: int,
     sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
+    tile_based_culling: bool = False,
 ):
     """The "Duplicate" stage: one (tile, depth, Gaussian) triple per pair.
 
     Returns (tile_id [N] int32, depth [N] float32, gauss_id [N] int32),
-    unsorted, Gaussian-major.
+    unsorted, Gaussian-major. With ``tile_based_culling`` a pair is kept
+    only where the Gaussian's least power over the tile's pixel rect is at
+    most its ``opacity_power_threshold``.
     """
     check_sort_order(sort_order)
     dev = prep.tiles_touched.device
@@ -101,14 +115,27 @@ def expand_pairs(
     width = (prep.rect_max[:, 0] - prep.rect_min[:, 0]).to(torch.int64)[g]
     ty = rect_min[:, 1] + local // width
     tx = rect_min[:, 0] + local % width
+    if tile_based_culling:
+        # A discrete decision: no gradient flows through it.
+        tile_min, tile_max = tile_rect_bounds(tx, ty)
+        power, _ = max_contrib_power_rect(
+            prep.conic_opacity.detach()[g], prep.mean2d.detach()[g],
+            tile_min, tile_max,
+        )
+        keep = power <= prep.opacity_power_threshold.detach()[g]
+        g, tx, ty = g[keep], tx[keep], ty[keep]
     tile_id = (ty * grid_x + tx).to(torch.int32)
-    return tile_id, prep.depth[g], g.to(torch.int32)
+    return tile_id, prep.depth.detach()[g], g.to(torch.int32)
 
 
-def sort_expanded(tile_id, depth, gauss_id, num_tiles: int) -> PairBuffer:
-    """The "Sort" stage: stable (tile, depth) sort + per-tile ranges."""
-    s_tile, s_depth, s_gid = sort_pairs(tile_id, depth, gauss_id)
+def sort_expanded(tile_id, depth, gauss_id, num_tiles: int,
+                  num_gaussians: int) -> PairBuffer:
+    """The "Sort" stage: stable (tile, depth) sort + per-tile ranges, and
+    the Gaussian-major run offsets of the unsorted stream."""
+    s_tile, s_depth, s_gid, order = sort_pairs(tile_id, depth, gauss_id)
     starts, ends = identify_tile_ranges(s_tile, num_tiles)
+    runs = torch.bincount(gauss_id.to(torch.int64), minlength=num_gaussians)
+    gauss_offsets = torch.cat([runs.new_zeros(1), torch.cumsum(runs, 0)])
     return PairBuffer(
         tile_id=s_tile,
         depth=s_depth,
@@ -116,6 +143,8 @@ def sort_expanded(tile_id, depth, gauss_id, num_tiles: int) -> PairBuffer:
         starts=starts,
         ends=ends,
         num_rendered=int(s_tile.shape[0]),
+        orig_slot=order,
+        gauss_offsets=gauss_offsets,
     )
 
 
@@ -125,7 +154,10 @@ def build_pairs(
     grid_x: int,
     grid_y: int,
     sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
+    tile_based_culling: bool = False,
 ) -> PairBuffer:
-    """Expand, key and sort all Gaussian/tile pairs."""
-    expanded = expand_pairs(prep, grid_x=grid_x, sort_order=sort_order)
-    return sort_expanded(*expanded, num_tiles=grid_x * grid_y)
+    """Expand, optionally tile-cull, key and sort all Gaussian/tile pairs."""
+    expanded = expand_pairs(prep, grid_x=grid_x, sort_order=sort_order,
+                            tile_based_culling=tile_based_culling)
+    return sort_expanded(*expanded, num_tiles=grid_x * grid_y,
+                         num_gaussians=prep.tiles_touched.shape[0])

@@ -1,4 +1,4 @@
-"""Public rasterization API (torch), forward only.
+"""Public rasterization API (torch).
 
 Port of ``stopthepop_tpu/render/rasterize.py`` for the GLOBAL sort mode. It
 mirrors the reference's Python surface (diff_gaussian_rasterization/
@@ -7,10 +7,13 @@ __init__.py:32-53, 265-314): ``rasterize_gaussians(...)`` and
 returning ``(color [3, H, W], radii [P])``. The render runs on the device of
 ``means3D``; the settings' tensors follow it there.
 
-This slice is forward-only: the backward kernel is not ported yet, so a call
-that would need gradients raises. ``means2D`` is accepted and its value is
-ignored, as upstream. There is no pair capacity: the pair count is read back
-once per frame, as in the reference.
+Gradients flow by autograd to all 8 reference inputs (means3D, means2D, sh,
+colors_precomp, opacities, scales, rotations, cov3Ds_precomp); the blend's
+backward is kernel K2 (kernels/blend_vjp.py). ``means2D`` is the
+densification dummy: its value does not change the render, and its gradient
+is the pixel-space mean gradient scaled by (0.5 W, 0.5 H), as in the JAX
+package. There is no pair capacity: the pair count is read back once per
+frame, as in the reference.
 """
 
 from __future__ import annotations
@@ -41,33 +44,21 @@ class RenderOutput(NamedTuple):
     num_rendered: int        # (tile, Gaussian) pairs of this frame
 
 
-def _check_forward_only(tensors):
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors
-    ):
-        raise NotImplementedError(
-            "stopthepop_tpu_torch renders forward only: the backward blend "
-            "kernel K2 (stopthepop_tpu/kernels/global_blend.py::"
-            "blend_global_backward) and its autograd Function are not "
-            "ported yet (ROADMAP.md Queue 1 item 5, backward half). Render "
-            "under torch.inference_mode() or torch.no_grad()."
-        )
-
-
-def _check_supported(rs: GaussianRasterizationSettings):
-    ext = rs.settings
-    mode = SortMode(ext.sort_settings.sort_mode)
+def check_sort_mode(sort_mode) -> SortMode:
+    """The sort mode, or NotImplementedError naming its ROADMAP.md item."""
+    mode = SortMode(sort_mode)
     if mode != SortMode.GLOBAL:
         raise NotImplementedError(
             f"sort mode {mode.name} is not ported yet: ROADMAP.md Queue 1 "
             f"item {_MODE_ITEMS[mode]}."
         )
+    return mode
+
+
+def _check_supported(rs: GaussianRasterizationSettings):
+    ext = rs.settings
+    check_sort_mode(ext.sort_settings.sort_mode)
     order = check_sort_order(ext.sort_settings.sort_order)
-    if ext.culling_settings.tile_based_culling:
-        raise NotImplementedError(
-            "tile_based_culling is not ported yet: it comes with ROADMAP.md "
-            "Queue 1 item 4 (rest)."
-        )
     if rs.render_depth or rs.debug:
         raise NotImplementedError(
             "render_depth (the Depth debug visualization) and debug "
@@ -101,8 +92,6 @@ def rasterize_gaussians(
     scales = none_if_empty(scales)
     rotations = none_if_empty(rotations)
     cov3Ds_precomp = none_if_empty(cov3Ds_precomp)
-    _check_forward_only((means3D, means2D, sh, colors_precomp, opacities,
-                         scales, rotations, cov3Ds_precomp))
     sort_order = _check_supported(rs)
     ext = rs.settings
     dev = means3D.device
@@ -145,8 +134,14 @@ def rasterize_gaussians(
         tight_opacity_bounding=ext.culling_settings.tight_opacity_bounding,
         proper_ewa_scaling=ext.proper_ewa_scaling,
     )
+    if means2D is not None and means2D.numel():
+        # Densification-gradient dummy: a value-neutral reroute, so that
+        # d loss / d means2D = pixel-space mean gradient * (0.5 W, 0.5 H).
+        m2d = means2D[:, :2] * means2D.new_tensor([0.5 * W, 0.5 * H])
+        prep = prep._replace(mean2d=prep.mean2d + m2d - m2d.detach())
     color, final_t, n_contrib, pairs, depth_acc = render_tiled(
         prep, bg, image_width=W, image_height=H, sort_order=sort_order,
+        tile_based_culling=ext.culling_settings.tile_based_culling,
     )
     if full_output:
         return RenderOutput(color, prep.radii, final_t, n_contrib, depth_acc,

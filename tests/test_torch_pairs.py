@@ -1,7 +1,9 @@
 """The port's pair expansion and sort against the JAX package's, on the CPU.
 
 Each side preprocesses the same numpy-drawn scene; the per-tile ordered
-Gaussian id lists must be equal exactly (JAX's invalid slots stripped).
+Gaussian id lists must be equal exactly (JAX's invalid slots stripped), with
+and without tile_based_culling. The sort permutation ``orig_slot`` must invert
+the sort, and the Gaussian-major run offsets must bound each Gaussian's run.
 """
 
 import jax.numpy as jnp
@@ -78,6 +80,54 @@ def test_per_tile_id_lists_match_jax(order, size, cull):
         assert (np.diff(seg) >= 0).all()
     np.testing.assert_array_equal(ends - starts,
                                   rect_histogram(t, gx, gy).numpy())
+
+
+@pytest.mark.parametrize("order", [GlobalSortOrder.Z_DEPTH, GlobalSortOrder.DISTANCE])
+@pytest.mark.parametrize("size", [(64, 64), (70, 45)])
+def test_tile_culled_id_lists_match_jax(order, size):
+    w, h = size
+    gx, gy = tile_grid(w, h)
+    t, j = _preps(w, h, order, True)
+    pairs = build_pairs(t, grid_x=gx, grid_y=gy, sort_order=order,
+                        tile_based_culling=True)
+    total = int(count_pairs(t))
+    assert 0 < pairs.num_rendered < total  # the culling dropped some pairs
+    jp = jax_build_pairs(j, capacity=total + 64, grid_x=gx, grid_y=gy,
+                         sort_order=JOrder(int(order)), tile_based_culling=True)
+    jstarts, jends = np.asarray(jp.starts), np.asarray(jp.ends)
+    jgid, jvalid = np.asarray(jp.gauss_id), np.asarray(jp.valid)
+    starts, ends = pairs.starts.numpy(), pairs.ends.numpy()
+    gid = pairs.gauss_id.numpy()
+    for tile in range(gx * gy):
+        seg = slice(jstarts[tile], jends[tile])
+        np.testing.assert_array_equal(
+            gid[starts[tile]:ends[tile]], jgid[seg][jvalid[seg]],
+            err_msg=f"tile {tile}",
+        )
+    assert pairs.num_rendered == int(jvalid.sum())
+
+
+@pytest.mark.parametrize("cull", [False, True], ids=["rect", "tilecull"])
+def test_orig_slot_inverts_the_sort(cull):
+    t, _ = _preps(70, 45, GlobalSortOrder.Z_DEPTH, True)
+    gx, gy = tile_grid(70, 45)
+    tile_id, depth, gid = expand_pairs(t, grid_x=gx, tile_based_culling=cull)
+    pairs = build_pairs(t, grid_x=gx, grid_y=gy, tile_based_culling=cull)
+    order = pairs.orig_slot
+    assert order.dtype == torch.int64
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(pairs.num_rendered))
+    assert torch.equal(tile_id[order], pairs.tile_id)
+    assert torch.equal(gid[order], pairs.gauss_id)
+    assert torch.equal(depth[order], pairs.depth)
+    # Unsorting lays each Gaussian's pairs out as one contiguous run.
+    unsorted = torch.empty_like(pairs.gauss_id)
+    unsorted[order] = pairs.gauss_id
+    off = pairs.gauss_offsets
+    assert off.shape == (t.tiles_touched.shape[0] + 1,)
+    assert int(off[-1]) == pairs.num_rendered
+    for g in range(off.shape[0] - 1):
+        assert (unsorted[off[g]:off[g + 1]] == g).all()
 
 
 def test_expanded_stream_matches_bruteforce():

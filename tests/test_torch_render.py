@@ -4,8 +4,8 @@
 against the JAX package's, with the JAX model's weights carried across by
 ``from_numpy_params``: color and final_T within atol 1e-4 (see
 test_torch_blend.py for why), radii exactly, n_contrib on >= 99.9% of the
-pixels. Also: PLY interchange, validation errors, the forward-only slice's
-NotImplementedErrors, and that the port never loads JAX.
+pixels. Also: PLY interchange, validation errors, the NotImplementedErrors of what is
+not ported yet, and that the port never loads JAX.
 """
 
 import ast
@@ -219,26 +219,30 @@ def test_forward_only_slice_raises_not_implemented():
     scene, rs = _scene_args()
     kw = dict(colors_precomp=scene.colors, scales=scene.scales,
               rotations=scene.rotations)
-    means = scene.means3d.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K2"):
-        stt.GaussianRasterizer(rs)(means, None, scene.opacities, **kw)
-    with torch.no_grad():
-        color, _ = stt.GaussianRasterizer(rs)(means, None, scene.opacities, **kw)
-    assert torch.isfinite(color).all()
-
     def settings_with(**changes):
         ext = _ext(stt)
         for k, v in changes.items():
             ext.set_value(k, v)
         return rs._replace(settings=ext)
 
+    # Gradients (kernel K2) and tile_based_culling are ported now: the same
+    # calls return finite gradients.
+    for s in (rs, settings_with(tile_based_culling=True)):
+        means = scene.means3d.clone().requires_grad_(True)
+        color, _ = stt.GaussianRasterizer(s)(means, None, scene.opacities, **kw)
+        color.sum().backward()
+        assert torch.isfinite(color).all()
+        assert torch.isfinite(means.grad).all() and means.grad.abs().sum() > 0
+    with torch.no_grad():
+        color, _ = stt.GaussianRasterizer(rs)(means, None, scene.opacities, **kw)
+    assert torch.isfinite(color).all()
+
     cases = [settings_with(sort_mode=m) for m in (stt.SortMode.PPX_FULL,
                                                    stt.SortMode.PPX_KBUFFER,
                                                    stt.SortMode.HIER)]
     cases += [settings_with(sort_order=o) for o in (stt.GlobalSortOrder.PTD_CENTER,
                                                      stt.GlobalSortOrder.PTD_MAX)]
-    cases += [settings_with(tile_based_culling=True), rs._replace(render_depth=True),
-              rs._replace(debug=True)]
+    cases += [rs._replace(render_depth=True), rs._replace(debug=True)]
     for s in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             stt.GaussianRasterizer(s)(scene.means3d, None, scene.opacities, **kw)
@@ -256,7 +260,8 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 
 def test_import_leaves_jax_unloaded():
-    code = ("import sys, stopthepop_tpu_torch, stopthepop_tpu_torch.render.cli; "
+    code = ("import sys, stopthepop_tpu_torch, stopthepop_tpu_torch.render.cli, "
+            "stopthepop_tpu_torch.train.cli; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m.split('.')[0] == 'stopthepop_tpu' for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True,
