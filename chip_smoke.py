@@ -5,7 +5,8 @@ Run from the root of the repository on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --profile  # and a torch.profiler trace of 3
-                                     # training steps (phase train_profile)
+                                     # training steps in each mode (phases
+                                     # train_profile, train_kb_profile)
 
 Phases, one JSON line each; any failure exits non-zero:
   1. build: compile every CUDA kernel of the port with nvcc (in parallel).
@@ -35,9 +36,26 @@ Phases, one JSON line each; any failure exits non-zero:
      of 8 renders of the procedural scene at 200x200, a few hundred
      iterations of train/cli.py::main with densification and an opacity
      reset; eval PSNR rises, the Gaussian count changes, the PLY loads.
-  7. the kernels line: each ported kernel with its launches on the training
-     path (phase 5), its error against the plain version, its time, the
-     plain version's time and its bound on this card.
+  7. kernel_kb: hold kernel K3 (PER_PIXEL_KBUFFER blend, forward) against
+     its plain version — phase 2's 70x45 scene and a denser draw of it with
+     windows k = 1, 4, 8 and 24, and the 1080p/500K bench frame with k = 4 (color / final_T
+     within atol 1e-5, n_contrib (commit counts) exactly, depth_acc within
+     1e-5 relative) — and time both.
+  8. main_kb: render 4 orbit frames of the 500K model at 1920x1080 through
+     render/cli.py::render_frames in PPX_KBUFFER (k = 4); every frame finite
+     and not background, K3 launched exactly once a frame and K1, K2, K4 not
+     at all. Then a per-stage breakdown of one frame.
+  9. kernel_kb_bwd: hold kernel K4 (k-buffer backward) against its plain
+     version on the same scenes (each gradient column within 1e-4 of its
+     largest value); two K4 launches and two full BlendKBuffer backward
+     passes bitwise equal; time K4 and its plain version.
+ 10. train_kb: 5 training steps at 1080p/500K in PPX_KBUFFER; loss finite and
+     falling, every gradient finite and nonzero somewhere, K3 and K4 once a
+     step, K1 and K2 not at all; step time and a per-stage breakdown.
+ 11. the kernels line: each ported kernel with its launches on the training
+     path (phase 5 for K1/K2, phase 10 for K3/K4), its error against the
+     plain version, its time, the plain version's time and its bound on
+     this card.
 The line before the last is the card's name and power limit from nvidia-smi;
 the last line is {"ok": true, "device": {...}}.
 
@@ -50,6 +68,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +93,19 @@ OPS_PER_EVAL, OPS_PER_BLEND = 11, 9
 # the nine per-pair sums (9).
 OPS_PER_BLEND_BWD = 45
 K2_RTOL = 1e-4  # of each gradient column's largest magnitude
+# K3 evaluates each (pixel, pair) alpha as K1 does (11); for the pairs that
+# pass the alpha tests, the ray depth: u . d (5) and d^T Sigma^-1 d (18) and
+# the divide (1). Each insert takes k compares and k selects for each of the
+# 5 window fields (6 k); each commit w, three colour and one depth update,
+# the new T and the count (10). The floor, the min and the tests are not
+# counted.
+OPS_PER_DEPTH, OPS_PER_INSERT_SLOT, OPS_PER_COMMIT = 24, 6, 10
+# K4 replays K3's evaluations, depths and inserts (its window holds 4
+# fields, counted as K3's 5) and per commit forms the alpha gradient and the
+# nine terms and adds them into the pair's sums (45, as K2).
+OPS_PER_COMMIT_BWD = 45
+KB_K = 4           # the default SortQueueSizes.per_pixel
+KB_SMALL_KS = (1, 4, 8, 24)
 TRAIN_STEPS = 5
 # The training CLI's run: a NeRF-synthetic dataset of CLI_VIEWS renders of
 # a CLI_SCENE-Gaussian procedural scene at CLI_SIZE x CLI_SIZE.
@@ -227,6 +259,101 @@ def blend_backward_grads(prep, pairs, kw, cotangents):
     return [r.grad for r in rows]
 
 
+def kb_args(prep, pairs, cam):
+    """K3/K4 inputs of a preprocessed frame: ids, ranges, rows, camera."""
+    return (pairs.gauss_id, pairs.starts, pairs.ends, prep.mean2d.contiguous(),
+            prep.conic_opacity.contiguous(), prep.rgb.contiguous(),
+            prep.cov3d_inv9.contiguous(), cam.inv_viewprojmatrix.contiguous(),
+            cam.campos.contiguous())
+
+
+def compare_kb(name, args, kw, k, *, count_evaluations=False):
+    """K3 against its plain version on the same inputs; returns (stats, K3's
+    output)."""
+    from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
+
+    before = kb.blend_kbuffer_forward.launches
+    got = kb.blend_kbuffer_forward(*args, k=k, **kw)
+    torch.cuda.synchronize()
+    check(kb.blend_kbuffer_forward.launches == before + 1, "kernel_kb",
+          f"{name}: launch counter did not move")
+    ref = kb.blend_kbuffer_forward_plain(*args, k=k, **kw,
+                                         count_evaluations=count_evaluations)
+    err_depth = ((got[3] - ref[3]).abs() / ref[3].abs().clamp(min=1.0)).max().item()
+    stats = {"k": k,
+             "max_abs_err_color": (got[0] - ref[0]).abs().max().item(),
+             "max_abs_err_final_t": (got[1] - ref[1]).abs().max().item(),
+             "n_contrib_mismatches": int((got[2] != ref[2]).sum()),
+             "max_rel_err_depth_acc": err_depth,
+             "max_commits": int(got[2].max()),
+             "finite": all(bool(torch.isfinite(x).all())
+                           for x in (got[0], got[1], got[3]))}
+    check(stats["finite"] and stats["max_abs_err_color"] <= ATOL
+          and stats["max_abs_err_final_t"] <= ATOL
+          and stats["n_contrib_mismatches"] == 0 and err_depth <= ATOL,
+          "kernel_kb", f"{name}: kernel disagrees: {stats}")
+    if count_evaluations:
+        stats.update(ref[4])
+    return stats, got
+
+
+def compare_kb_bwd(name, args, kw, k, fwd, cotangents, *,
+                   count_evaluations=False):
+    """K4 against its plain version on K3's output ``fwd``; two K4 launches
+    must give the same bits. Returns (stats, K4 inputs)."""
+    from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
+
+    bwd_args = (*args, fwd[0], fwd[1], fwd[2], *cotangents)
+    before = kb.blend_kbuffer_backward.launches
+    got = kb.blend_kbuffer_backward(*bwd_args, k=k, **kw)
+    again = kb.blend_kbuffer_backward(*bwd_args, k=k, **kw)
+    torch.cuda.synchronize()
+    check(kb.blend_kbuffer_backward.launches == before + 2, "kernel_kb_bwd",
+          f"{name}: launch counter did not move")
+    ref = kb.blend_kbuffer_backward_plain(*bwd_args, k=k, **kw,
+                                          count_evaluations=count_evaluations)
+    if count_evaluations:
+        ref, counts = ref
+    scale = ref.abs().amax(dim=0)
+    err = (got - ref).abs().amax(dim=0)
+    stats = {
+        "k": k,
+        "max_abs_err": float(err.max()),
+        "max_abs_err_by_column": dict(zip(kb.GRAD_COLS, err.tolist())),
+        "column_max": dict(zip(kb.GRAD_COLS, scale.tolist())),
+        "finite": bool(torch.isfinite(got).all()),
+        "bitwise_repeat": bool(torch.equal(got, again)),
+        "bitwise_equal_plain": bool(torch.equal(got, ref)),
+    }
+    check(stats["finite"] and bool((err <= K2_RTOL * scale).all()),
+          "kernel_kb_bwd", f"{name}: kernel disagrees: {stats}")
+    check(stats["bitwise_repeat"], "kernel_kb_bwd",
+          f"{name}: two K4 launches differ")
+    if count_evaluations:
+        stats["replay"] = counts
+    return stats, bwd_args
+
+
+def kb_backward_grads(prep, pairs, cam, kw, k, cotangents):
+    """Per-Gaussian (xy, conic_opacity, rgb) gradients of one full
+    BlendKBuffer backward pass (K3, K4, unsort, segmented sum)."""
+    from stopthepop_tpu_torch.kernels.blend_vjp import BlendKBuffer
+
+    rows = [t.detach().clone().requires_grad_(True)
+            for t in (prep.mean2d, prep.conic_opacity, prep.rgb)]
+    color, final_t, _, _ = BlendKBuffer.apply(
+        *rows, prep.cov3d_inv9.detach().contiguous(),
+        cam.inv_viewprojmatrix.contiguous(), cam.campos.contiguous(), pairs,
+        k, kw["grid_x"], kw["grid_y"], kw["width"], kw["height"])
+    torch.autograd.backward([color, final_t], list(cotangents))
+    return [r.grad for r in rows]
+
+
+def bound_ms(bytes_moved, ops):
+    """(bytes bound ms, operations bound ms) on an H100 SXM."""
+    return bytes_moved / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
+
+
 def profile_steps(step, n: int, unprofiled_ms: float):
     """torch.profiler over ``n`` calls of ``step``: device busy time (the
     sum of the kernels' device times; one stream, so no overlap; the
@@ -263,18 +390,45 @@ def profile_steps(step, n: int, unprofiled_ms: float):
                  "launches_per_step": e.count / n} for e in kernels[:15]]}
 
 
-def reset_launches():
-    from stopthepop_tpu_torch.kernels import global_blend
+def _wrappers():
+    from stopthepop_tpu_torch.kernels import global_blend, kbuffer_blend
 
-    global_blend.blend_global_forward.launches = 0
-    global_blend.blend_global_backward.launches = 0
+    return {"k1": global_blend.blend_global_forward,
+            "k2": global_blend.blend_global_backward,
+            "k3": kbuffer_blend.blend_kbuffer_forward,
+            "k4": kbuffer_blend.blend_kbuffer_backward}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_launches():
-    from stopthepop_tpu_torch.kernels import global_blend
+    """{"k1": n, "k2": n, "k3": n, "k4": n} kernel launches since the reset."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
-    return (global_blend.blend_global_forward.launches,
-            global_blend.blend_global_backward.launches)
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers.*?(\d+) bytes smem")
+
+
+def ptxas_summary(log: str):
+    """{instantiation: {registers, spill_stores, spill_loads, smem}} from
+    nvcc's -Xptxas -v output; a template's key is its MAX_K."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            k = re.search(r"ILi(\d+)E", m.group(1))
+            key = f"MAX_K={k.group(1)}" if k else "kernel"
+            out[key] = {}
+        elif key and (m := _SPILL.search(line)):
+            out[key]["spill_stores"], out[key]["spill_loads"] = map(int, m.groups())
+        elif key and (m := _USED.search(line)):
+            out[key]["registers"], out[key]["smem"] = map(int, m.groups())
+    return out
 
 
 def main(argv=None) -> int:
@@ -304,9 +458,7 @@ def main(argv=None) -> int:
     emit({"phase": "build", "ok": True, "seconds": build_s, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernels": {
-              n: {"seconds": log["seconds"],
-                  "ptxas": [ln.strip() for ln in log["ptxas"].splitlines()
-                            if "Used" in ln or "spill" in ln]}
+              n: {"seconds": log["seconds"], "ptxas": ptxas_summary(log["ptxas"])}
               for n, log in build.build_log.items()
           }})
 
@@ -366,7 +518,8 @@ def main(argv=None) -> int:
     outs = render_frames(loaded, cams, settings, dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches, serve_k2 = read_launches()
+    serve = read_launches()
+    launches = serve["k1"]
     bg = torch.zeros(3, device=dev)
     del saved
     pairs_per_frame = [o.num_rendered for o in outs]
@@ -376,7 +529,8 @@ def main(argv=None) -> int:
         check(bool((o.color != bg[:, None, None]).any()), "main", f"frame {i} is background")
         check(o.num_rendered >= MIN_PAIRS, "main", f"frame {i}: only {o.num_rendered} pairs")
     check(launches == FRAMES, "main", f"K1 launched {launches} times for {FRAMES} frames")
-    check(serve_k2 == 0, "main", f"K2 launched {serve_k2} times while serving")
+    check(serve["k2"] == serve["k3"] == serve["k4"] == 0, "main",
+          f"other kernels launched while serving: {serve}")
 
     # Per-stage device times of frame 0 (CUDA events), after the counted run.
     from stopthepop_tpu_torch.io.cameras import to_camera_arrays
@@ -490,12 +644,14 @@ def main(argv=None) -> int:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(aux["loss"]))
         step_pairs.append(aux["num_rendered"])
-    train_k1, train_k2 = read_launches()
+    counts = read_launches()
+    train_k1, train_k2 = counts["k1"], counts["k2"]
     train_peak = torch.cuda.max_memory_allocated() / 2**30
     check(all(math.isfinite(v) for v in losses), "train", f"loss not finite: {losses}")
     check(losses[-1] < losses[0], "train", f"loss did not fall: {losses}")
-    check(train_k1 == TRAIN_STEPS and train_k2 == TRAIN_STEPS, "train",
-          f"K1/K2 launched {train_k1}/{train_k2} times in {TRAIN_STEPS} steps")
+    check(train_k1 == TRAIN_STEPS and train_k2 == TRAIN_STEPS
+          and counts["k3"] == counts["k4"] == 0, "train",
+          f"launches {counts} in {TRAIN_STEPS} GLOBAL steps")
     for name in PARAM_NAMES:
         g = getattr(model, name).grad
         check(g is not None and bool(torch.isfinite(g).all())
@@ -546,7 +702,7 @@ def main(argv=None) -> int:
         emit({"phase": "train_profile", "ok": True, "steps": 3,
               **profile_steps(one_step, 3, sum(step_ms) / TRAIN_STEPS),
               "card": card})
-    del state, stats, model, target
+    del state, stats, model
 
     # 6. train_cli: the training entry point at small size ----------------------
     from stopthepop_tpu_torch.io.ply import load_gaussian_model as load_ply
@@ -575,7 +731,8 @@ def main(argv=None) -> int:
         ])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    cli_k1, cli_k2 = read_launches()
+    cli = read_launches()
+    cli_k1, cli_k2 = cli["k1"], cli["k2"]
     evals = [res.eval_psnr[k] for k in sorted(res.eval_psnr)]
     trained = load_ply(str(out_ply), device=dev)
     check(all(math.isfinite(v) for v in evals) and evals[-1] > evals[0],
@@ -591,7 +748,214 @@ def main(argv=None) -> int:
           "gaussians": [init_points] + res.num_gaussians, "seconds": cli_s,
           "k1_launches": cli_k1, "k2_launches": cli_k2, "card": card})
 
-    # 7. kernels ------------------------------------------------------------------
+    # 7. kernel_kb: K3 against its plain version --------------------------------
+    from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
+
+    # The 300-Gaussian scene of phase 2, and the same draw with larger
+    # Gaussians, whose windows overflow more.
+    dense = random_scene(0, 300, scale_range=(0.05, 0.4), device=dev)
+    small_cam = make_camera(70, 45, device=dev)
+    kb_cases, kb_small_stats = [], []  # (case, K3 inputs, kw, {k: K3 output})
+    with torch.no_grad():
+        for case, scene_arrays in (
+                ("70x45 random scene, 300 Gaussians", small),
+                ("70x45 random scene, 300 larger Gaussians",
+                 {"means3d": dense.means3d, "opacities": dense.opacities,
+                  "scales": dense.scales, "rotations": dense.rotations,
+                  "shs": dense.shs})):
+            prep, pairs, skw = prepare(scene_arrays, small_cam, 70, 45)
+            sargs, fwd = kb_args(prep, pairs, small_cam), {}
+            for k in KB_SMALL_KS:
+                st, fwd[k] = compare_kb(f"{case}, k={k}", sargs, skw, k)
+                kb_small_stats.append(st)
+                emit({"phase": "kernel_kb", "ok": True, "case": case,
+                      "pairs": pairs.num_rendered, **st})
+            kb_cases.append((case, sargs, skw, fwd))
+    model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3, device=dev)
+    with torch.no_grad():
+        model.scales_log -= 2.3
+    with torch.inference_mode():
+        prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
+        kb_bench_args = kb_args(prep, pairs, bench_cam)
+        kb_full, kb_bench_fwd = compare_kb("1080p", kb_bench_args, kw, KB_K,
+                                           count_evaluations=True)
+        k3_ms = cuda_ms(lambda: kb.blend_kbuffer_forward(
+            *kb_bench_args, k=KB_K, **kw), 20)
+        k3_plain_ms = cuda_ms(lambda: kb.blend_kbuffer_forward_plain(
+            *kb_bench_args, k=KB_K, **kw), 2, 1)
+        k3_by_k = {k: cuda_ms(lambda k=k: kb.blend_kbuffer_forward(
+            *kb_bench_args, k=k, **kw), 5) for k in (1, 8, 24)}
+    N = pairs.num_rendered
+    k3_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3 + 9) + 19 + WIDTH * HEIGHT * 6)
+    k3_ops = (OPS_PER_EVAL * kb_full["evaluations"]
+              + OPS_PER_DEPTH * kb_full["depths"]
+              + OPS_PER_INSERT_SLOT * KB_K * kb_full["inserts"]
+              + OPS_PER_COMMIT * kb_full["commits"])
+    k3_bytes_ms, k3_ops_ms = bound_ms(k3_bytes, k3_ops)
+    emit({"phase": "kernel_kb", "ok": True,
+          "case": "1920x1080, 500K Gaussians, bench camera", "pairs": N,
+          **kb_full, "k3_ms": k3_ms, "plain_ms": k3_plain_ms,
+          "k3_ms_by_window": k3_by_k, "bytes": k3_bytes, "ops": k3_ops,
+          "bytes_bound_ms": k3_bytes_ms, "ops_bound_ms": k3_ops_ms,
+          "card": card})
+
+    # 8. main_kb: the serving path in PPX_KBUFFER -------------------------------
+    from stopthepop_tpu_torch.config import SortMode
+
+    kb_settings = ExtendedSettings()
+    kb_settings.sort_settings.sort_mode = SortMode.PPX_KBUFFER
+    kb_settings.sort_settings.queue_sizes.per_pixel = KB_K
+    kb_settings.culling_settings.rect_bounding = True
+    kb_settings.culling_settings.tight_opacity_bounding = True
+    render_frames(model, cams[:1], kb_settings, dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = render_frames(model, cams, kb_settings, dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    serve_kb = read_launches()
+    for i, o in enumerate(outs):
+        check(o.color.shape == (3, HEIGHT, WIDTH), "main_kb", f"frame {i} shape")
+        check(bool(torch.isfinite(o.color).all()), "main_kb", f"frame {i} not finite")
+        check(bool((o.color != bg[:, None, None]).any()), "main_kb",
+              f"frame {i} is background")
+        check(o.num_rendered >= MIN_PAIRS, "main_kb",
+              f"frame {i}: only {o.num_rendered} pairs")
+    check(serve_kb["k3"] == FRAMES and serve_kb["k1"] == serve_kb["k2"]
+          == serve_kb["k4"] == 0, "main_kb",
+          f"launches {serve_kb} for {FRAMES} PPX_KBUFFER frames")
+    kb_pairs_per_frame = [o.num_rendered for o in outs]
+    kb_peak = torch.cuda.max_memory_allocated() / 2**30
+    del outs
+    with torch.inference_mode():
+        arrays = model_arrays(model)
+        pre_kw.update(scales=arrays["scales"], rotations=arrays["rotations"],
+                      shs=arrays["shs"])
+        kb_stage = {}
+        kb_stage["preprocess_ms"] = cuda_ms(
+            lambda: preprocess(arrays["means3d"], arrays["opacities"], **pre_kw), 10)
+        prep0 = preprocess(arrays["means3d"], arrays["opacities"], **pre_kw)
+        kb_stage["pairs_ms"] = cuda_ms(
+            lambda: build_pairs(prep0, grid_x=kw["grid_x"], grid_y=kw["grid_y"]), 10)
+        pairs0 = build_pairs(prep0, grid_x=kw["grid_x"], grid_y=kw["grid_y"])
+        args0 = kb_args(prep0, pairs0, cam0)
+        kb_stage["k3_ms"] = cuda_ms(
+            lambda: kb.blend_kbuffer_forward(*args0, k=KB_K, **kw), 20)
+        del prep0, pairs0, args0
+    emit({"phase": "main_kb", "ok": True, "frames": FRAMES, "width": WIDTH,
+          "height": HEIGHT, "gaussians": NUM_GAUSSIANS, "k": KB_K,
+          "pairs_per_frame": kb_pairs_per_frame,
+          "ms_per_frame": dt * 1e3 / FRAMES, "frames_per_s": FRAMES / dt,
+          "launches": serve_kb, "frame0_stage_ms": kb_stage,
+          "peak_mem_gib": kb_peak, "card": card})
+
+    # 9. kernel_kb_bwd: K4 against its plain version -----------------------------
+    with torch.no_grad():
+        kb_small_bwd = []
+        for case, sargs, skw, fwd in kb_cases:
+            for k in KB_SMALL_KS:
+                st, _ = compare_kb_bwd(f"{case}, k={k}", sargs, skw, k,
+                                       fwd[k], cotangents(70, 45))
+                kb_small_bwd.append(st)
+                emit({"phase": "kernel_kb_bwd", "ok": True, "case": case,
+                      **st})
+    cot = cotangents(WIDTH, HEIGHT)
+    with torch.no_grad():
+        kb_full_bwd, k4_args = compare_kb_bwd(
+            "1080p", kb_bench_args, kw, KB_K, kb_bench_fwd, cot,
+            count_evaluations=True)
+        k4_ms = cuda_ms(lambda: kb.blend_kbuffer_backward(*k4_args, k=KB_K, **kw), 20)
+        k4_plain_ms = cuda_ms(
+            lambda: kb.blend_kbuffer_backward_plain(*k4_args, k=KB_K, **kw), 1, 0)
+        prep, pairs, _ = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
+    first = kb_backward_grads(prep, pairs, bench_cam, kw, KB_K, cot)
+    second = kb_backward_grads(prep, pairs, bench_cam, kw, KB_K, cot)
+    torch.cuda.synchronize()
+    kb_full_bwd["bitwise_repeat_backward"] = all(
+        torch.equal(a, b) for a, b in zip(first, second))
+    check(kb_full_bwd["bitwise_repeat_backward"], "kernel_kb_bwd",
+          "two BlendKBuffer backward passes differ")
+    check(all(bool(torch.isfinite(g).all()) and bool((g != 0).any())
+              for g in first), "kernel_kb_bwd",
+          "per-Gaussian gradients not finite or all zero")
+    del first, second, prep, pairs
+    replay = kb_full_bwd["replay"]
+    k4_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3 + 9) + 19 + WIDTH * HEIGHT * 9
+                    + N * 9)
+    k4_ops = (OPS_PER_EVAL * replay["evaluations"]
+              + OPS_PER_DEPTH * replay["depths"]
+              + OPS_PER_INSERT_SLOT * KB_K * replay["inserts"]
+              + OPS_PER_COMMIT_BWD * replay["commits"])
+    k4_bytes_ms, k4_ops_ms = bound_ms(k4_bytes, k4_ops)
+    emit({"phase": "kernel_kb_bwd", "ok": True,
+          "case": "1920x1080, 500K Gaussians, bench camera", "pairs": N,
+          **kb_full_bwd, "k4_ms": k4_ms, "plain_ms": k4_plain_ms,
+          "bytes": k4_bytes, "ops": k4_ops, "bytes_bound_ms": k4_bytes_ms,
+          "ops_bound_ms": k4_ops_ms, "card": card})
+    del k4_args, kb_bench_args, kb_bench_fwd, cot
+
+    # 10. train_kb: the training step in PPX_KBUFFER -----------------------------
+    kb_static = static._replace(settings=kb_settings)
+    state = trainer.init_train_state(model, trainer.make_3dgs_optimizer(model))
+    stats = trainer.init_densify_stats(NUM_GAUSSIANS, dev)
+    step_fn = trainer.make_train_step(static=kb_static)
+    state, stats, _ = step_fn(state, cam, target, stats)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms, step_pairs = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, stats, aux = step_fn(state, cam, target, stats)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(aux["loss"]))
+        step_pairs.append(aux["num_rendered"])
+    train_kb = read_launches()
+    kb_train_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(v) for v in losses), "train_kb", f"loss not finite: {losses}")
+    check(losses[-1] < losses[0], "train_kb", f"loss did not fall: {losses}")
+    check(train_kb["k3"] == TRAIN_STEPS and train_kb["k4"] == TRAIN_STEPS
+          and train_kb["k1"] == train_kb["k2"] == 0, "train_kb",
+          f"launches {train_kb} in {TRAIN_STEPS} PPX_KBUFFER steps")
+    for name in PARAM_NAMES:
+        g = getattr(model, name).grad
+        check(g is not None and bool(torch.isfinite(g).all())
+              and bool((g != 0).any()), "train_kb", f"gradient of {name}")
+    check(min(step_pairs) >= MIN_PAIRS, "train_kb", f"pairs per step {step_pairs}")
+    kb_train_stage = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _, _ = trainer.step_forward(state, cam, target, static=kb_static)
+        ev[1].record()
+        trainer.step_backward(state, loss)
+        ev[2].record()
+        state = trainer.step_update(state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for key, a, b in (("forward_ms", 0, 1), ("backward_ms", 1, 2),
+                          ("optimizer_ms", 2, 3)):
+            kb_train_stage[key] += ev[a].elapsed_time(ev[b]) / reps
+    emit({"phase": "train_kb", "ok": True, "steps": TRAIN_STEPS, "width": WIDTH,
+          "height": HEIGHT, "gaussians": NUM_GAUSSIANS, "k": KB_K,
+          "losses": losses, "ms_per_step": sum(step_ms) / TRAIN_STEPS,
+          "step_ms": step_ms, "stage_ms": kb_train_stage,
+          "pairs_per_step": step_pairs, "launches": train_kb,
+          "peak_mem_gib": kb_train_peak, "card": card})
+    if want_profile:
+        def one_kb_step():
+            nonlocal state, stats
+            state, stats, _ = step_fn(state, cam, target, stats)
+
+        emit({"phase": "train_kb_profile", "ok": True, "steps": 3,
+              **profile_steps(one_kb_step, 3, sum(step_ms) / TRAIN_STEPS),
+              "card": card})
+    del state, stats, model, target
+
+    # 11. kernels -----------------------------------------------------------------
     emit({"kernels": [{
         "name": global_blend.KERNEL, "route": "cuda",
         "source": global_blend.SOURCE, "replaces": global_blend.REPLACES,
@@ -611,6 +975,26 @@ def main(argv=None) -> int:
         "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": max(k2_bytes_ms, k2_ops_ms),
         "bound_by": "bytes" if k2_bytes_ms >= k2_ops_ms else "operations",
+        "library_ms": None,
+    }, {
+        "name": kb.KERNEL, "route": "cuda", "source": kb.SOURCE,
+        "replaces": kb.REPLACES, "launches": train_kb["k3"],
+        "max_abs_err": max(max(kb_full["max_abs_err_color"],
+                               kb_full["max_abs_err_final_t"]),
+                           *(max(st["max_abs_err_color"], st["max_abs_err_final_t"])
+                             for st in kb_small_stats)),
+        "ms": k3_ms, "plain_ms": k3_plain_ms,
+        "bound_ms": max(k3_bytes_ms, k3_ops_ms),
+        "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
+        "library_ms": None,
+    }, {
+        "name": kb.BWD_KERNEL, "route": "cuda", "source": kb.BWD_SOURCE,
+        "replaces": kb.BWD_REPLACES, "launches": train_kb["k4"],
+        "max_abs_err": max(kb_full_bwd["max_abs_err"],
+                           *(st["max_abs_err"] for st in kb_small_bwd)),
+        "ms": k4_ms, "plain_ms": k4_plain_ms,
+        "bound_ms": max(k4_bytes_ms, k4_ops_ms),
+        "bound_by": "bytes" if k4_bytes_ms >= k4_ops_ms else "operations",
         "library_ms": None,
     }]})
     print(card)

@@ -1,11 +1,12 @@
 """stopthepop_tpu_torch: the PyTorch/CUDA port of stopthepop_tpu.
 
 A second package beside the JAX one, held against it on the same inputs.
-This slice renders the GLOBAL sort mode forward (Z_DEPTH and DISTANCE
-orders, rect / tight-opacity culling, proper EWA scaling) with the blend in
-a hand-written CUDA kernel for Hopper (``csrc/global_blend_fwd.cu``). Entry
-points run on the GPU unless the caller passes ``device="cpu"``; on CPU
-tensors every kernel wrapper runs its plain PyTorch version.
+It renders and trains in the GLOBAL and PER_PIXEL_KBUFFER sort modes (every
+stream order, rect / tight-opacity / tile-based culling, proper EWA
+scaling) with the blends in hand-written CUDA kernels for Hopper
+(``csrc/``: K1/K2 GLOBAL forward/backward, K3/K4 k-buffer forward/backward).
+Entry points run on the GPU unless the caller passes ``device="cpu"``; on
+CPU tensors every kernel wrapper runs its plain PyTorch version.
 
 Nothing here imports JAX or the ``stopthepop_tpu`` package.
 """

@@ -1,6 +1,8 @@
-"""Differentiable GLOBAL blend: a ``torch.autograd.Function`` pairing K1 and K2.
+"""Differentiable blends: ``torch.autograd.Function``s pairing K1 with K2
+(GLOBAL) and K3 with K4 (PER_PIXEL_KBUFFER).
 
-The counterpart of ``stopthepop_tpu/kernels/blend_vjp.py::make_blend_global``.
+The counterparts of ``stopthepop_tpu/kernels/blend_vjp.py::make_blend_global``
+and ``make_blend_kbuffer``.
 The seam sits where the reference splits its hand-written backward: the
 blend-level gradients with respect to the per-Gaussian rows (xy, conic and
 opacity, rgb) come from kernel K2; everything upstream (preprocess) is plain
@@ -18,6 +20,11 @@ summed in float32 in run order, so no prefix sum over the whole stream loses
 digits on small Gaussians. ``depth`` gets no gradient, as in the JAX
 package. The background stays outside the Function (render/pipeline.py), so
 autograd folds it into the final_T cotangent.
+
+``BlendKBuffer`` has the same seam and steps with K3 and K4 in place of K1 and
+K2. ``cov3d_inv9`` and the camera get no gradient: the per-ray depths only
+choose the window order, a discrete choice, as in the reference and the JAX
+package.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from .global_blend import blend_global_backward, blend_global_forward
+from .kbuffer_blend import blend_kbuffer_backward, blend_kbuffer_forward
 
 
 def reduce_pair_grads(d_pair, orig_slot, gauss_offsets):
@@ -65,3 +73,36 @@ class BlendGlobal(torch.autograd.Function):
         d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
         return (d[:, 0:2], d[:, 2:6], d[:, 6:9], None, None, None, None, None,
                 None)
+
+
+class BlendKBuffer(torch.autograd.Function):
+    """(xy, conic_opacity, rgb, cov3d_inv9, inverse_vp, campos, pairs, k,
+    grid) -> K3's four outputs, differentiable in xy, conic_opacity and rgb
+    through color and final_T."""
+
+    @staticmethod
+    def forward(ctx, xy, conic_opacity, rgb, cov3d_inv9, inverse_vp, campos,
+                pairs, k, grid_x, grid_y, width, height):
+        kw = dict(k=k, grid_x=grid_x, grid_y=grid_y, width=width,
+                  height=height)
+        color, final_t, n_contrib, depth_acc = blend_kbuffer_forward(
+            pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
+            cov3d_inv9, inverse_vp, campos, **kw)
+        ctx.save_for_backward(xy, conic_opacity, rgb, cov3d_inv9, inverse_vp,
+                              campos, color, final_t, n_contrib)
+        ctx.pairs = pairs
+        ctx.kw = kw
+        ctx.mark_non_differentiable(n_contrib, depth_acc)
+        return color, final_t, n_contrib, depth_acc
+
+    @staticmethod
+    def backward(ctx, grad_color, grad_final_t, _grad_n, _grad_depth):
+        (xy, conic_opacity, rgb, cov3d_inv9, inverse_vp, campos, color,
+         final_t, n_contrib) = ctx.saved_tensors
+        pairs = ctx.pairs
+        d_pair = blend_kbuffer_backward(
+            pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
+            cov3d_inv9, inverse_vp, campos, color, final_t, n_contrib,
+            grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw)
+        d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
+        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 9

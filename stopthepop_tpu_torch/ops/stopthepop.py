@@ -4,16 +4,19 @@ Port of the part of ``stopthepop_tpu/ops/stopthepop.py`` that preprocess
 needs: the packed inverse covariance ("cov3d_inv9" [..., 9]) with rows
 (xx, xy, xz), (yy, yz, zz), u = Sigma^-1 (mean - campos) — the reference's
 payload (forward.cu:208-220) minus its padding lanes — and the tile-based
-culling test (``max_contrib_power_rect``, ``tile_rect_bounds``). The per-ray
-and per-tile depth functions come with the per-tile-depth sort orders.
+culling test (``max_contrib_power_rect``, ``tile_rect_bounds``), the exact
+per-ray depth of the k-buffer sort mode (``depth_along_ray``) and the
+per-tile depth of the PTD_CENTER / PTD_MAX stream orders
+(``per_tile_depth``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..constants import TILE_X, TILE_Y
+from ..constants import PER_TILE_DEPTH_BIAS, RAY_DEPTH_DEN_FLOOR, TILE_X, TILE_Y
 from .covariance import compute_inv_cov3d
+from .transforms import compute_view_ray
 
 
 def pack_inv_cov3d_from_inv6(inv6, means3d, campos):
@@ -30,6 +33,37 @@ def pack_inv_cov3d_from_inv6(inv6, means3d, campos):
         dim=-1,
     )
     return torch.cat([inv6, u], dim=-1)
+
+
+def depth_along_ray(cov3d_inv9, viewdir):
+    """Depth of the max-contribution point of a Gaussian along a world ray.
+
+    t* = (u . d) / (d^T Sigma^-1 d), with the reference's denominator floor
+    (stopthepop_common.cuh:44-55). Broadcasts over leading dims; the
+    operation order is the k-buffer kernels'.
+    """
+    xx, xy, xz, yy, yz, zz = (cov3d_inv9[..., i] for i in range(6))
+    ux, uy, uz = (cov3d_inv9[..., 6 + i] for i in range(3))
+    dx, dy, dz = viewdir[..., 0], viewdir[..., 1], viewdir[..., 2]
+    num = ux * dx + uy * dy + uz * dz
+    den = (
+        xx * dx * dx
+        + yy * dy * dy
+        + zz * dz * dz
+        + 2.0 * (xy * dx * dy + xz * dx * dz + yz * dy * dz)
+    )
+    return num / torch.clamp(den, min=RAY_DEPTH_DEN_FLOOR)
+
+
+def per_tile_depth(target_pos, cov3d_inv9, campos, w, h, inverse_vp):
+    """Per-tile sort depth: ray through target_pos, biased and floored.
+
+    Reference: stopthepop_common.cuh:439-453 —
+    depth = max(0, depthAlongRay(ray to target) + 8).
+    """
+    viewdir = compute_view_ray(target_pos, w, h, inverse_vp, campos)
+    return torch.clamp(depth_along_ray(cov3d_inv9, viewdir) + PER_TILE_DEPTH_BIAS,
+                       min=0.0)
 
 
 def evaluate_opacity_factor(dx, dy, conic):

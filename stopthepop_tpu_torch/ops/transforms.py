@@ -13,6 +13,8 @@ jitters projected positions by ~0.1 px).
 
 from __future__ import annotations
 
+import torch
+
 from ..constants import NDC_W_EPS, NEAR_Z
 
 
@@ -41,6 +43,32 @@ def world2ndc(p_world, viewproj):
 def ndc2pix(v, size):
     """NDC [-1, 1] to continuous pixel coordinate. auxiliary.h:66-69."""
     return ((v + 1.0) * size - 1.0) * 0.5
+
+
+def pix2world(pix, w, h, inverse_vp):
+    """Pixel coordinate [..., 2] to the world-space point on the camera plane.
+
+    Reference: auxiliary.h:71-81 (uses rows 0, 1, 3 of the torch-layout
+    inverse view-projection matrix). The pixel coordinate is taken as given
+    (integer pixels, no +0.5), as in the JAX package.
+    """
+    ndc_x = pix[..., 0] * (2.0 / w) - 1.0
+    ndc_y = pix[..., 1] * (2.0 / h) - 1.0
+    p = (ndc_x[..., None] * inverse_vp[0] + ndc_y[..., None] * inverse_vp[1]
+         + inverse_vp[3])
+    return p[..., :3] / p[..., 3:4]
+
+
+def compute_view_ray(pix, w, h, inverse_vp, campos):
+    """Normalized world-space ray direction through a pixel [..., 3].
+
+    Reference: stopthepop_common.cuh:68-74 (computeViewRay). The norm is
+    written out, ((x^2 + y^2) + z^2), as the k-buffer kernels compute it.
+    """
+    d = pix2world(pix, w, h, inverse_vp) - campos
+    norm = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                      + d[..., 2] * d[..., 2])
+    return d / norm[..., None]
 
 
 def in_frustum(means3d, viewmatrix):

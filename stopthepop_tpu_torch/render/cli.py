@@ -1,9 +1,10 @@
 """Offline rendering CLI: PLY model -> image sequence (+ FPS report).
 
 Port of ``stopthepop_tpu/render/cli.py``: load a trained 3DGS model, render
-an orbit (or a NeRF-synthetic dataset's cameras) in the GLOBAL sort mode with
-rect and tight-opacity culling, and write PNG frames. Renders run on the GPU
-under ``torch.inference_mode()``.
+an orbit (or a NeRF-synthetic dataset's cameras) in the GLOBAL sort mode
+(kernel K1) or, with ``--sort-mode PPX_KBUFFER``, the k-buffer mode (kernel
+K3, window 4), with rect and tight-opacity culling, and write PNG frames.
+Renders run on the GPU under ``torch.inference_mode()``.
 
 Usage:
     python -m stopthepop_tpu_torch.render.cli --ply model.ply --out frames/ \\

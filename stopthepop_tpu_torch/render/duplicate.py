@@ -31,11 +31,12 @@ from typing import NamedTuple
 import torch
 
 from ..config import GlobalSortOrder
+from ..constants import TILE_X, TILE_Y
 from ..ops.sort import identify_tile_ranges, sort_pairs
-from ..ops.stopthepop import max_contrib_power_rect, tile_rect_bounds
+from ..ops.stopthepop import max_contrib_power_rect, per_tile_depth, tile_rect_bounds
 from .preprocess import PreprocessOutput
 
-SUPPORTED_ORDERS = (GlobalSortOrder.Z_DEPTH, GlobalSortOrder.DISTANCE)
+PER_TILE_ORDERS = (GlobalSortOrder.PTD_CENTER, GlobalSortOrder.PTD_MAX)
 
 
 class PairBuffer(NamedTuple):
@@ -47,17 +48,6 @@ class PairBuffer(NamedTuple):
     num_rendered: int       # N, the exact pair count
     orig_slot: torch.Tensor  # [N] int64 expansion index of each sorted slot
     gauss_offsets: torch.Tensor  # [P + 1] int64 Gaussian-major run offsets
-
-
-def check_sort_order(sort_order) -> GlobalSortOrder:
-    order = GlobalSortOrder(sort_order)
-    if order not in SUPPORTED_ORDERS:
-        raise NotImplementedError(
-            f"sort order {order.name} is not ported yet: the per-tile-depth "
-            "orders come with ROADMAP.md Queue 1 item 4 (rest). Use Z_DEPTH "
-            "or DISTANCE."
-        )
-    return order
 
 
 def rect_histogram(prep: PreprocessOutput, grid_x: int, grid_y: int):
@@ -93,15 +83,29 @@ def expand_pairs(
     grid_x: int,
     sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
     tile_based_culling: bool = False,
+    campos=None,
+    inverse_vp=None,
+    image_width: int = 0,
+    image_height: int = 0,
 ):
     """The "Duplicate" stage: one (tile, depth, Gaussian) triple per pair.
 
     Returns (tile_id [N] int32, depth [N] float32, gauss_id [N] int32),
     unsorted, Gaussian-major. With ``tile_based_culling`` a pair is kept
     only where the Gaussian's least power over the tile's pixel rect is at
-    most its ``opacity_power_threshold``.
+    most its ``opacity_power_threshold``. ``depth`` is the sort key: the
+    Gaussian's depth, or the pair's per-tile depth for PTD_CENTER /
+    PTD_MAX, which need ``campos`` [3], ``inverse_vp`` [4, 4] and the image
+    size (ValueError without them).
     """
-    check_sort_order(sort_order)
+    order = GlobalSortOrder(sort_order)
+    per_tile = order in PER_TILE_ORDERS
+    if per_tile and (campos is None or inverse_vp is None
+                     or image_width <= 0 or image_height <= 0):
+        raise ValueError(
+            f"sort order {order.name} needs campos, inverse_vp, image_width "
+            "and image_height"
+        )
     dev = prep.tiles_touched.device
     touched = prep.tiles_touched.to(torch.int64)
     num_rendered = int(touched.sum())  # the reference's one D2H read
@@ -115,17 +119,33 @@ def expand_pairs(
     width = (prep.rect_max[:, 0] - prep.rect_min[:, 0]).to(torch.int64)[g]
     ty = rect_min[:, 1] + local // width
     tx = rect_min[:, 0] + local % width
-    if tile_based_culling:
-        # A discrete decision: no gradient flows through it.
+    # Culling and sort keys are discrete decisions: no gradient flows
+    # through them.
+    if tile_based_culling or order == GlobalSortOrder.PTD_MAX:
         tile_min, tile_max = tile_rect_bounds(tx, ty)
-        power, _ = max_contrib_power_rect(
+        power, max_pos = max_contrib_power_rect(
             prep.conic_opacity.detach()[g], prep.mean2d.detach()[g],
             tile_min, tile_max,
         )
+    if tile_based_culling:
         keep = power <= prep.opacity_power_threshold.detach()[g]
         g, tx, ty = g[keep], tx[keep], ty[keep]
+        if order == GlobalSortOrder.PTD_MAX:
+            max_pos = max_pos[keep]
     tile_id = (ty * grid_x + tx).to(torch.int32)
-    return tile_id, prep.depth.detach()[g], g.to(torch.int32)
+    if not per_tile:
+        return tile_id, prep.depth.detach()[g], g.to(torch.int32)
+    if order == GlobalSortOrder.PTD_CENTER:
+        # Center of the inclusive pixel rect: (tx*16 + 7.5, ty*16 + 7.5).
+        target = torch.stack(
+            [tx.to(torch.float32) * TILE_X + (TILE_X - 1) / 2.0,
+             ty.to(torch.float32) * TILE_Y + (TILE_Y - 1) / 2.0], dim=-1)
+    else:
+        target = max_pos
+    depth = per_tile_depth(target, prep.cov3d_inv9.detach()[g],
+                           campos.detach(), image_width, image_height,
+                           inverse_vp.detach())
+    return tile_id, depth, g.to(torch.int32)
 
 
 def sort_expanded(tile_id, depth, gauss_id, num_tiles: int,
@@ -155,9 +175,18 @@ def build_pairs(
     grid_y: int,
     sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
     tile_based_culling: bool = False,
+    campos=None,
+    inverse_vp=None,
+    image_width: int = 0,
+    image_height: int = 0,
 ) -> PairBuffer:
-    """Expand, optionally tile-cull, key and sort all Gaussian/tile pairs."""
+    """Expand, optionally tile-cull, key and sort all Gaussian/tile pairs.
+
+    The camera and image size are needed by the per-tile-depth orders only
+    (see ``expand_pairs``)."""
     expanded = expand_pairs(prep, grid_x=grid_x, sort_order=sort_order,
-                            tile_based_culling=tile_based_culling)
+                            tile_based_culling=tile_based_culling,
+                            campos=campos, inverse_vp=inverse_vp,
+                            image_width=image_width, image_height=image_height)
     return sort_expanded(*expanded, num_tiles=grid_x * grid_y,
                          num_gaussians=prep.tiles_touched.shape[0])

@@ -1,15 +1,16 @@
 """Public rasterization API (torch).
 
-Port of ``stopthepop_tpu/render/rasterize.py`` for the GLOBAL sort mode. It
-mirrors the reference's Python surface (diff_gaussian_rasterization/
-__init__.py:32-53, 265-314): ``rasterize_gaussians(...)`` and
+Port of ``stopthepop_tpu/render/rasterize.py`` for the GLOBAL and
+PER_PIXEL_KBUFFER sort modes, under every stream order. It mirrors the
+reference's Python surface (diff_gaussian_rasterization/__init__.py:32-53,
+265-314): ``rasterize_gaussians(...)`` and
 ``GaussianRasterizer`` with the same argument names and validation messages,
 returning ``(color [3, H, W], radii [P])``. The render runs on the device of
 ``means3D``; the settings' tensors follow it there.
 
 Gradients flow by autograd to all 8 reference inputs (means3D, means2D, sh,
 colors_precomp, opacities, scales, rotations, cov3Ds_precomp); the blend's
-backward is kernel K2 (kernels/blend_vjp.py). ``means2D`` is the
+backward is kernel K2 or K4 (kernels/blend_vjp.py). ``means2D`` is the
 densification dummy: its value does not change the render, and its gradient
 is the pixel-space mean gradient scaled by (0.5 W, 0.5 H), as in the JAX
 package. There is no pair capacity: the pair count is read back once per
@@ -22,15 +23,14 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import GaussianRasterizationSettings, SortMode
+from ..config import GaussianRasterizationSettings, GlobalSortOrder, SortMode
+from ..kernels.kbuffer_blend import check_window
 from ..ops.transforms import mark_visible
-from .duplicate import check_sort_order
-from .pipeline import render_tiled
+from .pipeline import render_tiled, render_tiled_kbuffer
 from .preprocess import preprocess
 
 _MODE_ITEMS = {
     SortMode.PPX_FULL: "10 (PER_PIXEL_FULL, kernel K7)",
-    SortMode.PPX_KBUFFER: "8 (PER_PIXEL_KBUFFER, kernels K3/K4)",
     SortMode.HIER: "9 (HIERARCHICAL, kernels K5/K6)",
 }
 
@@ -39,15 +39,17 @@ class RenderOutput(NamedTuple):
     color: torch.Tensor      # [3, H, W]
     radii: torch.Tensor      # [P] int32
     final_t: torch.Tensor    # [H, W]
-    n_contrib: torch.Tensor  # [H, W] int32
-    depth_acc: torch.Tensor  # [H, W] sum(depth * alpha * T)
+    n_contrib: torch.Tensor  # [H, W] int32 (GLOBAL: position of the last
+                             # blend; PPX_KBUFFER: number of commits)
+    depth_acc: torch.Tensor  # [H, W] sum(depth * alpha * T) (PPX_KBUFFER:
+                             # the per-ray depth)
     num_rendered: int        # (tile, Gaussian) pairs of this frame
 
 
 def check_sort_mode(sort_mode) -> SortMode:
     """The sort mode, or NotImplementedError naming its ROADMAP.md item."""
     mode = SortMode(sort_mode)
-    if mode != SortMode.GLOBAL:
+    if mode in _MODE_ITEMS:
         raise NotImplementedError(
             f"sort mode {mode.name} is not ported yet: ROADMAP.md Queue 1 "
             f"item {_MODE_ITEMS[mode]}."
@@ -56,16 +58,26 @@ def check_sort_mode(sort_mode) -> SortMode:
 
 
 def _check_supported(rs: GaussianRasterizationSettings):
+    """(sort mode, stream order, k-buffer window) of the settings."""
     ext = rs.settings
-    check_sort_mode(ext.sort_settings.sort_mode)
-    order = check_sort_order(ext.sort_settings.sort_order)
+    mode = check_sort_mode(ext.sort_settings.sort_mode)
+    order = GlobalSortOrder(ext.sort_settings.sort_order)
+    k = None
+    if mode == SortMode.PPX_KBUFFER:
+        k = check_window(ext.sort_settings.queue_sizes.per_pixel)
+    per_ray = mode == SortMode.PPX_KBUFFER or order in (
+        GlobalSortOrder.PTD_CENTER, GlobalSortOrder.PTD_MAX)
+    if per_ray and rs.inv_viewprojmatrix is None:
+        raise ValueError(
+            f"{mode.name} with {order.name} needs inv_viewprojmatrix in the "
+            "raster settings (per-ray depths)")
     if rs.render_depth or rs.debug:
         raise NotImplementedError(
             "render_depth (the Depth debug visualization) and debug "
             "snapshots are not "
             "ported yet: ROADMAP.md Queue 1 item 11."
         )
-    return order
+    return mode, order, k
 
 
 def rasterize_gaussians(
@@ -92,7 +104,7 @@ def rasterize_gaussians(
     scales = none_if_empty(scales)
     rotations = none_if_empty(rotations)
     cov3Ds_precomp = none_if_empty(cov3Ds_precomp)
-    sort_order = _check_supported(rs)
+    sort_mode, sort_order, k = _check_supported(rs)
     ext = rs.settings
     dev = means3D.device
     W, H = int(rs.image_width), int(rs.image_height)
@@ -102,6 +114,8 @@ def rasterize_gaussians(
 
     viewmatrix, projmatrix = on_dev(rs.viewmatrix), on_dev(rs.projmatrix)
     campos, bg = on_dev(rs.campos), on_dev(rs.bg)
+    inverse_vp = (None if rs.inv_viewprojmatrix is None
+                  else on_dev(rs.inv_viewprojmatrix))
 
     if rs.prefiltered and not bool(mark_visible(means3D, viewmatrix, projmatrix).all()):
         # The reference __trap()s on this contract violation.
@@ -139,10 +153,15 @@ def rasterize_gaussians(
         # d loss / d means2D = pixel-space mean gradient * (0.5 W, 0.5 H).
         m2d = means2D[:, :2] * means2D.new_tensor([0.5 * W, 0.5 * H])
         prep = prep._replace(mean2d=prep.mean2d + m2d - m2d.detach())
-    color, final_t, n_contrib, pairs, depth_acc = render_tiled(
-        prep, bg, image_width=W, image_height=H, sort_order=sort_order,
-        tile_based_culling=ext.culling_settings.tile_based_culling,
-    )
+    kw = dict(image_width=W, image_height=H, sort_order=sort_order,
+              tile_based_culling=ext.culling_settings.tile_based_culling,
+              campos=campos, inverse_vp=inverse_vp)
+    if sort_mode == SortMode.PPX_KBUFFER:
+        color, final_t, n_contrib, pairs, depth_acc = render_tiled_kbuffer(
+            prep, bg, k=k, **kw)
+    else:
+        color, final_t, n_contrib, pairs, depth_acc = render_tiled(
+            prep, bg, **kw)
     if full_output:
         return RenderOutput(color, prep.radii, final_t, n_contrib, depth_acc,
                             pairs.num_rendered)

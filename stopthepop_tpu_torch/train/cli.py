@@ -8,12 +8,13 @@ Port of ``stopthepop_tpu/train/cli.py``: dataset loading, the
 densify / prune / opacity-reset schedule, per-group learning rates, periodic
 PSNR evaluation, checkpointing and PLY export, through the port's GLOBAL
 pipeline (kernels K1 and K2 on the GPU; ``--device cpu`` runs their plain
-versions). Rasterization uses rect, tight-opacity and tile-based culling, as
-the JAX CLI does. The JAX CLI's TPU flags (pair capacity, segment cap,
-binning tile, bf16 carriers, rank key, interpret mode) have no counterpart:
-the pair count is dynamic here. COLMAP captures and the resort sort modes
-are not ported yet and raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+versions) or, with ``--sort-mode PPX_KBUFFER``, the k-buffer pipeline
+(kernels K3 and K4, window ``SortQueueSizes.per_pixel`` = 4). Rasterization
+uses rect, tight-opacity and tile-based culling, as the JAX CLI does. The JAX
+CLI's TPU flags (pair capacity, segment cap, binning tile, bf16 carriers,
+rank key, interpret mode) have no counterpart: the pair count is dynamic
+here. COLMAP captures and the PPX_FULL and HIER sort modes are not ported
+yet and raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations

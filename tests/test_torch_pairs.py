@@ -2,7 +2,8 @@
 
 Each side preprocesses the same numpy-drawn scene; the per-tile ordered
 Gaussian id lists must be equal exactly (JAX's invalid slots stripped), with
-and without tile_based_culling. The sort permutation ``orig_slot`` must invert
+and without tile_based_culling, under the Z_DEPTH, DISTANCE and per-tile-depth
+(PTD_CENTER, PTD_MAX) stream orders. The sort permutation ``orig_slot`` must invert
 the sort, and the Gaussian-major run offsets must bound each Gaussian's run.
 """
 
@@ -17,6 +18,7 @@ from stopthepop_tpu.render.duplicate import rect_histogram as jax_rect_histogram
 from stopthepop_tpu.render.preprocess import preprocess as jax_preprocess
 
 from stopthepop_tpu_torch.config import GlobalSortOrder
+from stopthepop_tpu_torch.ops.sort import sort_pairs
 from stopthepop_tpu_torch.render.duplicate import (
     build_pairs,
     count_pairs,
@@ -152,11 +154,64 @@ def test_rect_histogram_matches_jax(cull):
                                   np.asarray(jax_rect_histogram(j, gx, gy)))
 
 
+@pytest.mark.parametrize("order", [GlobalSortOrder.PTD_CENTER, GlobalSortOrder.PTD_MAX])
+@pytest.mark.parametrize("size,cull", [((64, 64), False), ((70, 45), True)])
+def test_per_tile_depth_id_lists_match_jax(order, size, cull):
+    w, h = size
+    gx, gy = tile_grid(w, h)
+    t, j = _preps(w, h, order, True, seed=13)
+    cam = make_camera(w, h, device="cpu")
+    pairs = build_pairs(t, grid_x=gx, grid_y=gy, sort_order=order,
+                        tile_based_culling=cull, campos=cam.campos,
+                        inverse_vp=cam.inv_viewprojmatrix, image_width=w,
+                        image_height=h)
+    total = int(count_pairs(t))
+    jp = jax_build_pairs(j, capacity=total + 64, grid_x=gx, grid_y=gy,
+                         sort_order=JOrder(int(order)), tile_based_culling=cull,
+                         campos=jnp.asarray(cam.campos.numpy()),
+                         inverse_vp=jnp.asarray(cam.inv_viewprojmatrix.numpy()),
+                         image_width=w, image_height=h)
+    jstarts, jends = np.asarray(jp.starts), np.asarray(jp.ends)
+    jgid, jvalid = np.asarray(jp.gauss_id), np.asarray(jp.valid)
+    starts, ends = pairs.starts.numpy(), pairs.ends.numpy()
+    gid = pairs.gauss_id.numpy()
+    depth = pairs.depth.numpy()
+    for tile in range(gx * gy):
+        seg = slice(jstarts[tile], jends[tile])
+        np.testing.assert_array_equal(
+            gid[starts[tile]:ends[tile]], jgid[seg][jvalid[seg]],
+            err_msg=f"tile {tile}",
+        )
+        assert (np.diff(depth[starts[tile]:ends[tile]]) >= 0).all()
+    assert pairs.num_rendered == int(jvalid.sum()) > 0
+    assert (depth >= 0).all()
+    # Per-tile keys: the same Gaussian takes different depths in different
+    # tiles, unlike under Z_DEPTH.
+    g0 = int(np.bincount(gid).argmax())
+    assert len(np.unique(depth[gid == g0])) > 1
+
+
 def test_per_tile_depth_orders_raise():
+    # The per-tile-depth orders need the camera and the image size.
     t, _ = _preps(32, 32, GlobalSortOrder.Z_DEPTH, False, n=20)
+    cam = make_camera(32, 32, device="cpu")
     for order in (GlobalSortOrder.PTD_CENTER, GlobalSortOrder.PTD_MAX):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="campos, inverse_vp"):
             build_pairs(t, grid_x=2, grid_y=2, sort_order=order)
+        with pytest.raises(ValueError, match="campos, inverse_vp"):
+            build_pairs(t, grid_x=2, grid_y=2, sort_order=order,
+                        campos=cam.campos, image_width=32, image_height=32)
+
+
+def test_sort_key_ties_negative_zero_with_zero():
+    # A per-tile depth clamped at 0 may come out as -0.0; it sorts as 0.0
+    # (stable by stream order), not past every positive depth.
+    tiles = torch.tensor([1, 0, 0, 0, 1], dtype=torch.int32)
+    depths = torch.tensor([-0.0, 2.0, -0.0, 0.0, 1.0])
+    ids = torch.arange(5, dtype=torch.int32)
+    s_tile, _, s_ids, _ = sort_pairs(tiles, depths, ids)
+    assert s_tile.tolist() == [0, 0, 0, 1, 1]
+    assert s_ids.tolist() == [2, 3, 1, 0, 4]
 
 
 def test_empty_stream():
