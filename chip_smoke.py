@@ -52,8 +52,20 @@ Phases, one JSON line each; any failure exits non-zero:
  10. train_kb: 5 training steps at 1080p/500K in PPX_KBUFFER; loss finite and
      falling, every gradient finite and nonzero somewhere, K3 and K4 once a
      step, K1 and K2 not at all; step time and a per-stage breakdown.
- 11. the kernels line: each ported kernel with its launches on the training
-     path (phase 5 for K1/K2, phase 10 for K3/K4), its error against the
+ 11. kernel_hier: hold kernel K5 (HIERARCHICAL blend, forward) against its
+     plain version — phase 7's two 70x45 scenes with queues (tile_4x4,
+     tile_2x2, per_pixel) = (64, 8, 4), (16, 8, 4), (8, 4, 2) and
+     (256, 20, 16), and (16, 8, 4) with hierarchical 4x4 and tile-based
+     culling, then the 1080p/500K bench frame at (64, 8, 4) (color / final_T
+     within atol 1e-5, n_contrib exactly, depth_acc within 1e-5 relative) —
+     and time both.
+ 12. main_hier: render 4 orbit frames of the 500K model at 1920x1080 through
+     render/cli.py::render_frames in HIER (default queues 64, 8, 4); every
+     frame finite and not background, K5 launched exactly once a frame and
+     K1-K4 not at all. Then a per-stage breakdown of one frame.
+ 13. the kernels line: each ported kernel with its launches on its main
+     path (the training steps of phase 5 for K1/K2 and of phase 10 for
+     K3/K4, the HIER frames of phase 12 for K5), its error against the
      plain version, its time, the plain version's time and its bound on
      this card.
 The line before the last is the card's name and power limit from nvidia-smi;
@@ -106,6 +118,20 @@ OPS_PER_DEPTH, OPS_PER_INSERT_SLOT, OPS_PER_COMMIT = 24, 6, 10
 OPS_PER_COMMIT_BWD = 45
 KB_K = 4           # the default SortQueueSizes.per_pixel
 KB_SMALL_KS = (1, 4, 8, 24)
+# K5, per (stream position, sub-tile) of a live tile: the tail key, a ray
+# depth (24); per entry placed by a tail merge, at least one operation (1).
+# Per (emitted entry, pixel): the alpha (11) and the mid and head ray depths
+# (2 x 24), and the mid insert: km compares and km selects for each of the 4
+# window fields (5 km). Per mid pop, the head insert (4 kh: 3 fields). Per
+# commit, as K3 (10). The merge's ranking compares, the pops' shifts and
+# the tests are not counted.
+OPS_PER_TAIL_KEY, OPS_PER_TAIL_SLOT, OPS_PER_HIER_EVAL = 24, 1, 59
+OPS_PER_MID_SLOT, OPS_PER_HEAD_SLOT = 5, 4
+HIER_QUEUES = (64, 8, 4)  # the default SortQueueSizes
+# (queues, hierarchical 4x4 and tile-based culling) on the 70x45 scenes.
+HIER_SMALL_CASES = (((64, 8, 4), False), ((16, 8, 4), False),
+                    ((8, 4, 2), False), ((256, 20, 16), False),
+                    ((16, 8, 4), True))
 TRAIN_STEPS = 5
 # The training CLI's run: a NeRF-synthetic dataset of CLI_VIEWS renders of
 # a CLI_SCENE-Gaussian procedural scene at CLI_SIZE x CLI_SIZE.
@@ -151,7 +177,7 @@ def blend_args(prep, pairs):
             prep.depth.contiguous())
 
 
-def prepare(scene_or_model, cam, width, height):
+def prepare(scene_or_model, cam, width, height, tile_based_culling=False):
     from stopthepop_tpu_torch.render.duplicate import build_pairs
     from stopthepop_tpu_torch.render.pipeline import tile_grid
     from stopthepop_tpu_torch.render.preprocess import preprocess
@@ -166,7 +192,8 @@ def prepare(scene_or_model, cam, width, height):
         rect_bounding=True, tight_opacity_bounding=True,
     )
     gx, gy = tile_grid(width, height)
-    pairs = build_pairs(prep, grid_x=gx, grid_y=gy)
+    pairs = build_pairs(prep, grid_x=gx, grid_y=gy,
+                        tile_based_culling=tile_based_culling)
     return prep, pairs, dict(grid_x=gx, grid_y=gy, width=width, height=height)
 
 
@@ -267,21 +294,18 @@ def kb_args(prep, pairs, cam):
             cam.campos.contiguous())
 
 
-def compare_kb(name, args, kw, k, *, count_evaluations=False):
-    """K3 against its plain version on the same inputs; returns (stats, K3's
-    output)."""
-    from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
-
-    before = kb.blend_kbuffer_forward.launches
-    got = kb.blend_kbuffer_forward(*args, k=k, **kw)
+def compare_resort(phase, name, wrapper, plain, args, kw, *,
+                   count_evaluations=False):
+    """A forward kernel that takes a camera (K3, K5) against its plain
+    version on the same inputs; returns (stats, the kernel's output)."""
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
     torch.cuda.synchronize()
-    check(kb.blend_kbuffer_forward.launches == before + 1, "kernel_kb",
+    check(wrapper.launches == before + 1, phase,
           f"{name}: launch counter did not move")
-    ref = kb.blend_kbuffer_forward_plain(*args, k=k, **kw,
-                                         count_evaluations=count_evaluations)
+    ref = plain(*args, **kw, count_evaluations=count_evaluations)
     err_depth = ((got[3] - ref[3]).abs() / ref[3].abs().clamp(min=1.0)).max().item()
-    stats = {"k": k,
-             "max_abs_err_color": (got[0] - ref[0]).abs().max().item(),
+    stats = {"max_abs_err_color": (got[0] - ref[0]).abs().max().item(),
              "max_abs_err_final_t": (got[1] - ref[1]).abs().max().item(),
              "n_contrib_mismatches": int((got[2] != ref[2]).sum()),
              "max_rel_err_depth_acc": err_depth,
@@ -291,10 +315,21 @@ def compare_kb(name, args, kw, k, *, count_evaluations=False):
     check(stats["finite"] and stats["max_abs_err_color"] <= ATOL
           and stats["max_abs_err_final_t"] <= ATOL
           and stats["n_contrib_mismatches"] == 0 and err_depth <= ATOL,
-          "kernel_kb", f"{name}: kernel disagrees: {stats}")
+          phase, f"{name}: kernel disagrees: {stats}")
     if count_evaluations:
         stats.update(ref[4])
     return stats, got
+
+
+def compare_kb(name, args, kw, k, *, count_evaluations=False):
+    """K3 against its plain version; returns (stats, K3's output)."""
+    from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
+
+    stats, got = compare_resort(
+        "kernel_kb", name, kb.blend_kbuffer_forward,
+        kb.blend_kbuffer_forward_plain, args, {**kw, "k": k},
+        count_evaluations=count_evaluations)
+    return {"k": k, **stats}, got
 
 
 def compare_kb_bwd(name, args, kw, k, fwd, cotangents, *,
@@ -332,6 +367,24 @@ def compare_kb_bwd(name, args, kw, k, fwd, cotangents, *,
     if count_evaluations:
         stats["replay"] = counts
     return stats, bwd_args
+
+
+def hier_args(prep, pairs, cam):
+    """K5 inputs of a preprocessed frame: K3's and the culling thresholds."""
+    args = kb_args(prep, pairs, cam)
+    return (*args[:7], prep.opacity_power_threshold.contiguous(), *args[7:])
+
+
+def compare_hier(name, args, kw, *, count_evaluations=False):
+    """K5 against its plain version; returns stats."""
+    from stopthepop_tpu_torch.kernels import hier_blend as hb
+
+    stats, _ = compare_resort(
+        "kernel_hier", name, hb.blend_hier_forward,
+        hb.blend_hier_forward_plain, args, kw,
+        count_evaluations=count_evaluations)
+    return {"queues": list(kw["queue_sizes"]),
+            "hier_4x4_culling": kw["hier_4x4_culling"], **stats}
 
 
 def kb_backward_grads(prep, pairs, cam, kw, k, cotangents):
@@ -391,12 +444,13 @@ def profile_steps(step, n: int, unprofiled_ms: float):
 
 
 def _wrappers():
-    from stopthepop_tpu_torch.kernels import global_blend, kbuffer_blend
+    from stopthepop_tpu_torch.kernels import global_blend, hier_blend, kbuffer_blend
 
     return {"k1": global_blend.blend_global_forward,
             "k2": global_blend.blend_global_backward,
             "k3": kbuffer_blend.blend_kbuffer_forward,
-            "k4": kbuffer_blend.blend_kbuffer_backward}
+            "k4": kbuffer_blend.blend_kbuffer_backward,
+            "k5": hier_blend.blend_hier_forward}
 
 
 def reset_launches():
@@ -405,7 +459,7 @@ def reset_launches():
 
 
 def read_launches():
-    """{"k1": n, "k2": n, "k3": n, "k4": n} kernel launches since the reset."""
+    """{"k1": n, ..., "k5": n} kernel launches since the reset."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
@@ -416,13 +470,15 @@ _USED = re.compile(r"Used (\d+) registers.*?(\d+) bytes smem")
 
 def ptxas_summary(log: str):
     """{instantiation: {registers, spill_stores, spill_loads, smem}} from
-    nvcc's -Xptxas -v output; a template's key is its MAX_K."""
+    nvcc's -Xptxas -v output; a template's key is its MAX_K, or its
+    (MID_MAX, HEAD_MAX) for K5."""
     out, key = {}, None
     for line in log.splitlines():
         m = _ENTRY.search(line)
         if m:
-            k = re.search(r"ILi(\d+)E", m.group(1))
-            key = f"MAX_K={k.group(1)}" if k else "kernel"
+            k = re.findall(r"Li(\d+)E", m.group(1))
+            key = (f"MAX_K={k[0]}" if len(k) == 1 else
+                   f"MID,HEAD={','.join(k)}" if len(k) == 2 else "kernel")
             out[key] = {}
         elif key and (m := _SPILL.search(line)):
             out[key]["spill_stores"], out[key]["spill_loads"] = map(int, m.groups())
@@ -529,7 +585,7 @@ def main(argv=None) -> int:
         check(bool((o.color != bg[:, None, None]).any()), "main", f"frame {i} is background")
         check(o.num_rendered >= MIN_PAIRS, "main", f"frame {i}: only {o.num_rendered} pairs")
     check(launches == FRAMES, "main", f"K1 launched {launches} times for {FRAMES} frames")
-    check(serve["k2"] == serve["k3"] == serve["k4"] == 0, "main",
+    check(serve["k2"] == serve["k3"] == serve["k4"] == serve["k5"] == 0, "main",
           f"other kernels launched while serving: {serve}")
 
     # Per-stage device times of frame 0 (CUDA events), after the counted run.
@@ -650,7 +706,7 @@ def main(argv=None) -> int:
     check(all(math.isfinite(v) for v in losses), "train", f"loss not finite: {losses}")
     check(losses[-1] < losses[0], "train", f"loss did not fall: {losses}")
     check(train_k1 == TRAIN_STEPS and train_k2 == TRAIN_STEPS
-          and counts["k3"] == counts["k4"] == 0, "train",
+          and counts["k3"] == counts["k4"] == counts["k5"] == 0, "train",
           f"launches {counts} in {TRAIN_STEPS} GLOBAL steps")
     for name in PARAM_NAMES:
         g = getattr(model, name).grad
@@ -824,7 +880,7 @@ def main(argv=None) -> int:
         check(o.num_rendered >= MIN_PAIRS, "main_kb",
               f"frame {i}: only {o.num_rendered} pairs")
     check(serve_kb["k3"] == FRAMES and serve_kb["k1"] == serve_kb["k2"]
-          == serve_kb["k4"] == 0, "main_kb",
+          == serve_kb["k4"] == serve_kb["k5"] == 0, "main_kb",
           f"launches {serve_kb} for {FRAMES} PPX_KBUFFER frames")
     kb_pairs_per_frame = [o.num_rendered for o in outs]
     kb_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -918,7 +974,7 @@ def main(argv=None) -> int:
     check(all(math.isfinite(v) for v in losses), "train_kb", f"loss not finite: {losses}")
     check(losses[-1] < losses[0], "train_kb", f"loss did not fall: {losses}")
     check(train_kb["k3"] == TRAIN_STEPS and train_kb["k4"] == TRAIN_STEPS
-          and train_kb["k1"] == train_kb["k2"] == 0, "train_kb",
+          and train_kb["k1"] == train_kb["k2"] == train_kb["k5"] == 0, "train_kb",
           f"launches {train_kb} in {TRAIN_STEPS} PPX_KBUFFER steps")
     for name in PARAM_NAMES:
         g = getattr(model, name).grad
@@ -955,7 +1011,119 @@ def main(argv=None) -> int:
               "card": card})
     del state, stats, model, target
 
-    # 11. kernels -----------------------------------------------------------------
+    # 11. kernel_hier: K5 against its plain version -----------------------------
+    from stopthepop_tpu_torch.kernels import hier_blend as hb
+
+    hier_small_stats = []
+    with torch.no_grad():
+        for case, scene_arrays in (
+                ("70x45 random scene, 300 Gaussians", small),
+                ("70x45 random scene, 300 larger Gaussians",
+                 {"means3d": dense.means3d, "opacities": dense.opacities,
+                  "scales": dense.scales, "rotations": dense.rotations,
+                  "shs": dense.shs})):
+            for queues, cull in HIER_SMALL_CASES:
+                prep, pairs, skw = prepare(scene_arrays, small_cam, 70, 45,
+                                           tile_based_culling=cull)
+                st = compare_hier(
+                    f"{case}, queues={queues}, culling={cull}",
+                    hier_args(prep, pairs, small_cam),
+                    {**skw, "queue_sizes": queues, "hier_4x4_culling": cull})
+                hier_small_stats.append(st)
+                emit({"phase": "kernel_hier", "ok": True, "case": case,
+                      "pairs": pairs.num_rendered, "tile_based_culling": cull,
+                      **st})
+    model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3, device=dev)
+    with torch.no_grad():
+        model.scales_log -= 2.3
+    with torch.inference_mode():
+        prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
+        hier_bench_args = hier_args(prep, pairs, bench_cam)
+        hkw = {**kw, "queue_sizes": HIER_QUEUES, "hier_4x4_culling": False}
+        hier_full = compare_hier("1080p", hier_bench_args, hkw,
+                                 count_evaluations=True)
+        k5_ms = cuda_ms(lambda: hb.blend_hier_forward(*hier_bench_args, **hkw), 20)
+        k5_plain_ms = cuda_ms(lambda: hb.blend_hier_forward_plain(
+            *hier_bench_args, **hkw), 1, 0)
+        k5_by_queues = {str(q): cuda_ms(lambda q=q: hb.blend_hier_forward(
+            *hier_bench_args, **{**hkw, "queue_sizes": q}), 5)
+            for q, cull in HIER_SMALL_CASES[1:4]}
+    N = pairs.num_rendered
+    counts_hier = (pairs.ends - pairs.starts).to(torch.int64)
+    kt, km, kh = HIER_QUEUES
+    k5_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3 + 9 + 1) + 19
+                    + WIDTH * HEIGHT * 6)
+    k5_ops = (OPS_PER_TAIL_KEY * hier_full["tail_keys"]
+              + OPS_PER_TAIL_SLOT * hier_full["tail_slots"]
+              + (OPS_PER_HIER_EVAL + OPS_PER_MID_SLOT * km)
+              * hier_full["evaluations"]
+              + OPS_PER_HEAD_SLOT * kh * hier_full["head_inserts"]
+              + OPS_PER_COMMIT * hier_full["commits"])
+    k5_bytes_ms, k5_ops_ms = bound_ms(k5_bytes, k5_ops)
+    emit({"phase": "kernel_hier", "ok": True,
+          "case": "1920x1080, 500K Gaussians, bench camera", "pairs": N,
+          "max_segment": int(counts_hier.max()),
+          "mean_segment": float(counts_hier.float().mean()),
+          **hier_full, "k5_ms": k5_ms, "plain_ms": k5_plain_ms,
+          "k5_ms_by_queues": k5_by_queues,
+          "bytes": k5_bytes, "ops": k5_ops, "bytes_bound_ms": k5_bytes_ms,
+          "ops_bound_ms": k5_ops_ms, "card": card})
+    del prep, pairs, hier_bench_args
+
+    # 12. main_hier: the serving path in HIER -----------------------------------
+    hier_settings = ExtendedSettings()
+    hier_settings.sort_settings.sort_mode = SortMode.HIER
+    hier_settings.culling_settings.rect_bounding = True
+    hier_settings.culling_settings.tight_opacity_bounding = True
+    check(tuple(getattr(hier_settings.sort_settings.queue_sizes, f) for f in
+                ("tile_4x4", "tile_2x2", "per_pixel")) == HIER_QUEUES,
+          "main_hier", "the default queue sizes changed")
+    render_frames(model, cams[:1], hier_settings, dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = render_frames(model, cams, hier_settings, dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    serve_hier = read_launches()
+    for i, o in enumerate(outs):
+        check(o.color.shape == (3, HEIGHT, WIDTH), "main_hier", f"frame {i} shape")
+        check(bool(torch.isfinite(o.color).all()), "main_hier", f"frame {i} not finite")
+        check(bool((o.color != bg[:, None, None]).any()), "main_hier",
+              f"frame {i} is background")
+        check(o.num_rendered >= MIN_PAIRS, "main_hier",
+              f"frame {i}: only {o.num_rendered} pairs")
+    check(serve_hier["k5"] == FRAMES and serve_hier["k1"] == serve_hier["k2"]
+          == serve_hier["k3"] == serve_hier["k4"] == 0, "main_hier",
+          f"launches {serve_hier} for {FRAMES} HIER frames")
+    hier_pairs_per_frame = [o.num_rendered for o in outs]
+    hier_peak = torch.cuda.max_memory_allocated() / 2**30
+    del outs
+    with torch.inference_mode():
+        arrays = model_arrays(model)
+        pre_kw.update(scales=arrays["scales"], rotations=arrays["rotations"],
+                      shs=arrays["shs"])
+        hier_stage = {}
+        hier_stage["preprocess_ms"] = cuda_ms(
+            lambda: preprocess(arrays["means3d"], arrays["opacities"], **pre_kw), 10)
+        prep0 = preprocess(arrays["means3d"], arrays["opacities"], **pre_kw)
+        hier_stage["pairs_ms"] = cuda_ms(
+            lambda: build_pairs(prep0, grid_x=kw["grid_x"], grid_y=kw["grid_y"]), 10)
+        pairs0 = build_pairs(prep0, grid_x=kw["grid_x"], grid_y=kw["grid_y"])
+        args0 = hier_args(prep0, pairs0, cam0)
+        hier_stage["k5_ms"] = cuda_ms(
+            lambda: hb.blend_hier_forward(*args0, **hkw), 20)
+        del prep0, pairs0, args0
+    emit({"phase": "main_hier", "ok": True, "frames": FRAMES, "width": WIDTH,
+          "height": HEIGHT, "gaussians": NUM_GAUSSIANS,
+          "queues": list(HIER_QUEUES), "pairs_per_frame": hier_pairs_per_frame,
+          "ms_per_frame": dt * 1e3 / FRAMES, "frames_per_s": FRAMES / dt,
+          "launches": serve_hier, "frame0_stage_ms": hier_stage,
+          "peak_mem_gib": hier_peak, "card": card})
+    del model
+
+    # 13. kernels -----------------------------------------------------------------
     emit({"kernels": [{
         "name": global_blend.KERNEL, "route": "cuda",
         "source": global_blend.SOURCE, "replaces": global_blend.REPLACES,
@@ -995,6 +1163,15 @@ def main(argv=None) -> int:
         "ms": k4_ms, "plain_ms": k4_plain_ms,
         "bound_ms": max(k4_bytes_ms, k4_ops_ms),
         "bound_by": "bytes" if k4_bytes_ms >= k4_ops_ms else "operations",
+        "library_ms": None,
+    }, {
+        "name": hb.KERNEL, "route": "cuda", "source": hb.SOURCE,
+        "replaces": hb.REPLACES, "launches": serve_hier["k5"],
+        "max_abs_err": max(max(st["max_abs_err_color"], st["max_abs_err_final_t"])
+                           for st in (hier_full, *hier_small_stats)),
+        "ms": k5_ms, "plain_ms": k5_plain_ms,
+        "bound_ms": max(k5_bytes_ms, k5_ops_ms),
+        "bound_by": "bytes" if k5_bytes_ms >= k5_ops_ms else "operations",
         "library_ms": None,
     }]})
     print(card)

@@ -107,15 +107,9 @@ def _bind_bwd():
     return fn
 
 
-def _check_kbuffer_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
-                          cov3d_inv9, inverse_vp, campos, k, grid_x, grid_y,
-                          width, height):
-    _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, None,
-                  grid_x, grid_y, width, height)
-    check_window(k)
-    P = xy.shape[0]
-    expect = {"cov3d_inv9": (cov3d_inv9, (P, 9)),
-              "inverse_vp": (inverse_vp, (4, 4)), "campos": (campos, (3,))}
+def _check_float_rows(xy, expect):
+    """``expect``: name -> (tensor, shape); each must be a contiguous float32
+    tensor of that shape on ``xy``'s device."""
     for name, (t, shape) in expect.items():
         if t.device != xy.device:
             raise ValueError(f"{name} is on {t.device}, xy on {xy.device}")
@@ -127,10 +121,23 @@ def _check_kbuffer_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_kbuffer_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
+                          cov3d_inv9, inverse_vp, campos, k, grid_x, grid_y,
+                          width, height):
+    _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, None,
+                  grid_x, grid_y, width, height)
+    check_window(k)
+    P = xy.shape[0]
+    _check_float_rows(xy, {"cov3d_inv9": (cov3d_inv9, (P, 9)),
+                           "inverse_vp": (inverse_vp, (4, 4)),
+                           "campos": (campos, (3,))})
+
+
 def _cuda_prelude(xy, conic_opacity, inverse_vp, campos, width, height):
-    """Checks common to both launches; returns (cam [19], ndc scales)."""
+    """Checks common to the launches of the kernels that take a camera;
+    returns (cam [19], ndc scales)."""
     if xy.device.type != "cuda":
-        raise ValueError(f"no k-buffer kernel for device {xy.device}")
+        raise ValueError(f"no kernel for device {xy.device}")
     if xy.data_ptr() % 8 or conic_opacity.data_ptr() % 16:
         raise ValueError("xy must be 8-byte and conic_opacity 16-byte aligned")
     cam = torch.cat([inverse_vp.reshape(-1), campos]).contiguous()

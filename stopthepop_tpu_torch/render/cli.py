@@ -2,8 +2,10 @@
 
 Port of ``stopthepop_tpu/render/cli.py``: load a trained 3DGS model, render
 an orbit (or a NeRF-synthetic dataset's cameras) in the GLOBAL sort mode
-(kernel K1) or, with ``--sort-mode PPX_KBUFFER``, the k-buffer mode (kernel
-K3, window 4), with rect and tight-opacity culling, and write PNG frames.
+(kernel K1), with ``--sort-mode PPX_KBUFFER`` the k-buffer mode (kernel K3,
+window 4) or with ``--sort-mode HIER`` the hierarchical mode (kernel K5,
+queues tile_4x4 64, tile_2x2 8, per_pixel 4), with rect and tight-opacity
+culling, and write PNG frames.
 Renders run on the GPU under ``torch.inference_mode()``.
 
 Usage:
@@ -118,7 +120,9 @@ def main(argv=None):
                     help="render this NeRF-synthetic dataset's test/train "
                          "cameras instead of an orbit")
     ap.add_argument("--sort-mode", default="GLOBAL",
-                    choices=[m.name for m in SortMode])
+                    choices=[m.name for m in SortMode],
+                    help="GLOBAL, PPX_KBUFFER or HIER (default queues; "
+                         "PPX_FULL is not ported yet)")
     ap.add_argument("--sh-degree", type=int, default=None,
                     help="override (default: from the PLY)")
     ap.add_argument("--white-bg", action="store_true")

@@ -1,7 +1,8 @@
 """Tiled rendering pipeline: preprocess -> duplicate -> sort -> blend (torch).
 
-Port of ``stopthepop_tpu/render/pipeline.py::render_tiled`` (GLOBAL sort mode)
-and ``render_tiled_kbuffer`` (PER_PIXEL_KBUFFER, 16x16 binning), the analog
+Port of ``stopthepop_tpu/render/pipeline.py::render_tiled`` (GLOBAL sort mode),
+``render_tiled_kbuffer`` (PER_PIXEL_KBUFFER, 16x16 binning) and
+``render_tiled_hier`` (HIERARCHICAL, 16x16 binning, forward only), the analog
 of Rasterizer::forward, rasterizer_impl.cu:221-413:
 
   stage          reference                         here
@@ -13,6 +14,7 @@ of Rasterizer::forward, rasterizer_impl.cu:221-413:
   ranges         identifyTileRanges kernel         searchsorted
   render         renderCUDA                        kernel K1 (kernels/global_blend)
                  renderkBufferCUDA                 kernel K3 (kernels/kbuffer_blend)
+                 hierarchical renderer             kernel K5 (kernels/hier_blend)
   render bwd     renderCUDA backward (atomicAdd)   kernel K2 + a deterministic
                                                    per-Gaussian segmented sum
                                                    (kernels/blend_vjp)
@@ -20,7 +22,7 @@ of Rasterizer::forward, rasterizer_impl.cu:221-413:
 
 With any per-Gaussian row requiring grad (and grad mode on) the blend goes
 through ``BlendGlobal`` / ``BlendKBuffer``; otherwise K1 / K3 is called
-directly.
+directly. HIER has no backward yet (kernel K6): with grad it raises.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..config import GlobalSortOrder
 from ..constants import TILE_X, TILE_Y
 from ..kernels.blend_vjp import BlendGlobal, BlendKBuffer
 from ..kernels.global_blend import blend_global_forward
+from ..kernels.hier_blend import blend_hier_forward
 from ..kernels.kbuffer_blend import blend_kbuffer_forward
 from .duplicate import build_pairs
 from .preprocess import PreprocessOutput
@@ -125,5 +128,52 @@ def render_tiled_kbuffer(
             pairs.gauss_id, pairs.starts, pairs.ends, *rows, *cam, k=k,
             grid_x=grid_x, grid_y=grid_y, width=image_width,
             height=image_height)
+    color = color + final_t[None, :, :] * bg[:, None, None]
+    return color, final_t, n_contrib, pairs, depth_acc
+
+
+def render_tiled_hier(
+    prep: PreprocessOutput,
+    bg,
+    *,
+    image_width: int,
+    image_height: int,
+    campos,
+    inverse_vp,
+    queue_sizes=(64, 8, 4),
+    sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
+    tile_based_culling: bool = False,
+    hier_4x4_culling: bool = False,
+):
+    """HIERARCHICAL tiled render (16x16 binning tiles), forward only: every
+    tile's stream cascades through the tail (4x4 sub-tile), mid (2x2 quad)
+    and head (pixel) windows of ``queue_sizes`` = (tile_4x4, tile_2x2,
+    per_pixel) entries, and a head pop blends (kernel K5).
+
+    Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits with
+    alpha > 0), pairs, depth_acc [H, W]), as the JAX package's
+    ``render_tiled_hier`` does. Raises NotImplementedError where a
+    per-Gaussian row requires grad: the HIER backward (kernel K6) is not
+    ported.
+    """
+    rows = _rows(prep)
+    if _needs_grad(rows + (prep.cov3d_inv9,)):
+        raise NotImplementedError(
+            "HIER gradients are not ported yet: kernel K6 "
+            "(blend_hier_backward), ROADMAP.md Queue 1 item 9. Render HIER "
+            "under torch.no_grad() or train in GLOBAL or PPX_KBUFFER.")
+    grid_x, grid_y = tile_grid(image_width, image_height)
+    pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
+                        sort_order=sort_order,
+                        tile_based_culling=tile_based_culling, campos=campos,
+                        inverse_vp=inverse_vp, image_width=image_width,
+                        image_height=image_height)
+    color, final_t, n_contrib, depth_acc = blend_hier_forward(
+        pairs.gauss_id, pairs.starts, pairs.ends, *rows,
+        prep.cov3d_inv9.contiguous(),
+        prep.opacity_power_threshold.contiguous(), inverse_vp.contiguous(),
+        campos.contiguous(), queue_sizes=tuple(queue_sizes),
+        hier_4x4_culling=hier_4x4_culling, grid_x=grid_x, grid_y=grid_y,
+        width=image_width, height=image_height)
     color = color + final_t[None, :, :] * bg[:, None, None]
     return color, final_t, n_contrib, pairs, depth_acc

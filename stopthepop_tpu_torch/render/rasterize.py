@@ -1,7 +1,9 @@
 """Public rasterization API (torch).
 
 Port of ``stopthepop_tpu/render/rasterize.py`` for the GLOBAL and
-PER_PIXEL_KBUFFER sort modes, under every stream order. It mirrors the
+PER_PIXEL_KBUFFER sort modes, under every stream order, and the
+HIERARCHICAL mode forward (its backward, kernel K6, is not ported: HIER with
+gradients raises NotImplementedError). It mirrors the
 reference's Python surface (diff_gaussian_rasterization/__init__.py:32-53,
 265-314): ``rasterize_gaussians(...)`` and
 ``GaussianRasterizer`` with the same argument names and validation messages,
@@ -24,14 +26,14 @@ from typing import NamedTuple
 import torch
 
 from ..config import GaussianRasterizationSettings, GlobalSortOrder, SortMode
+from ..kernels.hier_blend import check_hier_queues
 from ..kernels.kbuffer_blend import check_window
 from ..ops.transforms import mark_visible
-from .pipeline import render_tiled, render_tiled_kbuffer
+from .pipeline import render_tiled, render_tiled_hier, render_tiled_kbuffer
 from .preprocess import preprocess
 
 _MODE_ITEMS = {
     SortMode.PPX_FULL: "10 (PER_PIXEL_FULL, kernel K7)",
-    SortMode.HIER: "9 (HIERARCHICAL, kernels K5/K6)",
 }
 
 
@@ -40,9 +42,10 @@ class RenderOutput(NamedTuple):
     radii: torch.Tensor      # [P] int32
     final_t: torch.Tensor    # [H, W]
     n_contrib: torch.Tensor  # [H, W] int32 (GLOBAL: position of the last
-                             # blend; PPX_KBUFFER: number of commits)
-    depth_acc: torch.Tensor  # [H, W] sum(depth * alpha * T) (PPX_KBUFFER:
-                             # the per-ray depth)
+                             # blend; PPX_KBUFFER: number of commits; HIER:
+                             # number of head-pop commits with alpha > 0)
+    depth_acc: torch.Tensor  # [H, W] sum(depth * alpha * T) (PPX_KBUFFER and
+                             # HIER: the depth along the pixel's ray)
     num_rendered: int        # (tile, Gaussian) pairs of this frame
 
 
@@ -58,14 +61,19 @@ def check_sort_mode(sort_mode) -> SortMode:
 
 
 def _check_supported(rs: GaussianRasterizationSettings):
-    """(sort mode, stream order, k-buffer window) of the settings."""
+    """(sort mode, stream order, queues) of the settings: the k-buffer
+    window for PPX_KBUFFER, (tile_4x4, tile_2x2, per_pixel) for HIER."""
     ext = rs.settings
     mode = check_sort_mode(ext.sort_settings.sort_mode)
     order = GlobalSortOrder(ext.sort_settings.sort_order)
-    k = None
+    sizes = ext.sort_settings.queue_sizes
+    queues = None
     if mode == SortMode.PPX_KBUFFER:
-        k = check_window(ext.sort_settings.queue_sizes.per_pixel)
-    per_ray = mode == SortMode.PPX_KBUFFER or order in (
+        queues = check_window(sizes.per_pixel)
+    elif mode == SortMode.HIER:
+        queues = check_hier_queues(sizes.tile_4x4, sizes.tile_2x2,
+                                   sizes.per_pixel)
+    per_ray = mode in (SortMode.PPX_KBUFFER, SortMode.HIER) or order in (
         GlobalSortOrder.PTD_CENTER, GlobalSortOrder.PTD_MAX)
     if per_ray and rs.inv_viewprojmatrix is None:
         raise ValueError(
@@ -77,7 +85,7 @@ def _check_supported(rs: GaussianRasterizationSettings):
             "snapshots are not "
             "ported yet: ROADMAP.md Queue 1 item 11."
         )
-    return mode, order, k
+    return mode, order, queues
 
 
 def rasterize_gaussians(
@@ -104,7 +112,7 @@ def rasterize_gaussians(
     scales = none_if_empty(scales)
     rotations = none_if_empty(rotations)
     cov3Ds_precomp = none_if_empty(cov3Ds_precomp)
-    sort_mode, sort_order, k = _check_supported(rs)
+    sort_mode, sort_order, queues = _check_supported(rs)
     ext = rs.settings
     dev = means3D.device
     W, H = int(rs.image_width), int(rs.image_height)
@@ -158,7 +166,12 @@ def rasterize_gaussians(
               campos=campos, inverse_vp=inverse_vp)
     if sort_mode == SortMode.PPX_KBUFFER:
         color, final_t, n_contrib, pairs, depth_acc = render_tiled_kbuffer(
-            prep, bg, k=k, **kw)
+            prep, bg, k=queues, **kw)
+    elif sort_mode == SortMode.HIER:
+        color, final_t, n_contrib, pairs, depth_acc = render_tiled_hier(
+            prep, bg, queue_sizes=queues,
+            hier_4x4_culling=ext.culling_settings.hierarchical_4x4_culling,
+            **kw)
     else:
         color, final_t, n_contrib, pairs, depth_acc = render_tiled(
             prep, bg, **kw)

@@ -271,9 +271,11 @@ def test_forward_only_slice_raises_not_implemented():
         color, _ = stt.GaussianRasterizer(rs)(means, None, scene.opacities, **kw)
     assert torch.isfinite(color).all()
 
-    # The k-buffer sort mode (kernels K3/K4) and the per-tile-depth stream
-    # orders are ported now: the same calls render finite images.
-    for s in [settings_with(sort_mode=stt.SortMode.PPX_KBUFFER)] + [
+    # The k-buffer sort mode (kernels K3/K4), the per-tile-depth stream
+    # orders and the HIER forward (kernel K5) are ported now: the same calls
+    # render finite images.
+    hier = settings_with(sort_mode=stt.SortMode.HIER)
+    for s in [settings_with(sort_mode=stt.SortMode.PPX_KBUFFER), hier] + [
             settings_with(sort_order=o) for o in (stt.GlobalSortOrder.PTD_CENTER,
                                                   stt.GlobalSortOrder.PTD_MAX)]:
         with torch.no_grad():
@@ -281,9 +283,12 @@ def test_forward_only_slice_raises_not_implemented():
                                                  scene.opacities, **kw)
         assert torch.isfinite(color).all()
         assert (color != torch.as_tensor(BG)[:, None, None]).any()
+    # HIER's backward (kernel K6) is not: with gradients it raises.
+    means = scene.means3d.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="K6.*item 9"):
+        stt.GaussianRasterizer(hier)(means, None, scene.opacities, **kw)
 
-    cases = [settings_with(sort_mode=m) for m in (stt.SortMode.PPX_FULL,
-                                                   stt.SortMode.HIER)]
+    cases = [settings_with(sort_mode=stt.SortMode.PPX_FULL)]
     cases += [rs._replace(render_depth=True), rs._replace(debug=True)]
     for s in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
