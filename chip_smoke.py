@@ -78,6 +78,7 @@ it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import re
@@ -120,12 +121,14 @@ KB_K = 4           # the default SortQueueSizes.per_pixel
 KB_SMALL_KS = (1, 4, 8, 24)
 # K5, per (stream position, sub-tile) of a live tile: the tail key, a ray
 # depth (24); per entry placed by a tail merge, at least one operation (1).
-# Per (emitted entry, pixel): the alpha (11) and the mid and head ray depths
-# (2 x 24), and the mid insert: km compares and km selects for each of the 4
-# window fields (5 km). Per mid pop, the head insert (4 kh: 3 fields). Per
-# commit, as K3 (10). The merge's ranking compares, the pops' shifts and
-# the tests are not counted.
-OPS_PER_TAIL_KEY, OPS_PER_TAIL_SLOT, OPS_PER_HIER_EVAL = 24, 1, 59
+# Per (emitted entry, pixel): the alpha (11) and the head ray depth (24).
+# Per (emitted entry, quad), once for the quad's 4 pixels although K5 does
+# it in each lane: the mid ray depth (24) and the mid insert, km compares
+# and km selects for each of the 4 window fields (5 km). Per (mid pop,
+# pixel), the head insert (4 kh: 3 fields). Per commit with alpha > 0, as
+# K3 (10); pops that add nothing are not counted. The merge's ranking
+# compares, the pops' shifts and the tests are not counted.
+OPS_PER_TAIL_KEY, OPS_PER_TAIL_SLOT, OPS_PER_HIER_EVAL = 24, 1, 35
 OPS_PER_MID_SLOT, OPS_PER_HEAD_SLOT = 5, 4
 HIER_QUEUES = (64, 8, 4)  # the default SortQueueSizes
 # (queues, hierarchical 4x4 and tile-based culling) on the 70x45 scenes.
@@ -402,6 +405,70 @@ def kb_backward_grads(prep, pairs, cam, kw, k, cotangents):
     return [r.grad for r in rows]
 
 
+def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev):
+    """One serving path: a warm-up frame, then the orbit ``cams`` through
+    render/cli.py::render_frames with every launch count set to 0 just
+    before and read just after. Every frame is finite, not background and
+    has at least MIN_PAIRS pairs; ``kernel`` launched once a frame and no
+    other kernel at all. Then frame 0's stages (CUDA events): preprocess,
+    the pair build and ``blend(*args_fn(prep, pairs, cam))``. Returns the
+    phase's fields and the launch counts."""
+    from stopthepop_tpu_torch.io.cameras import to_camera_arrays
+    from stopthepop_tpu_torch.render.cli import render_frames
+    from stopthepop_tpu_torch.render.duplicate import build_pairs
+    from stopthepop_tpu_torch.render.pipeline import tile_grid
+    from stopthepop_tpu_torch.render.preprocess import preprocess
+
+    render_frames(model, cams[:1], settings, dev)  # warm-up (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = render_frames(model, cams, settings, dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, o in enumerate(outs):
+        check(o.color.shape == (3, HEIGHT, WIDTH), phase,
+              f"frame {i} shape {tuple(o.color.shape)}")
+        check(bool(torch.isfinite(o.color).all()), phase, f"frame {i} not finite")
+        check(bool((o.color != 0.0).any()), phase, f"frame {i} is background")
+        check(o.num_rendered >= MIN_PAIRS, phase,
+              f"frame {i}: only {o.num_rendered} pairs")
+    check(launches[kernel] == len(cams)
+          and not any(n for k, n in launches.items() if k != kernel), phase,
+          f"launches {launches} for {len(cams)} frames")
+    pairs_per_frame = [o.num_rendered for o in outs]
+    del outs
+    cam0 = to_camera_arrays(cams[0], dev)
+    gx, gy = tile_grid(WIDTH, HEIGHT)
+    with torch.inference_mode():
+        a = model_arrays(model)
+
+        def pre():
+            return preprocess(
+                a["means3d"], a["opacities"], scales=a["scales"],
+                rotations=a["rotations"], shs=a["shs"],
+                viewmatrix=cam0.viewmatrix, projmatrix=cam0.projmatrix,
+                campos=cam0.campos, tanfovx=cams[0].tanfovx,
+                tanfovy=cams[0].tanfovy, image_width=WIDTH,
+                image_height=HEIGHT, sh_degree=3, rect_bounding=True,
+                tight_opacity_bounding=True)
+
+        stage = {"preprocess_ms": cuda_ms(pre, 10)}
+        prep0 = pre()
+        stage["pairs_ms"] = cuda_ms(
+            lambda: build_pairs(prep0, grid_x=gx, grid_y=gy), 10)
+        args0 = args_fn(prep0, build_pairs(prep0, grid_x=gx, grid_y=gy), cam0)
+        stage[f"{kernel}_ms"] = cuda_ms(lambda: blend(*args0), 20)
+    return {"frames": len(cams), "width": WIDTH, "height": HEIGHT,
+            "gaussians": NUM_GAUSSIANS, "pairs_per_frame": pairs_per_frame,
+            "ms_per_frame": dt * 1e3 / len(cams), "frames_per_s": len(cams) / dt,
+            "launches": launches, "frame0_stage_ms": stage,
+            "peak_mem_gib": peak}, launches
+
+
 def bound_ms(bytes_moved, ops):
     """(bytes bound ms, operations bound ms) on an H100 SXM."""
     return bytes_moved / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
@@ -499,7 +566,7 @@ def main(argv=None) -> int:
     from stopthepop_tpu_torch.io.ply import load_gaussian_model, save_gaussian_model
     from stopthepop_tpu_torch.kernels import build, global_blend
     from stopthepop_tpu_torch.models.gaussians import init_random, to_numpy_params
-    from stopthepop_tpu_torch.render.cli import render_frames, render_model
+    from stopthepop_tpu_torch.render.cli import render_model
     from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -561,66 +628,19 @@ def main(argv=None) -> int:
     for k, v in to_numpy_params(loaded).items():
         check((v == saved[k]).all(), "main", f"PLY round trip changed {k}")
     ply.unlink()
+    del saved
     cams = [orbit_camera(2 * math.pi * i / FRAMES, math.radians(60.0), WIDTH, HEIGHT)
             for i in range(FRAMES)]
     settings = ExtendedSettings()
     settings.culling_settings.rect_bounding = True
     settings.culling_settings.tight_opacity_bounding = True
-    render_frames(loaded, cams[:1], settings, dev)  # warm-up (allocator, cuBLAS)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    outs = render_frames(loaded, cams, settings, dev)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    serve = read_launches()
-    launches = serve["k1"]
-    bg = torch.zeros(3, device=dev)
-    del saved
-    pairs_per_frame = [o.num_rendered for o in outs]
-    for i, o in enumerate(outs):
-        check(o.color.shape == (3, HEIGHT, WIDTH), "main", f"frame {i} shape {tuple(o.color.shape)}")
-        check(bool(torch.isfinite(o.color).all()), "main", f"frame {i} not finite")
-        check(bool((o.color != bg[:, None, None]).any()), "main", f"frame {i} is background")
-        check(o.num_rendered >= MIN_PAIRS, "main", f"frame {i}: only {o.num_rendered} pairs")
-    check(launches == FRAMES, "main", f"K1 launched {launches} times for {FRAMES} frames")
-    check(serve["k2"] == serve["k3"] == serve["k4"] == serve["k5"] == 0, "main",
-          f"other kernels launched while serving: {serve}")
-
-    # Per-stage device times of frame 0 (CUDA events), after the counted run.
-    from stopthepop_tpu_torch.io.cameras import to_camera_arrays
-    from stopthepop_tpu_torch.render.duplicate import build_pairs
-    from stopthepop_tpu_torch.render.preprocess import preprocess
-
-    cam0 = to_camera_arrays(cams[0], dev)
-    with torch.inference_mode():
-        arrays = model_arrays(loaded)
-        pre_kw = dict(scales=arrays["scales"], rotations=arrays["rotations"],
-                      shs=arrays["shs"], viewmatrix=cam0.viewmatrix,
-                      projmatrix=cam0.projmatrix, campos=cam0.campos,
-                      tanfovx=cams[0].tanfovx, tanfovy=cams[0].tanfovy,
-                      image_width=WIDTH, image_height=HEIGHT, sh_degree=3,
-                      rect_bounding=True, tight_opacity_bounding=True)
-        stage = {}
-        stage["preprocess_ms"] = cuda_ms(
-            lambda: preprocess(arrays["means3d"], arrays["opacities"], **pre_kw), 10)
-        prep0 = preprocess(arrays["means3d"], arrays["opacities"], **pre_kw)
-        stage["pairs_ms"] = cuda_ms(
-            lambda: build_pairs(prep0, grid_x=kw["grid_x"], grid_y=kw["grid_y"]), 10)
-        pairs0 = build_pairs(prep0, grid_x=kw["grid_x"], grid_y=kw["grid_y"])
-        args0 = blend_args(prep0, pairs0)
-        stage["k1_ms"] = cuda_ms(
-            lambda: global_blend.blend_global_forward(*args0, **kw), 20)
-    emit({"phase": "main", "ok": True, "frames": FRAMES, "width": WIDTH,
-          "height": HEIGHT, "gaussians": NUM_GAUSSIANS,
-          "pairs_per_frame": pairs_per_frame, "ms_per_frame": dt * 1e3 / FRAMES,
-          "frames_per_s": FRAMES / dt, "k1_launches": launches,
-          "frame0_stage_ms": stage, "ply_save_load_s": io_s,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    fields, _ = serve_phase(
+        "main", loaded, cams, settings, "k1",
+        lambda prep, pairs, cam: blend_args(prep, pairs),
+        functools.partial(global_blend.blend_global_forward, **kw), dev)
+    emit({"phase": "main", "ok": True, **fields, "ply_save_load_s": io_s,
           "card": card})
-
-    del outs, loaded
+    del loaded
 
     # 4. kernel K2 against its plain version ------------------------------------
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -863,49 +883,10 @@ def main(argv=None) -> int:
     kb_settings.sort_settings.queue_sizes.per_pixel = KB_K
     kb_settings.culling_settings.rect_bounding = True
     kb_settings.culling_settings.tight_opacity_bounding = True
-    render_frames(model, cams[:1], kb_settings, dev)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    outs = render_frames(model, cams, kb_settings, dev)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    serve_kb = read_launches()
-    for i, o in enumerate(outs):
-        check(o.color.shape == (3, HEIGHT, WIDTH), "main_kb", f"frame {i} shape")
-        check(bool(torch.isfinite(o.color).all()), "main_kb", f"frame {i} not finite")
-        check(bool((o.color != bg[:, None, None]).any()), "main_kb",
-              f"frame {i} is background")
-        check(o.num_rendered >= MIN_PAIRS, "main_kb",
-              f"frame {i}: only {o.num_rendered} pairs")
-    check(serve_kb["k3"] == FRAMES and serve_kb["k1"] == serve_kb["k2"]
-          == serve_kb["k4"] == serve_kb["k5"] == 0, "main_kb",
-          f"launches {serve_kb} for {FRAMES} PPX_KBUFFER frames")
-    kb_pairs_per_frame = [o.num_rendered for o in outs]
-    kb_peak = torch.cuda.max_memory_allocated() / 2**30
-    del outs
-    with torch.inference_mode():
-        arrays = model_arrays(model)
-        pre_kw.update(scales=arrays["scales"], rotations=arrays["rotations"],
-                      shs=arrays["shs"])
-        kb_stage = {}
-        kb_stage["preprocess_ms"] = cuda_ms(
-            lambda: preprocess(arrays["means3d"], arrays["opacities"], **pre_kw), 10)
-        prep0 = preprocess(arrays["means3d"], arrays["opacities"], **pre_kw)
-        kb_stage["pairs_ms"] = cuda_ms(
-            lambda: build_pairs(prep0, grid_x=kw["grid_x"], grid_y=kw["grid_y"]), 10)
-        pairs0 = build_pairs(prep0, grid_x=kw["grid_x"], grid_y=kw["grid_y"])
-        args0 = kb_args(prep0, pairs0, cam0)
-        kb_stage["k3_ms"] = cuda_ms(
-            lambda: kb.blend_kbuffer_forward(*args0, k=KB_K, **kw), 20)
-        del prep0, pairs0, args0
-    emit({"phase": "main_kb", "ok": True, "frames": FRAMES, "width": WIDTH,
-          "height": HEIGHT, "gaussians": NUM_GAUSSIANS, "k": KB_K,
-          "pairs_per_frame": kb_pairs_per_frame,
-          "ms_per_frame": dt * 1e3 / FRAMES, "frames_per_s": FRAMES / dt,
-          "launches": serve_kb, "frame0_stage_ms": kb_stage,
-          "peak_mem_gib": kb_peak, "card": card})
+    fields, _ = serve_phase(
+        "main_kb", model, cams, kb_settings, "k3", kb_args,
+        functools.partial(kb.blend_kbuffer_forward, k=KB_K, **kw), dev)
+    emit({"phase": "main_kb", "ok": True, "k": KB_K, **fields, "card": card})
 
     # 9. kernel_kb_bwd: K4 against its plain version -----------------------------
     with torch.no_grad():
@@ -1055,8 +1036,9 @@ def main(argv=None) -> int:
                     + WIDTH * HEIGHT * 6)
     k5_ops = (OPS_PER_TAIL_KEY * hier_full["tail_keys"]
               + OPS_PER_TAIL_SLOT * hier_full["tail_slots"]
-              + (OPS_PER_HIER_EVAL + OPS_PER_MID_SLOT * km)
-              * hier_full["evaluations"]
+              + OPS_PER_HIER_EVAL * hier_full["evaluations"]
+              + (OPS_PER_DEPTH + OPS_PER_MID_SLOT * km)
+              * hier_full["mid_inserts"]
               + OPS_PER_HEAD_SLOT * kh * hier_full["head_inserts"]
               + OPS_PER_COMMIT * hier_full["commits"])
     k5_bytes_ms, k5_ops_ms = bound_ms(k5_bytes, k5_ops)
@@ -1078,49 +1060,11 @@ def main(argv=None) -> int:
     check(tuple(getattr(hier_settings.sort_settings.queue_sizes, f) for f in
                 ("tile_4x4", "tile_2x2", "per_pixel")) == HIER_QUEUES,
           "main_hier", "the default queue sizes changed")
-    render_frames(model, cams[:1], hier_settings, dev)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    outs = render_frames(model, cams, hier_settings, dev)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    serve_hier = read_launches()
-    for i, o in enumerate(outs):
-        check(o.color.shape == (3, HEIGHT, WIDTH), "main_hier", f"frame {i} shape")
-        check(bool(torch.isfinite(o.color).all()), "main_hier", f"frame {i} not finite")
-        check(bool((o.color != bg[:, None, None]).any()), "main_hier",
-              f"frame {i} is background")
-        check(o.num_rendered >= MIN_PAIRS, "main_hier",
-              f"frame {i}: only {o.num_rendered} pairs")
-    check(serve_hier["k5"] == FRAMES and serve_hier["k1"] == serve_hier["k2"]
-          == serve_hier["k3"] == serve_hier["k4"] == 0, "main_hier",
-          f"launches {serve_hier} for {FRAMES} HIER frames")
-    hier_pairs_per_frame = [o.num_rendered for o in outs]
-    hier_peak = torch.cuda.max_memory_allocated() / 2**30
-    del outs
-    with torch.inference_mode():
-        arrays = model_arrays(model)
-        pre_kw.update(scales=arrays["scales"], rotations=arrays["rotations"],
-                      shs=arrays["shs"])
-        hier_stage = {}
-        hier_stage["preprocess_ms"] = cuda_ms(
-            lambda: preprocess(arrays["means3d"], arrays["opacities"], **pre_kw), 10)
-        prep0 = preprocess(arrays["means3d"], arrays["opacities"], **pre_kw)
-        hier_stage["pairs_ms"] = cuda_ms(
-            lambda: build_pairs(prep0, grid_x=kw["grid_x"], grid_y=kw["grid_y"]), 10)
-        pairs0 = build_pairs(prep0, grid_x=kw["grid_x"], grid_y=kw["grid_y"])
-        args0 = hier_args(prep0, pairs0, cam0)
-        hier_stage["k5_ms"] = cuda_ms(
-            lambda: hb.blend_hier_forward(*args0, **hkw), 20)
-        del prep0, pairs0, args0
-    emit({"phase": "main_hier", "ok": True, "frames": FRAMES, "width": WIDTH,
-          "height": HEIGHT, "gaussians": NUM_GAUSSIANS,
-          "queues": list(HIER_QUEUES), "pairs_per_frame": hier_pairs_per_frame,
-          "ms_per_frame": dt * 1e3 / FRAMES, "frames_per_s": FRAMES / dt,
-          "launches": serve_hier, "frame0_stage_ms": hier_stage,
-          "peak_mem_gib": hier_peak, "card": card})
+    fields, serve_hier = serve_phase(
+        "main_hier", model, cams, hier_settings, "k5", hier_args,
+        functools.partial(hb.blend_hier_forward, **hkw), dev)
+    emit({"phase": "main_hier", "ok": True, "queues": list(HIER_QUEUES),
+          **fields, "card": card})
     del model
 
     # 13. kernels -----------------------------------------------------------------

@@ -202,14 +202,17 @@ def blend_hier_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
     these inputs (a tile stops once every pixel of it is done):
     ``tail_keys`` (sub-tile keys of stream positions), ``tail_slots``
     (entries placed by the tail merges), ``evaluations`` (per-pixel
-    recomputes of an emitted entry: alpha and two ray depths; each is also
-    a mid insert), ``head_inserts`` (mid pops) and ``commits``.
+    recomputes of an emitted entry: alpha and the head ray depth),
+    ``mid_inserts`` (per-quad entries of an emitted entry: the quad-center
+    ray depth and the mid insert, the same for the 4 pixels of a quad),
+    ``head_inserts`` (per-pixel mid pops) and ``commits`` (those with
+    a > 0, the sum of n_contrib).
     """
     kt, km, kh = check_hier_queues(*queue_sizes)
     dev = xy.device
     T_tiles = grid_x * grid_y
     n = {"tail_keys": 0, "tail_slots": 0, "evaluations": 0,
-         "head_inserts": 0, "commits": 0}
+         "mid_inserts": 0, "head_inserts": 0, "commits": 0}
     if point_list.numel() == 0:  # nothing enters any window
         img = torch.zeros((height, width), dtype=torch.float32, device=dev)
         out = (torch.zeros((3, height, width), dtype=torch.float32,
@@ -281,7 +284,7 @@ def blend_hier_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
         st["head"] = shift(head, pop_h)
         st["fh"] = st["fh"] - pop_h.to(torch.int64)
         if count_evaluations:
-            n["commits"] += int(commit.sum())
+            n["commits"] += int((commit & (a0 > 0.0)).sum())
 
     def push_head(pop_m):
         """Pop the mid front into the head where ``pop_m``."""
@@ -370,5 +373,7 @@ def blend_hier_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
     out = tuple(unpack_image(x, grid_x, grid_y, width, height).contiguous()
                 for x in (st["C"], st["T"], st["nc"], st["D"]))
     if count_evaluations:
+        # An entry enters all 16 pixels of its sub-tile or none of them.
+        n["mid_inserts"] = n["evaluations"] // 4
         return out + (n,)
     return out

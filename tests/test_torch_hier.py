@@ -166,6 +166,10 @@ def test_plain_k5_matches_jax_pallas_kernel():
         interpret=True)
     np.testing.assert_allclose(img.numpy(), np.asarray(jimg), atol=3e-5)
     np.testing.assert_allclose(final_t.numpy(), np.asarray(jt), atol=3e-5)
+    # depth_acc is not compared here: the Pallas kernel adds w * d0 also
+    # where a head step pops nothing (w = 0, d0 = +inf from an empty slot),
+    # so its depth_acc is NaN on every covered pixel. The trap test below
+    # holds the port's depth_acc against a per-pixel cascade instead.
     assert (n_contrib.numpy() == np.asarray(jn)).mean() >= 0.999
     assert n_contrib.max() > queues[2]
 
@@ -249,18 +253,22 @@ def _tail_emission(keys, kt, batch, stable):
     return [s for k, s in out if math.isfinite(k)]
 
 
-def _reference(inputs, queues, *, ride_through=True, stable=True, batch=64):
+def _reference(inputs, queues, *, ride_through=True, stable=True, batch=64,
+               mid_depth=False):
     """The HIER cascade of one tile pixel by pixel (float64 blend), with the
-    oracle's rules unless told otherwise. Returns color [3, 16, 16]."""
+    oracle's rules unless told otherwise. Returns color [3, 16, 16] and
+    depth_acc [16, 16] (sum of w * d_head, or of w * d_mid with
+    ``mid_depth``)."""
     key_t, d_mid, d_head, a, rgb = inputs
     kt, km, kh = queues
+    d_blend = d_mid if mid_depth else d_head
     color = np.zeros((256, 3))
-    T_all = np.ones(256)
+    T_all, D_all = np.ones(256), np.zeros(256)
     sub_of = subtile_of_pixel("cpu").numpy()
     for sub in range(16):
         emitted = _tail_emission(key_t[:, sub], kt, batch, stable)
         for p in np.flatnonzero(sub_of == sub):
-            st = {"T": 1.0, "C": np.zeros(3), "done": False}
+            st = {"T": 1.0, "C": np.zeros(3), "D": 0.0, "done": False}
             mid, head = [], []
 
             def blend(s):
@@ -270,6 +278,7 @@ def _reference(inputs, queues, *, ride_through=True, stable=True, batch=64):
                         st["done"] = True
                     else:
                         st["C"] = st["C"] + a[s, p] * st["T"] * rgb[s]
+                        st["D"] = st["D"] + a[s, p] * st["T"] * d_blend[s, p]
                         st["T"] = U
 
             def insert(win, key, s):
@@ -290,9 +299,9 @@ def _reference(inputs, queues, *, ride_through=True, stable=True, batch=64):
                 push_head(mid.pop(0)[1])
             while head:
                 blend(head.pop(0)[1])
-            color[p], T_all[p] = st["C"], st["T"]
+            color[p], T_all[p], D_all[p] = st["C"], st["T"], st["D"]
     img = color + T_all[:, None] * BG[None, :]
-    return img.T.reshape(3, 16, 16)
+    return img.T.reshape(3, 16, 16), D_all.reshape(16, 16)
 
 
 @pytest.fixture(scope="module")
@@ -320,11 +329,26 @@ def test_hier_traps(trap, wrong):
     assert (t.conic_opacity[gid, 3] < 0.005).sum() > 40
     _assert_matches_oracle(port, oracle)
     offset = wrong.pop("pixel_offset", 0.0)
-    right = _reference(_cascade_inputs(t, pairs, cam, 0.0), TRAP_QUEUES)
+    right, _ = _reference(_cascade_inputs(t, pairs, cam, 0.0), TRAP_QUEUES)
     np.testing.assert_allclose(right, oracle[0].reshape(3, 16, 16), atol=ATOL)
-    bad = _reference(_cascade_inputs(t, pairs, cam, offset), TRAP_QUEUES,
-                     **wrong)
+    bad, _ = _reference(_cascade_inputs(t, pairs, cam, offset), TRAP_QUEUES,
+                        **wrong)
     assert np.abs(bad - oracle[0].reshape(3, 16, 16)).max() > 1e-3
+
+
+def test_hier_depth_acc_matches_per_pixel_cascade(trap):
+    # The JAX oracle returns no depth_acc and the Pallas kernel's is NaN (see
+    # above), so the port's is held against the per-pixel cascade, whose
+    # image equals the oracle's (test_hier_traps), at the Pallas test's
+    # atol. The quad-center depth in place of the pixel ray's is caught.
+    cam, t, port, oracle = trap
+    inputs = _cascade_inputs(t, port[3], cam, 0.0)
+    img, depth = _reference(inputs, TRAP_QUEUES)
+    np.testing.assert_allclose(img, oracle[0].reshape(3, 16, 16), atol=ATOL)
+    np.testing.assert_allclose(port[4].numpy(), depth, atol=3e-5, rtol=0)
+    assert depth.max() > 1.0
+    _, wrong = _reference(inputs, TRAP_QUEUES, mid_depth=True)
+    assert np.abs(wrong - depth).max() > 1e-3
 
 
 # ---------------------------------------------------------------------------
