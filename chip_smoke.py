@@ -6,7 +6,8 @@ Run from the root of the repository on a machine with one NVIDIA H100:
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --profile  # and a torch.profiler trace of 3
                                      # training steps in each mode (phases
-                                     # train_profile, train_kb_profile)
+                                     # train_profile, train_kb_profile,
+                                     # train_hier_profile)
 
 Phases, one JSON line each; any failure exits non-zero:
   1. build: compile every CUDA kernel of the port with nvcc (in parallel).
@@ -28,14 +29,17 @@ Phases, one JSON line each; any failure exits non-zero:
      camera at 1920x1080, a seeded random target, one warm-up step and 5
      timed steps of train/trainer.py's step (K1, K2, L1 + D-SSIM, per-group
      Adam); loss finite and falling, every gradient finite and nonzero
-     somewhere, K1 and K2 launched once a step. Then a per-stage breakdown
-     (forward, backward, optimizer; and the loss's own forward and backward;
-     CUDA events). With --profile, a torch.profiler trace of 3 more steps:
+     somewhere, K1 and K2 launched once a step and no other kernel. Then a
+     per-stage breakdown (forward, backward, optimizer; and the loss's own
+     forward and backward; CUDA events). With --profile, a torch.profiler
+     trace of 3 more steps:
      device busy time, idle share and the kernels that take the most time.
-  6. train_cli: the training CLI at small size — a NeRF-synthetic dataset
-     of 8 renders of the procedural scene at 200x200, a few hundred
-     iterations of train/cli.py::main with densification and an opacity
-     reset; eval PSNR rises, the Gaussian count changes, the PLY loads.
+  6. train_cli: the training CLI at small size in GLOBAL (asked for: the
+     CLI defaults to HIER) — a NeRF-synthetic dataset of 8 renders of the
+     procedural scene at 200x200, a few hundred iterations of
+     train/cli.py::main with densification and an opacity reset; eval PSNR
+     rises, the Gaussian count changes, the PLY loads, only K1 and K2
+     launch.
   7. kernel_kb: hold kernel K3 (PER_PIXEL_KBUFFER blend, forward) against
      its plain version — phase 2's 70x45 scene and a denser draw of it with
      windows k = 1, 4, 8 and 24, and the 1080p/500K bench frame with k = 4 (color / final_T
@@ -51,7 +55,7 @@ Phases, one JSON line each; any failure exits non-zero:
      passes bitwise equal; time K4 and its plain version.
  10. train_kb: 5 training steps at 1080p/500K in PPX_KBUFFER; loss finite and
      falling, every gradient finite and nonzero somewhere, K3 and K4 once a
-     step, K1 and K2 not at all; step time and a per-stage breakdown.
+     step, no other kernel; step time and a per-stage breakdown.
  11. kernel_hier: hold kernel K5 (HIERARCHICAL blend, forward) against its
      plain version — phase 7's two 70x45 scenes with queues (tile_4x4,
      tile_2x2, per_pixel) = (64, 8, 4), (16, 8, 4), (8, 4, 2) and
@@ -63,11 +67,20 @@ Phases, one JSON line each; any failure exits non-zero:
      render/cli.py::render_frames in HIER (default queues 64, 8, 4); every
      frame finite and not background, K5 launched exactly once a frame and
      K1-K4 not at all. Then a per-stage breakdown of one frame.
- 13. the kernels line: each ported kernel with its launches on its main
-     path (the training steps of phase 5 for K1/K2 and of phase 10 for
-     K3/K4, the HIER frames of phase 12 for K5), its error against the
-     plain version, its time, the plain version's time and its bound on
-     this card.
+ 13. kernel_hier_bwd: hold kernel K6 (HIERARCHICAL backward) against its
+     plain version — phase 11's two scenes and queue cases and (32, 12, 8),
+     so that three of K6's nine instantiations launch, and the 1080p/500K
+     frame at (64, 8, 4) (each gradient column within 1e-4 of its largest
+     value); two K6 launches and two full BlendHier backward passes bitwise
+     equal; time K6 and its plain version.
+ 14. train_hier: 5 training steps at 1080p/500K in HIER (64, 8, 4); loss
+     finite and falling, every gradient finite and nonzero somewhere, K5 and
+     K6 once a step, K1-K4 not at all; step time and a per-stage breakdown.
+ 15. the kernels line: each ported kernel with its launches on its main
+     path (the training steps of phase 5 for K1/K2, of phase 10 for K3/K4
+     and of phase 14 for K6, the HIER frames of phase 12 for K5), its error
+     against the plain version, its time, the plain version's time and its
+     bound on this card.
 The line before the last is the card's name and power limit from nvidia-smi;
 the last line is {"ok": true, "device": {...}}.
 
@@ -115,7 +128,8 @@ K2_RTOL = 1e-4  # of each gradient column's largest magnitude
 OPS_PER_DEPTH, OPS_PER_INSERT_SLOT, OPS_PER_COMMIT = 24, 6, 10
 # K4 replays K3's evaluations, depths and inserts (its window holds 4
 # fields, counted as K3's 5) and per commit forms the alpha gradient and the
-# nine terms and adds them into the pair's sums (45, as K2).
+# nine terms and adds them into the pair's sums (45, as K2). K6 replays K5's
+# events and takes the same 45 for each commit with alpha > 0.
 OPS_PER_COMMIT_BWD = 45
 KB_K = 4           # the default SortQueueSizes.per_pixel
 KB_SMALL_KS = (1, 4, 8, 24)
@@ -135,6 +149,9 @@ HIER_QUEUES = (64, 8, 4)  # the default SortQueueSizes
 HIER_SMALL_CASES = (((64, 8, 4), False), ((16, 8, 4), False),
                     ((8, 4, 2), False), ((256, 20, 16), False),
                     ((16, 8, 4), True))
+# K6 also at (32, 12, 8): with the cases above, three of its nine
+# instantiations (MID_MAX, HEAD_MAX) = (8, 4), (12, 8), (20, 16) launch.
+HIER_BWD_EXTRA_CASES = (((32, 12, 8), False),)
 TRAIN_STEPS = 5
 # The training CLI's run: a NeRF-synthetic dataset of CLI_VIEWS renders of
 # a CLI_SCENE-Gaussian procedural scene at CLI_SIZE x CLI_SIZE.
@@ -275,18 +292,29 @@ def compare_kernel_bwd(name, args, kw, cotangents, *, count_evaluations=False):
     return stats, bwd_args
 
 
-def blend_backward_grads(prep, pairs, kw, cotangents):
-    """Per-Gaussian (xy, conic_opacity, rgb) gradients of one full
-    BlendGlobal backward pass (K1, K2, unsort, segmented sum)."""
-    from stopthepop_tpu_torch.kernels.blend_vjp import BlendGlobal
-
+def backward_grads(prep, apply, cotangents):
+    """Per-Gaussian (xy, conic_opacity, rgb) gradients of one full backward
+    pass of a blend Function: ``apply(xy, conic_opacity, rgb)`` runs its
+    forward (e.g. BlendGlobal: K1; then K2, unsort, segmented sum)."""
     rows = [t.detach().clone().requires_grad_(True)
             for t in (prep.mean2d, prep.conic_opacity, prep.rgb)]
-    color, final_t, _, _ = BlendGlobal.apply(
-        *rows, prep.depth.detach().contiguous(), pairs, kw["grid_x"],
-        kw["grid_y"], kw["width"], kw["height"])
+    color, final_t, _, _ = apply(*rows)
     torch.autograd.backward([color, final_t], list(cotangents))
     return [r.grad for r in rows]
+
+
+def check_backward_repeats(phase, name, prep, apply, cotangents):
+    """Two full backward passes (``backward_grads``) give the same bits, and
+    finite gradients that are not all zero."""
+    first = backward_grads(prep, apply, cotangents)
+    second = backward_grads(prep, apply, cotangents)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    check(same, phase, f"two {name} backward passes differ")
+    check(all(bool(torch.isfinite(g).all()) and bool((g != 0).any())
+              for g in first), phase,
+          "per-Gaussian gradients not finite or all zero")
+    return same
 
 
 def kb_args(prep, pairs, cam):
@@ -335,41 +363,54 @@ def compare_kb(name, args, kw, k, *, count_evaluations=False):
     return {"k": k, **stats}, got
 
 
-def compare_kb_bwd(name, args, kw, k, fwd, cotangents, *,
-                   count_evaluations=False):
-    """K4 against its plain version on K3's output ``fwd``; two K4 launches
-    must give the same bits. Returns (stats, K4 inputs)."""
-    from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
+def compare_resort_bwd(phase, name, wrapper, plain, bwd_args, kw, *,
+                       count_evaluations=False):
+    """A backward kernel that takes a camera (K4, K6) against its plain
+    version on the same inputs (its forward's inputs, raw colour, final_T,
+    n_contrib and the cotangents): each gradient column within K2_RTOL of
+    its largest magnitude, and two launches with the same bits. Returns
+    stats."""
+    from stopthepop_tpu_torch.kernels.global_blend import GRAD_COLS
 
-    bwd_args = (*args, fwd[0], fwd[1], fwd[2], *cotangents)
-    before = kb.blend_kbuffer_backward.launches
-    got = kb.blend_kbuffer_backward(*bwd_args, k=k, **kw)
-    again = kb.blend_kbuffer_backward(*bwd_args, k=k, **kw)
+    before = wrapper.launches
+    got = wrapper(*bwd_args, **kw)
+    again = wrapper(*bwd_args, **kw)
     torch.cuda.synchronize()
-    check(kb.blend_kbuffer_backward.launches == before + 2, "kernel_kb_bwd",
+    check(wrapper.launches == before + 2, phase,
           f"{name}: launch counter did not move")
-    ref = kb.blend_kbuffer_backward_plain(*bwd_args, k=k, **kw,
-                                          count_evaluations=count_evaluations)
+    ref = plain(*bwd_args, **kw, count_evaluations=count_evaluations)
     if count_evaluations:
         ref, counts = ref
     scale = ref.abs().amax(dim=0)
     err = (got - ref).abs().amax(dim=0)
     stats = {
-        "k": k,
         "max_abs_err": float(err.max()),
-        "max_abs_err_by_column": dict(zip(kb.GRAD_COLS, err.tolist())),
-        "column_max": dict(zip(kb.GRAD_COLS, scale.tolist())),
+        "max_abs_err_by_column": dict(zip(GRAD_COLS, err.tolist())),
+        "column_max": dict(zip(GRAD_COLS, scale.tolist())),
         "finite": bool(torch.isfinite(got).all()),
         "bitwise_repeat": bool(torch.equal(got, again)),
         "bitwise_equal_plain": bool(torch.equal(got, ref)),
     }
     check(stats["finite"] and bool((err <= K2_RTOL * scale).all()),
-          "kernel_kb_bwd", f"{name}: kernel disagrees: {stats}")
-    check(stats["bitwise_repeat"], "kernel_kb_bwd",
-          f"{name}: two K4 launches differ")
+          phase, f"{name}: kernel disagrees: {stats}")
+    check(stats["bitwise_repeat"], phase, f"{name}: two launches differ")
     if count_evaluations:
         stats["replay"] = counts
-    return stats, bwd_args
+    return stats
+
+
+def compare_kb_bwd(name, args, kw, k, fwd, cotangents, *,
+                   count_evaluations=False):
+    """K4 against its plain version on K3's output ``fwd``. Returns (stats,
+    K4 inputs)."""
+    from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
+
+    bwd_args = (*args, fwd[0], fwd[1], fwd[2], *cotangents)
+    stats = compare_resort_bwd(
+        "kernel_kb_bwd", name, kb.blend_kbuffer_backward,
+        kb.blend_kbuffer_backward_plain, bwd_args, {**kw, "k": k},
+        count_evaluations=count_evaluations)
+    return {"k": k, **stats}, bwd_args
 
 
 def hier_args(prep, pairs, cam):
@@ -390,19 +431,19 @@ def compare_hier(name, args, kw, *, count_evaluations=False):
             "hier_4x4_culling": kw["hier_4x4_culling"], **stats}
 
 
-def kb_backward_grads(prep, pairs, cam, kw, k, cotangents):
-    """Per-Gaussian (xy, conic_opacity, rgb) gradients of one full
-    BlendKBuffer backward pass (K3, K4, unsort, segmented sum)."""
-    from stopthepop_tpu_torch.kernels.blend_vjp import BlendKBuffer
+def compare_hier_bwd(name, args, kw, cotangents, *, count_evaluations=False):
+    """K6 against its plain version on K5's output for ``args``. Returns
+    (stats, K6 inputs)."""
+    from stopthepop_tpu_torch.kernels import hier_blend as hb
 
-    rows = [t.detach().clone().requires_grad_(True)
-            for t in (prep.mean2d, prep.conic_opacity, prep.rgb)]
-    color, final_t, _, _ = BlendKBuffer.apply(
-        *rows, prep.cov3d_inv9.detach().contiguous(),
-        cam.inv_viewprojmatrix.contiguous(), cam.campos.contiguous(), pairs,
-        k, kw["grid_x"], kw["grid_y"], kw["width"], kw["height"])
-    torch.autograd.backward([color, final_t], list(cotangents))
-    return [r.grad for r in rows]
+    fwd = hb.blend_hier_forward(*args, **kw)
+    bwd_args = (*args, fwd[0], fwd[1], fwd[2], *cotangents)
+    stats = compare_resort_bwd(
+        "kernel_hier_bwd", name, hb.blend_hier_backward,
+        hb.blend_hier_backward_plain, bwd_args, kw,
+        count_evaluations=count_evaluations)
+    return {"queues": list(kw["queue_sizes"]),
+            "hier_4x4_culling": kw["hier_4x4_culling"], **stats}, bwd_args
 
 
 def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev):
@@ -469,6 +510,86 @@ def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev):
             "peak_mem_gib": peak}, launches
 
 
+def train_phase(phase, model, static, cam, target, dev, kernels):
+    """The training path at full width in one sort mode: one warm-up step,
+    then TRAIN_STEPS steps of train/trainer.py's step with every launch
+    count set to 0 just before and read just after. The loss is finite and
+    falls, each of ``kernels`` launched once a step and no other kernel at
+    all, every gradient finite and nonzero somewhere, at least MIN_PAIRS
+    pairs a step. Then the stages of 3 more steps (CUDA events). Returns the
+    phase's fields, the densification stats and a function taking one more
+    step (for the profiler)."""
+    from stopthepop_tpu_torch.models.gaussians import PARAM_NAMES
+    from stopthepop_tpu_torch.train import trainer
+
+    state = trainer.init_train_state(model, trainer.make_3dgs_optimizer(model))
+    stats = trainer.init_densify_stats(model.num_gaussians, dev)
+    step_fn = trainer.make_train_step(static=static)
+    state, stats, _ = step_fn(state, cam, target, stats)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms, step_pairs = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, stats, aux = step_fn(state, cam, target, stats)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(aux["loss"]))
+        step_pairs.append(aux["num_rendered"])
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(v) for v in losses), phase, f"loss not finite: {losses}")
+    check(losses[-1] < losses[0], phase, f"loss did not fall: {losses}")
+    check(all(n == (TRAIN_STEPS if k in kernels else 0)
+              for k, n in launches.items()), phase,
+          f"launches {launches} in {TRAIN_STEPS} steps")
+    for name in PARAM_NAMES:
+        g = getattr(model, name).grad
+        check(g is not None and bool(torch.isfinite(g).all())
+              and bool((g != 0).any()), phase, f"gradient of {name}")
+    check(min(step_pairs) >= MIN_PAIRS, phase, f"pairs per step {step_pairs}")
+    stage = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    reps = 3
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _, _ = trainer.step_forward(state, cam, target, static=static)
+        ev[1].record()
+        trainer.step_backward(state, loss)
+        ev[2].record()
+        state = trainer.step_update(state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for key, a, b in (("forward_ms", 0, 1), ("backward_ms", 1, 2),
+                          ("optimizer_ms", 2, 3)):
+            stage[key] += ev[a].elapsed_time(ev[b]) / reps
+
+    def one_step():
+        nonlocal state, stats
+        state, stats, _ = step_fn(state, cam, target, stats)
+
+    fields = {"steps": TRAIN_STEPS, "width": WIDTH, "height": HEIGHT,
+              "gaussians": NUM_GAUSSIANS, "losses": losses,
+              "ms_per_step": sum(step_ms) / TRAIN_STEPS, "step_ms": step_ms,
+              "stage_ms": stage, "pairs_per_step": step_pairs,
+              "launches": launches, "peak_mem_gib": peak}
+    return fields, stats, one_step
+
+
+def hier_ops(n, ops_per_commit):
+    """Operations of K5's cascade at HIER_QUEUES from the plain replay's
+    counts ``n``, with ``ops_per_commit`` for each commit of alpha > 0 (K5's
+    blend, or K6's gradient terms)."""
+    _, km, kh = HIER_QUEUES
+    return (OPS_PER_TAIL_KEY * n["tail_keys"]
+            + OPS_PER_TAIL_SLOT * n["tail_slots"]
+            + OPS_PER_HIER_EVAL * n["evaluations"]
+            + (OPS_PER_DEPTH + OPS_PER_MID_SLOT * km) * n["mid_inserts"]
+            + OPS_PER_HEAD_SLOT * kh * n["head_inserts"]
+            + ops_per_commit * n["commits"])
+
+
 def bound_ms(bytes_moved, ops):
     """(bytes bound ms, operations bound ms) on an H100 SXM."""
     return bytes_moved / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
@@ -517,7 +638,8 @@ def _wrappers():
             "k2": global_blend.blend_global_backward,
             "k3": kbuffer_blend.blend_kbuffer_forward,
             "k4": kbuffer_blend.blend_kbuffer_backward,
-            "k5": hier_blend.blend_hier_forward}
+            "k5": hier_blend.blend_hier_forward,
+            "k6": hier_blend.blend_hier_backward}
 
 
 def reset_launches():
@@ -565,6 +687,11 @@ def main(argv=None) -> int:
     from stopthepop_tpu_torch.io.cameras import orbit_camera
     from stopthepop_tpu_torch.io.ply import load_gaussian_model, save_gaussian_model
     from stopthepop_tpu_torch.kernels import build, global_blend
+    from stopthepop_tpu_torch.kernels.blend_vjp import (
+        BlendGlobal,
+        BlendHier,
+        BlendKBuffer,
+    )
     from stopthepop_tpu_torch.models.gaussians import init_random, to_numpy_params
     from stopthepop_tpu_torch.render.cli import render_model
     from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
@@ -664,16 +791,11 @@ def main(argv=None) -> int:
         k2_ms = cuda_ms(lambda: global_blend.blend_global_backward(*k2_args, **kw), 20)
         k2_plain_ms = cuda_ms(
             lambda: global_blend.blend_global_backward_plain(*k2_args, **kw), 1, 0)
-    first = blend_backward_grads(prep, pairs, kw, cot)
-    second = blend_backward_grads(prep, pairs, kw, cot)
-    torch.cuda.synchronize()
-    full_bwd["bitwise_repeat_backward"] = all(
-        torch.equal(a, b) for a, b in zip(first, second))
-    check(full_bwd["bitwise_repeat_backward"], "kernel_bwd",
-          "two BlendGlobal backward passes differ")
-    check(all(bool(torch.isfinite(g).all()) and bool((g != 0).any())
-              for g in first), "kernel_bwd", "per-Gaussian gradients not finite or all zero")
-    del first, second
+    full_bwd["bitwise_repeat_backward"] = check_backward_repeats(
+        "kernel_bwd", "BlendGlobal", prep,
+        lambda *rows: BlendGlobal.apply(
+            *rows, prep.depth.detach().contiguous(), pairs, kw["grid_x"],
+            kw["grid_y"], kw["width"], kw["height"]), cot)
     N = pairs.num_rendered
     k2_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3) + WIDTH * HEIGHT * 9 + N * 9)
     k2_ops = (OPS_PER_EVAL * full_bwd["evaluations"]
@@ -690,8 +812,6 @@ def main(argv=None) -> int:
     # 5. train: the training step at full width ----------------------------------
     from stopthepop_tpu_torch.config import GaussianRasterizationSettings
     from stopthepop_tpu_torch.io.cameras import CameraArrays
-    from stopthepop_tpu_torch.models.gaussians import PARAM_NAMES
-    from stopthepop_tpu_torch.train import trainer
     from stopthepop_tpu_torch.train.loss import rgb_loss
 
     static = GaussianRasterizationSettings(
@@ -705,57 +825,15 @@ def main(argv=None) -> int:
                        bench_cam.inv_viewprojmatrix, bench_cam.campos)
     target = torch.rand((3, HEIGHT, WIDTH), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(1))
-    state = trainer.init_train_state(model, trainer.make_3dgs_optimizer(model))
-    stats = trainer.init_densify_stats(NUM_GAUSSIANS, dev)
-    step_fn = trainer.make_train_step(static=static)
-    state, stats, _ = step_fn(state, cam, target, stats)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    losses, step_ms, step_pairs = [], [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, stats, aux = step_fn(state, cam, target, stats)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(aux["loss"]))
-        step_pairs.append(aux["num_rendered"])
-    counts = read_launches()
-    train_k1, train_k2 = counts["k1"], counts["k2"]
-    train_peak = torch.cuda.max_memory_allocated() / 2**30
-    check(all(math.isfinite(v) for v in losses), "train", f"loss not finite: {losses}")
-    check(losses[-1] < losses[0], "train", f"loss did not fall: {losses}")
-    check(train_k1 == TRAIN_STEPS and train_k2 == TRAIN_STEPS
-          and counts["k3"] == counts["k4"] == counts["k5"] == 0, "train",
-          f"launches {counts} in {TRAIN_STEPS} GLOBAL steps")
-    for name in PARAM_NAMES:
-        g = getattr(model, name).grad
-        check(g is not None and bool(torch.isfinite(g).all())
-              and bool((g != 0).any()), "train", f"gradient of {name}")
+    train_fields, stats, one_step = train_phase(
+        "train", model, static, cam, target, dev, ("k1", "k2"))
     visible = stats.max_radii > 0
     check(bool(visible.any()) and bool((stats.denom[visible] > 0).all())
           and bool(torch.isfinite(stats.grad2d_accum).all()), "train",
           "densification stats")
-    check(min(step_pairs) >= MIN_PAIRS, "train", f"pairs per step {step_pairs}")
-
-    # Per-stage device times of 3 more steps (CUDA events), after the count.
-    stage = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
-    reps = 3
-    for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        loss, _, _ = trainer.step_forward(state, cam, target, static=static)
-        ev[1].record()
-        trainer.step_backward(state, loss)
-        ev[2].record()
-        state = trainer.step_update(state)
-        ev[3].record()
-        torch.cuda.synchronize()
-        for key, a, b in (("forward_ms", 0, 1), ("backward_ms", 1, 2),
-                          ("optimizer_ms", 2, 3)):
-            stage[key] += ev[a].elapsed_time(ev[b]) / reps
     # The loss alone (L1 + D-SSIM at 1080p), forward and backward, on the
     # last rendered image.
+    stage = train_fields["stage_ms"]
     with torch.no_grad():
         color, _ = render_model(model, cam, static=static)
     color = color.detach().requires_grad_(True)
@@ -764,21 +842,12 @@ def main(argv=None) -> int:
         lambda: torch.autograd.grad(rgb_loss(color, target), color),
         10) - stage["loss_forward_ms"]
     del color
-    emit({"phase": "train", "ok": True, "steps": TRAIN_STEPS, "width": WIDTH,
-          "height": HEIGHT, "gaussians": NUM_GAUSSIANS, "losses": losses,
-          "ms_per_step": sum(step_ms) / TRAIN_STEPS, "step_ms": step_ms,
-          "stage_ms": stage, "pairs_per_step": step_pairs,
-          "k1_launches": train_k1, "k2_launches": train_k2,
-          "peak_mem_gib": train_peak, "card": card})
+    emit({"phase": "train", "ok": True, **train_fields, "card": card})
     if want_profile:
-        def one_step():
-            nonlocal state, stats
-            state, stats, _ = step_fn(state, cam, target, stats)
-
         emit({"phase": "train_profile", "ok": True, "steps": 3,
-              **profile_steps(one_step, 3, sum(step_ms) / TRAIN_STEPS),
+              **profile_steps(one_step, 3, train_fields["ms_per_step"]),
               "card": card})
-    del state, stats, model
+    del stats, one_step, model
 
     # 6. train_cli: the training entry point at small size ----------------------
     from stopthepop_tpu_torch.io.ply import load_gaussian_model as load_ply
@@ -803,7 +872,7 @@ def main(argv=None) -> int:
             "--opacity-reset-every", "150", "--densify-until", "250",
             "--eval-every", "100",
             "--sh-ramp-every", "100", "--out", str(out_ply),
-            "--device", str(dev), "--seed", "0",
+            "--sort-mode", "GLOBAL", "--device", str(dev), "--seed", "0",
         ])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
@@ -817,8 +886,9 @@ def main(argv=None) -> int:
           "train_cli", f"Gaussian count did not change: {res.num_gaussians}")
     check(trained.num_gaussians == res.state.model.num_gaussians, "train_cli",
           "PLY does not hold the trained model")
-    check(cli_k2 >= CLI_ITERS and cli_k1 >= CLI_ITERS, "train_cli",
-          f"K1/K2 launched {cli_k1}/{cli_k2} times in {CLI_ITERS} iterations")
+    check(cli_k2 >= CLI_ITERS and cli_k1 >= CLI_ITERS
+          and not any(n for k, n in cli.items() if k not in ("k1", "k2")),
+          "train_cli", f"launches {cli} in {CLI_ITERS} GLOBAL iterations")
     emit({"phase": "train_cli", "ok": True, "iters": CLI_ITERS,
           "views": CLI_VIEWS, "size": CLI_SIZE, "eval_psnr": res.eval_psnr,
           "gaussians": [init_points] + res.num_gaussians, "seconds": cli_s,
@@ -831,14 +901,15 @@ def main(argv=None) -> int:
     # Gaussians, whose windows overflow more.
     dense = random_scene(0, 300, scale_range=(0.05, 0.4), device=dev)
     small_cam = make_camera(70, 45, device=dev)
+    small_scenes = (
+        ("70x45 random scene, 300 Gaussians", small),
+        ("70x45 random scene, 300 larger Gaussians",
+         {"means3d": dense.means3d, "opacities": dense.opacities,
+          "scales": dense.scales, "rotations": dense.rotations,
+          "shs": dense.shs}))
     kb_cases, kb_small_stats = [], []  # (case, K3 inputs, kw, {k: K3 output})
     with torch.no_grad():
-        for case, scene_arrays in (
-                ("70x45 random scene, 300 Gaussians", small),
-                ("70x45 random scene, 300 larger Gaussians",
-                 {"means3d": dense.means3d, "opacities": dense.opacities,
-                  "scales": dense.scales, "rotations": dense.rotations,
-                  "shs": dense.shs})):
+        for case, scene_arrays in small_scenes:
             prep, pairs, skw = prepare(scene_arrays, small_cam, 70, 45)
             sargs, fwd = kb_args(prep, pairs, small_cam), {}
             for k in KB_SMALL_KS:
@@ -907,17 +978,14 @@ def main(argv=None) -> int:
         k4_plain_ms = cuda_ms(
             lambda: kb.blend_kbuffer_backward_plain(*k4_args, k=KB_K, **kw), 1, 0)
         prep, pairs, _ = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
-    first = kb_backward_grads(prep, pairs, bench_cam, kw, KB_K, cot)
-    second = kb_backward_grads(prep, pairs, bench_cam, kw, KB_K, cot)
-    torch.cuda.synchronize()
-    kb_full_bwd["bitwise_repeat_backward"] = all(
-        torch.equal(a, b) for a, b in zip(first, second))
-    check(kb_full_bwd["bitwise_repeat_backward"], "kernel_kb_bwd",
-          "two BlendKBuffer backward passes differ")
-    check(all(bool(torch.isfinite(g).all()) and bool((g != 0).any())
-              for g in first), "kernel_kb_bwd",
-          "per-Gaussian gradients not finite or all zero")
-    del first, second, prep, pairs
+    kb_full_bwd["bitwise_repeat_backward"] = check_backward_repeats(
+        "kernel_kb_bwd", "BlendKBuffer", prep,
+        lambda *rows: BlendKBuffer.apply(
+            *rows, prep.cov3d_inv9.detach().contiguous(),
+            bench_cam.inv_viewprojmatrix.contiguous(),
+            bench_cam.campos.contiguous(), pairs, KB_K, kw["grid_x"],
+            kw["grid_y"], kw["width"], kw["height"]), cot)
+    del prep, pairs
     replay = kb_full_bwd["replay"]
     k4_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3 + 9) + 19 + WIDTH * HEIGHT * 9
                     + N * 9)
@@ -935,74 +1003,22 @@ def main(argv=None) -> int:
 
     # 10. train_kb: the training step in PPX_KBUFFER -----------------------------
     kb_static = static._replace(settings=kb_settings)
-    state = trainer.init_train_state(model, trainer.make_3dgs_optimizer(model))
-    stats = trainer.init_densify_stats(NUM_GAUSSIANS, dev)
-    step_fn = trainer.make_train_step(static=kb_static)
-    state, stats, _ = step_fn(state, cam, target, stats)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    losses, step_ms, step_pairs = [], [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, stats, aux = step_fn(state, cam, target, stats)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(aux["loss"]))
-        step_pairs.append(aux["num_rendered"])
-    train_kb = read_launches()
-    kb_train_peak = torch.cuda.max_memory_allocated() / 2**30
-    check(all(math.isfinite(v) for v in losses), "train_kb", f"loss not finite: {losses}")
-    check(losses[-1] < losses[0], "train_kb", f"loss did not fall: {losses}")
-    check(train_kb["k3"] == TRAIN_STEPS and train_kb["k4"] == TRAIN_STEPS
-          and train_kb["k1"] == train_kb["k2"] == train_kb["k5"] == 0, "train_kb",
-          f"launches {train_kb} in {TRAIN_STEPS} PPX_KBUFFER steps")
-    for name in PARAM_NAMES:
-        g = getattr(model, name).grad
-        check(g is not None and bool(torch.isfinite(g).all())
-              and bool((g != 0).any()), "train_kb", f"gradient of {name}")
-    check(min(step_pairs) >= MIN_PAIRS, "train_kb", f"pairs per step {step_pairs}")
-    kb_train_stage = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
-    for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        loss, _, _ = trainer.step_forward(state, cam, target, static=kb_static)
-        ev[1].record()
-        trainer.step_backward(state, loss)
-        ev[2].record()
-        state = trainer.step_update(state)
-        ev[3].record()
-        torch.cuda.synchronize()
-        for key, a, b in (("forward_ms", 0, 1), ("backward_ms", 1, 2),
-                          ("optimizer_ms", 2, 3)):
-            kb_train_stage[key] += ev[a].elapsed_time(ev[b]) / reps
-    emit({"phase": "train_kb", "ok": True, "steps": TRAIN_STEPS, "width": WIDTH,
-          "height": HEIGHT, "gaussians": NUM_GAUSSIANS, "k": KB_K,
-          "losses": losses, "ms_per_step": sum(step_ms) / TRAIN_STEPS,
-          "step_ms": step_ms, "stage_ms": kb_train_stage,
-          "pairs_per_step": step_pairs, "launches": train_kb,
-          "peak_mem_gib": kb_train_peak, "card": card})
+    train_kb, _, one_kb_step = train_phase(
+        "train_kb", model, kb_static, cam, target, dev, ("k3", "k4"))
+    emit({"phase": "train_kb", "ok": True, "k": KB_K, **train_kb,
+          "card": card})
     if want_profile:
-        def one_kb_step():
-            nonlocal state, stats
-            state, stats, _ = step_fn(state, cam, target, stats)
-
         emit({"phase": "train_kb_profile", "ok": True, "steps": 3,
-              **profile_steps(one_kb_step, 3, sum(step_ms) / TRAIN_STEPS),
+              **profile_steps(one_kb_step, 3, train_kb["ms_per_step"]),
               "card": card})
-    del state, stats, model, target
+    del one_kb_step, model
 
     # 11. kernel_hier: K5 against its plain version -----------------------------
     from stopthepop_tpu_torch.kernels import hier_blend as hb
 
     hier_small_stats = []
     with torch.no_grad():
-        for case, scene_arrays in (
-                ("70x45 random scene, 300 Gaussians", small),
-                ("70x45 random scene, 300 larger Gaussians",
-                 {"means3d": dense.means3d, "opacities": dense.opacities,
-                  "scales": dense.scales, "rotations": dense.rotations,
-                  "shs": dense.shs})):
+        for case, scene_arrays in small_scenes:
             for queues, cull in HIER_SMALL_CASES:
                 prep, pairs, skw = prepare(scene_arrays, small_cam, 70, 45,
                                            tile_based_culling=cull)
@@ -1031,16 +1047,9 @@ def main(argv=None) -> int:
             for q, cull in HIER_SMALL_CASES[1:4]}
     N = pairs.num_rendered
     counts_hier = (pairs.ends - pairs.starts).to(torch.int64)
-    kt, km, kh = HIER_QUEUES
     k5_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3 + 9 + 1) + 19
                     + WIDTH * HEIGHT * 6)
-    k5_ops = (OPS_PER_TAIL_KEY * hier_full["tail_keys"]
-              + OPS_PER_TAIL_SLOT * hier_full["tail_slots"]
-              + OPS_PER_HIER_EVAL * hier_full["evaluations"]
-              + (OPS_PER_DEPTH + OPS_PER_MID_SLOT * km)
-              * hier_full["mid_inserts"]
-              + OPS_PER_HEAD_SLOT * kh * hier_full["head_inserts"]
-              + OPS_PER_COMMIT * hier_full["commits"])
+    k5_ops = hier_ops(hier_full, OPS_PER_COMMIT)
     k5_bytes_ms, k5_ops_ms = bound_ms(k5_bytes, k5_ops)
     emit({"phase": "kernel_hier", "ok": True,
           "case": "1920x1080, 500K Gaussians, bench camera", "pairs": N,
@@ -1065,13 +1074,66 @@ def main(argv=None) -> int:
         functools.partial(hb.blend_hier_forward, **hkw), dev)
     emit({"phase": "main_hier", "ok": True, "queues": list(HIER_QUEUES),
           **fields, "card": card})
-    del model
 
-    # 13. kernels -----------------------------------------------------------------
+    # 13. kernel_hier_bwd: K6 against its plain version --------------------------
+    hier_small_bwd = []
+    with torch.no_grad():
+        for case, scene_arrays in small_scenes:
+            for queues, cull in HIER_SMALL_CASES + HIER_BWD_EXTRA_CASES:
+                prep, pairs, skw = prepare(scene_arrays, small_cam, 70, 45,
+                                           tile_based_culling=cull)
+                st, _ = compare_hier_bwd(
+                    f"{case}, queues={queues}, culling={cull}",
+                    hier_args(prep, pairs, small_cam),
+                    {**skw, "queue_sizes": queues, "hier_4x4_culling": cull},
+                    cotangents(70, 45))
+                hier_small_bwd.append(st)
+                emit({"phase": "kernel_hier_bwd", "ok": True, "case": case,
+                      "pairs": pairs.num_rendered, "tile_based_culling": cull,
+                      **st})
+    cot = cotangents(WIDTH, HEIGHT)
+    with torch.no_grad():
+        prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
+        hier_bench_args = hier_args(prep, pairs, bench_cam)
+        hier_full_bwd, k6_args = compare_hier_bwd(
+            "1080p", hier_bench_args, hkw, cot, count_evaluations=True)
+        k6_ms = cuda_ms(lambda: hb.blend_hier_backward(*k6_args, **hkw), 20)
+        k6_plain_ms = cuda_ms(
+            lambda: hb.blend_hier_backward_plain(*k6_args, **hkw), 1, 0)
+    hier_full_bwd["bitwise_repeat_backward"] = check_backward_repeats(
+        "kernel_hier_bwd", "BlendHier", prep,
+        lambda *rows: BlendHier.apply(
+            *rows, *hier_bench_args[6:], pairs, HIER_QUEUES, False,
+            kw["grid_x"], kw["grid_y"], kw["width"], kw["height"]), cot)
+    N = pairs.num_rendered
+    k6_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3 + 9 + 1) + 19
+                    + WIDTH * HEIGHT * 9 + N * 9)
+    k6_ops = hier_ops(hier_full_bwd["replay"], OPS_PER_COMMIT_BWD)
+    k6_bytes_ms, k6_ops_ms = bound_ms(k6_bytes, k6_ops)
+    emit({"phase": "kernel_hier_bwd", "ok": True,
+          "case": "1920x1080, 500K Gaussians, bench camera", "pairs": N,
+          **hier_full_bwd, "k6_ms": k6_ms, "plain_ms": k6_plain_ms,
+          "bytes": k6_bytes, "ops": k6_ops, "bytes_bound_ms": k6_bytes_ms,
+          "ops_bound_ms": k6_ops_ms, "card": card})
+    del prep, pairs, hier_bench_args, k6_args, cot
+
+    # 14. train_hier: the training step in HIER ---------------------------------
+    train_hier, _, one_hier_step = train_phase(
+        "train_hier", model, static._replace(settings=hier_settings), cam,
+        target, dev, ("k5", "k6"))
+    emit({"phase": "train_hier", "ok": True, "queues": list(HIER_QUEUES),
+          **train_hier, "card": card})
+    if want_profile:
+        emit({"phase": "train_hier_profile", "ok": True, "steps": 3,
+              **profile_steps(one_hier_step, 3, train_hier["ms_per_step"]),
+              "card": card})
+    del one_hier_step, model
+
+    # 15. kernels -----------------------------------------------------------------
     emit({"kernels": [{
         "name": global_blend.KERNEL, "route": "cuda",
         "source": global_blend.SOURCE, "replaces": global_blend.REPLACES,
-        "launches": train_k1,
+        "launches": train_fields["launches"]["k1"],
         "max_abs_err": max(small_stats["max_abs_err_color"],
                            small_stats["max_abs_err_final_t"],
                            full_stats["max_abs_err_color"],
@@ -1082,7 +1144,7 @@ def main(argv=None) -> int:
     }, {
         "name": global_blend.BWD_KERNEL, "route": "cuda",
         "source": global_blend.BWD_SOURCE, "replaces": global_blend.BWD_REPLACES,
-        "launches": train_k2,
+        "launches": train_fields["launches"]["k2"],
         "max_abs_err": max(small_bwd["max_abs_err"], full_bwd["max_abs_err"]),
         "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": max(k2_bytes_ms, k2_ops_ms),
@@ -1090,7 +1152,7 @@ def main(argv=None) -> int:
         "library_ms": None,
     }, {
         "name": kb.KERNEL, "route": "cuda", "source": kb.SOURCE,
-        "replaces": kb.REPLACES, "launches": train_kb["k3"],
+        "replaces": kb.REPLACES, "launches": train_kb["launches"]["k3"],
         "max_abs_err": max(max(kb_full["max_abs_err_color"],
                                kb_full["max_abs_err_final_t"]),
                            *(max(st["max_abs_err_color"], st["max_abs_err_final_t"])
@@ -1101,7 +1163,8 @@ def main(argv=None) -> int:
         "library_ms": None,
     }, {
         "name": kb.BWD_KERNEL, "route": "cuda", "source": kb.BWD_SOURCE,
-        "replaces": kb.BWD_REPLACES, "launches": train_kb["k4"],
+        "replaces": kb.BWD_REPLACES,
+        "launches": train_kb["launches"]["k4"],
         "max_abs_err": max(kb_full_bwd["max_abs_err"],
                            *(st["max_abs_err"] for st in kb_small_bwd)),
         "ms": k4_ms, "plain_ms": k4_plain_ms,
@@ -1116,6 +1179,15 @@ def main(argv=None) -> int:
         "ms": k5_ms, "plain_ms": k5_plain_ms,
         "bound_ms": max(k5_bytes_ms, k5_ops_ms),
         "bound_by": "bytes" if k5_bytes_ms >= k5_ops_ms else "operations",
+        "library_ms": None,
+    }, {
+        "name": hb.BWD_KERNEL, "route": "cuda", "source": hb.BWD_SOURCE,
+        "replaces": hb.BWD_REPLACES, "launches": train_hier["launches"]["k6"],
+        "max_abs_err": max(st["max_abs_err"]
+                           for st in (hier_full_bwd, *hier_small_bwd)),
+        "ms": k6_ms, "plain_ms": k6_plain_ms,
+        "bound_ms": max(k6_bytes_ms, k6_ops_ms),
+        "bound_by": "bytes" if k6_bytes_ms >= k6_ops_ms else "operations",
         "library_ms": None,
     }]})
     print(card)

@@ -1,8 +1,8 @@
 """Differentiable blends: ``torch.autograd.Function``s pairing K1 with K2
-(GLOBAL) and K3 with K4 (PER_PIXEL_KBUFFER).
+(GLOBAL), K3 with K4 (PER_PIXEL_KBUFFER) and K5 with K6 (HIERARCHICAL).
 
-The counterparts of ``stopthepop_tpu/kernels/blend_vjp.py::make_blend_global``
-and ``make_blend_kbuffer``.
+The counterparts of ``stopthepop_tpu/kernels/blend_vjp.py::make_blend_global``,
+``make_blend_kbuffer`` and ``make_blend_hier``.
 The seam sits where the reference splits its hand-written backward: the
 blend-level gradients with respect to the per-Gaussian rows (xy, conic and
 opacity, rgb) come from kernel K2; everything upstream (preprocess) is plain
@@ -25,6 +25,10 @@ autograd folds it into the final_T cotangent.
 K2. ``cov3d_inv9`` and the camera get no gradient: the per-ray depths only
 choose the window order, a discrete choice, as in the reference and the JAX
 package.
+
+``BlendHier`` has the seam and steps again with K5 and K6. Besides
+``cov3d_inv9`` and the camera, ``opacity_power_threshold`` (the 4x4 culling
+test) gets no gradient: it only decides which entries are valid.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from .global_blend import blend_global_backward, blend_global_forward
+from .hier_blend import blend_hier_backward, blend_hier_forward
 from .kbuffer_blend import blend_kbuffer_backward, blend_kbuffer_forward
 
 
@@ -106,3 +111,36 @@ class BlendKBuffer(torch.autograd.Function):
             grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw)
         d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
         return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 9
+
+
+class BlendHier(torch.autograd.Function):
+    """(xy, conic_opacity, rgb, cov3d_inv9, opacity_power_threshold,
+    inverse_vp, campos, pairs, queues, hier_4x4_culling, grid) -> K5's four
+    outputs, differentiable in xy, conic_opacity and rgb through color and
+    final_T."""
+
+    @staticmethod
+    def forward(ctx, xy, conic_opacity, rgb, cov3d_inv9,
+                opacity_power_threshold, inverse_vp, campos, pairs,
+                queue_sizes, hier_4x4_culling, grid_x, grid_y, width, height):
+        kw = dict(queue_sizes=queue_sizes, hier_4x4_culling=hier_4x4_culling,
+                  grid_x=grid_x, grid_y=grid_y, width=width, height=height)
+        color, final_t, n_contrib, depth_acc = blend_hier_forward(
+            pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
+            cov3d_inv9, opacity_power_threshold, inverse_vp, campos, **kw)
+        ctx.save_for_backward(xy, conic_opacity, rgb, cov3d_inv9,
+                              opacity_power_threshold, inverse_vp, campos,
+                              color, final_t, n_contrib)
+        ctx.pairs = pairs
+        ctx.kw = kw
+        ctx.mark_non_differentiable(n_contrib, depth_acc)
+        return color, final_t, n_contrib, depth_acc
+
+    @staticmethod
+    def backward(ctx, grad_color, grad_final_t, _grad_n, _grad_depth):
+        pairs = ctx.pairs
+        d_pair = blend_hier_backward(
+            pairs.gauss_id, pairs.starts, pairs.ends, *ctx.saved_tensors,
+            grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw)
+        d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
+        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 11

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` (Hopper) into ``build/torch_kernels/`` at the
-root of the checkout, under a file name keyed by a hash of the source and the
-flags, and loaded with ``ctypes``. A later process finds the library and
-skips the compile. Nothing here runs at import time: the CPU tests import
-every module and have no ``nvcc``.
+root of the checkout, under a file name keyed by a hash of the source, the
+shared headers ``csrc/*.cuh`` and the flags, and loaded with ``ctypes``. A
+later process finds the library and skips the compile. Nothing here runs
+at import time: the CPU tests import every module and have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -52,9 +52,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` is built. Its name hashes
+    every header too, so an edited header rebuilds every kernel."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -1,12 +1,13 @@
-"""HIERARCHICAL sort-mode tile blend, forward: the CUDA kernel K5 and its
-plain PyTorch version.
+"""HIERARCHICAL sort-mode tile blend: the CUDA kernels K5 (forward) and K6
+(backward) and their plain PyTorch versions.
 
 K5 replaces ``stopthepop_tpu/kernels/hier_blend.py::blend_hier_forward``
-(the Pallas ``_fwd_kernel``, per-entry cascade). Its shape is K1/K3's: one
-block of 256 threads per 16x16 tile, batches of the tile's (tile,
-depth)-sorted pairs staged in shared memory. The source note
-(``csrc/hier_blend_fwd.cu``) says what bounds it on an H100 and how its
-design keeps the cascade exact.
+(the Pallas ``_fwd_kernel``, per-entry cascade) and K6 its
+``blend_hier_backward``. Their shape is K1/K3's: one block of 256 threads
+per 16x16 tile, batches of the tile's (tile, depth)-sorted pairs staged in
+shared memory; K6 replays K5 and routes its gradients as K4 does. The source
+notes (``csrc/hier_blend_fwd.cu``, ``csrc/hier_blend_bwd.cu``) say what
+bounds them on an H100 and how their design keeps the cascade exact.
 
 Semantics (JAX ``render/naive.py::render_hierarchical_naive`` with
 ``batched_cascade=False``, the reference's hierarchical renderer,
@@ -42,12 +43,15 @@ or d_head < 0): the fill counts and every pop decision are the same for the
 16 pixels of a sub-tile. After the tail's drain, ``km`` mid steps pop every
 mid entry into the head, then ``kh`` head steps blend what is left.
 
-The wrapper launches K5 for CUDA tensors and runs the plain version for CPU
-tensors, and nothing else: on a CUDA tensor it launches the kernel or
-raises. The plain version holds the tail of all tiles as [T, 16, kt + 64]
-and sorts it with ``torch.sort(stable=True)``, holds the mid and head
-windows as [km | kh, T, 256], and repeats K5's arithmetic operation by
-operation.
+Each wrapper launches its kernel for CUDA tensors and runs its plain version
+for CPU tensors, and nothing else: on a CUDA tensor it launches the kernel
+or raises. The plain versions share one replay (``_replay``): it holds the
+tail of all tiles as [T, 16, kt + 64] and sorts it with
+``torch.sort(stable=True)``, holds the mid and head windows as
+[km | kh, T, 256], and repeats K5's arithmetic operation by operation; the
+forward blends at each head pop (in differentiable torch operations, so
+autograd through it checks the plain backward), the backward forms and
+routes the commit's gradient terms in K6's order of summation.
 
 Inputs: the sorted Gaussian ids ``point_list`` [N] int32, ``starts``/``ends``
 [T] int32, the per-Gaussian rows ``xy`` [P, 2], ``conic_opacity`` [P, 4],
@@ -56,7 +60,8 @@ u = Sigma^-1 (mean - campos)), ``opacity_power_threshold`` [P]
 (log(opacity / alpha threshold)), the camera ``inverse_vp`` [4, 4] and
 ``campos`` [3] (float32), and the queue sizes (kt, km, kh). Outputs:
 color [3, H, W] (raw; the caller composites the background), final_T
-[H, W], n_contrib [H, W] int32, depth_acc [H, W].
+[H, W], n_contrib [H, W] int32, depth_acc [H, W]. K6 returns d_pair
+[N, 9] in sorted-slot order, columns ``GRAD_COLS``.
 """
 
 from __future__ import annotations
@@ -78,13 +83,33 @@ from ..constants import (
 from ..ops.stopthepop import depth_along_ray, max_contrib_power_rect
 from ..ops.transforms import compute_view_ray
 from . import build
-from .global_blend import _check_inputs, _tile_pixel_coords, pack_image, unpack_image
-from .kbuffer_blend import _check_float_rows, _cuda_prelude, _insert, _shift_out
+from .global_blend import (
+    GRAD_COLS,
+    _check_backward_inputs,
+    _check_inputs,
+    _tile_pixel_coords,
+    pack_image,
+    unpack_image,
+)
+from .kbuffer_blend import (
+    SCRATCH_FLOATS,
+    _check_float_rows,
+    _commit_terms,
+    _cuda_prelude,
+    _insert,
+    _pair_sums,
+    _route,
+    _shift_out,
+    _warp_rows,
+)
 
 KERNEL = "hier_blend_fwd"
 SOURCE = "stopthepop_tpu_torch/csrc/hier_blend_fwd.cu"
 REPLACES = "stopthepop_tpu/kernels/hier_blend.py:923"
-# K5 is instantiated for the reference's mid and head window sizes
+BWD_KERNEL = "hier_blend_bwd"
+BWD_SOURCE = "stopthepop_tpu_torch/csrc/hier_blend_bwd.cu"
+BWD_REPLACES = "stopthepop_tpu/kernels/hier_blend.py:1652"
+# K5 and K6 are instantiated for the reference's mid and head window sizes
 # (SURVEY.md:251-254); a run uses the smallest instantiation that holds its
 # runtime sizes. The tail lives in dynamic shared memory, 256 (kt + 64)
 # bytes a block, which TAIL_MAX keeps under the H100's 227 KB.
@@ -119,6 +144,17 @@ def _bind():
     fn = lib.stp_hier_blend_fwd
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_bwd():
+    lib = build.load(BWD_KERNEL)
+    fn = lib.stp_hier_blend_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
 
@@ -191,34 +227,44 @@ def subtile_of_pixel(device):
     return (j // (4 * TILE_X)) * 4 + (j % TILE_X) // 4
 
 
-def blend_hier_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
-                             cov3d_inv9, opacity_power_threshold, inverse_vp,
-                             campos, *, queue_sizes, hier_4x4_culling: bool,
-                             grid_x: int, grid_y: int, width: int, height: int,
-                             count_evaluations: bool = False):
-    """Plain PyTorch version of kernel K5, same signature and outputs.
+def thread_pixel(device):
+    """[256] in-tile pixel (row-major) of each thread of K5 and K6: half-warp
+    s is sub-tile s, its lanes 4q..4q+3 are its quad q, and lane r of a quad
+    is the quad's pixel (r & 1, r >> 1)."""
+    t = torch.arange(TILE_PIXELS, device=device)
+    s, q, r = t >> 4, (t >> 2) & 3, t & 3
+    x = (s & 3) * 4 + (q & 1) * 2 + (r & 1)
+    y = (s >> 2) * 4 + (q >> 1) * 2 + (r >> 1)
+    return y * TILE_X + x
 
-    With ``count_evaluations`` it also returns a dict of what K5 does on
-    these inputs (a tile stops once every pixel of it is done):
-    ``tail_keys`` (sub-tile keys of stream positions), ``tail_slots``
-    (entries placed by the tail merges), ``evaluations`` (per-pixel
-    recomputes of an emitted entry: alpha and the head ray depth),
-    ``mid_inserts`` (per-quad entries of an emitted entry: the quad-center
-    ray depth and the mid insert, the same for the 4 pixels of a quad),
-    ``head_inserts`` (per-pixel mid pops) and ``commits`` (those with
-    a > 0, the sum of n_contrib).
-    """
-    kt, km, kh = check_hier_queues(*queue_sizes)
+
+def _gids(point_list, starts, src):
+    """Gaussian ids of stream positions ``src`` [T, ...] of each tile's
+    segment (positions past the list are clamped: they are never read)."""
+    idx = starts.to(torch.int64).reshape(-1, *([1] * (src.dim() - 1))) + src
+    return point_list[idx.clamp(max=point_list.shape[0] - 1)].to(torch.int64)
+
+
+def _quads(mask):
+    """[T, 256] pixel mask -> [T, 64]: any pixel of each 2x2 quad."""
+    return mask.reshape(-1, 8, 2, 8, 2).any(dim=4).any(dim=2)
+
+
+def _replay(point_list, starts, ends, xy, conic_opacity, cov3d_inv9,
+            opacity_power_threshold, inverse_vp, campos, *, queue_sizes,
+            hier_4x4_culling, grid_x, grid_y, width, height, done, pop,
+            skip_done, n):
+    """K5's cascade over every tile (the module docstring), the windows
+    carrying each entry's position ``src`` in its tile's segment. Each head
+    pop calls ``pop(pop_h, a0, d0, src, done)`` ([T, 256] each; ``done`` the
+    pixels' latch), which blends (K5) or replays the blend's gradient (K6)
+    and returns the new latch; ``done`` is the latch to start from. ``n``,
+    where given, takes the counts of ``blend_hier_forward_plain``; with
+    ``skip_done`` a done pixel does no per-pixel work (K6), else every pixel
+    of a live tile does (K5). The point list is not empty."""
+    kt, km, kh = queue_sizes
     dev = xy.device
     T_tiles = grid_x * grid_y
-    n = {"tail_keys": 0, "tail_slots": 0, "evaluations": 0,
-         "mid_inserts": 0, "head_inserts": 0, "commits": 0}
-    if point_list.numel() == 0:  # nothing enters any window
-        img = torch.zeros((height, width), dtype=torch.float32, device=dev)
-        out = (torch.zeros((3, height, width), dtype=torch.float32,
-                           device=dev), img + 1.0,
-               torch.zeros((height, width), dtype=torch.int32, device=dev), img)
-        return out + (n,) if count_evaluations else out
     B = TAIL_BATCH
     counts = (ends - starts).to(torch.int64)
     starts64 = starts.to(torch.int64)
@@ -247,22 +293,21 @@ def blend_hier_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
         w = {"d": torch.full((k, *shape), inf, dtype=torch.float32, device=dev)}
         for f in fields:
             w[f] = torch.zeros((k, *shape), dtype=torch.float32, device=dev)
-        w["g"] = torch.zeros((k, *shape), dtype=torch.int64, device=dev)
+        w["src"] = torch.zeros((k, *shape), dtype=torch.int64, device=dev)
         return w
 
     st = {
-        "mid": window(km, ("dh", "a")),   # key d_mid, then d_head, a, gid
-        "head": window(kh, ("a",)),       # key d_head, then a, gid
+        "mid": window(km, ("dh", "a")),   # key d_mid, then d_head, a, src
+        "head": window(kh, ("a",)),       # key d_head, then a, src
         "fm": torch.zeros(shape, dtype=torch.int64, device=dev),
         "fh": torch.zeros(shape, dtype=torch.int64, device=dev),
-        "T": torch.ones(shape, dtype=torch.float32, device=dev),
-        "C": torch.zeros((3, *shape), dtype=torch.float32, device=dev),
-        "D": torch.zeros(shape, dtype=torch.float32, device=dev),
-        "nc": torch.zeros(shape, dtype=torch.int32, device=dev),
-        "done": ~pack_image(torch.ones((height, width), dtype=torch.bool,
-                                       device=dev), grid_x, grid_y),
+        "done": done,
     }
     live_tiles = torch.ones(T_tiles, dtype=torch.bool, device=dev)
+
+    def work(mask):
+        """The pixels of ``mask`` whose work the kernel does (counted)."""
+        return mask & (~st["done"] if skip_done else live_tiles[:, None])
 
     def shift(win, popm):
         return {f: _shift_out(x, popm, inf if f == "d" else 0.0)
@@ -270,39 +315,29 @@ def blend_hier_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
 
     def head_pop(pop_h):
         head = st["head"]
-        a0, d0, g0 = head["a"][0], head["d"][0], head["g"][0]
-        T = st["T"]
-        U = T * (1.0 - a0)
-        commit = pop_h & ~st["done"] & (U >= T_THRESHOLD)
-        st["done"] = st["done"] | (pop_h & (U < T_THRESHOLD))
-        w = a0 * T
-        col = rgb[g0].permute(2, 0, 1)                            # [3, T, 256]
-        st["C"] = torch.where(commit, st["C"] + w * col, st["C"])
-        st["D"] = torch.where(commit, st["D"] + w * d0, st["D"])
-        st["T"] = torch.where(commit, U, T)
-        st["nc"] = st["nc"] + (commit & (a0 > 0.0)).to(torch.int32)
+        st["done"] = pop(pop_h, head["a"][0], head["d"][0], head["src"][0],
+                         st["done"])
         st["head"] = shift(head, pop_h)
         st["fh"] = st["fh"] - pop_h.to(torch.int64)
-        if count_evaluations:
-            n["commits"] += int((commit & (a0 > 0.0)).sum())
 
     def push_head(pop_m):
         """Pop the mid front into the head where ``pop_m``."""
         mid = st["mid"]
-        front = {"d": mid["dh"][0], "a": mid["a"][0], "g": mid["g"][0]}
+        front = {"d": mid["dh"][0], "a": mid["a"][0], "src": mid["src"][0]}
+        if n is not None:
+            n["head_inserts"] += int(work(pop_m).sum())
         head_pop(pop_m & (st["fh"] == kh))
         st["head"] = _insert(st["head"], pop_m, front["d"], front)
         st["fh"] = st["fh"] + pop_m.to(torch.int64)
         st["mid"] = shift(mid, pop_m)
         st["fm"] = st["fm"] - pop_m.to(torch.int64)
-        if count_evaluations:
-            n["head_inserts"] += int((pop_m & live_tiles[:, None]).sum())
 
-    def cascade(key_sub, gid_sub):
+    def cascade(key_sub, src_sub):
         """One emitted tail entry of every sub-tile ([T, 16]) into the mid
         and head windows of its 16 pixels."""
         v = torch.isfinite(key_sub)[:, sub_of_pix]                # [T, 256]
-        gid = gid_sub[:, sub_of_pix]
+        src = src_sub[:, sub_of_pix]
+        gid = _gids(point_list, starts, src)
         inv = cov3d_inv9[gid]
         d_mid = depth_along_ray(inv, vd_mid)
         d_head = depth_along_ray(inv, vd_head)
@@ -314,22 +349,24 @@ def blend_hier_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
         alpha = torch.clamp(o * torch.exp(-power), max=ALPHA_MAX)
         ok = (power >= 0.0) & (alpha >= ALPHA_THRESHOLD) & (d_head >= 0.0)
         a_eff = torch.where(ok, alpha, 0.0)
+        if n is not None:
+            busy = work(v)
+            n["evaluations"] += int(busy.sum())
+            n["mid_inserts"] += int(_quads(busy).sum())
         push_head(v & (st["fm"] == km))
         st["mid"] = _insert(st["mid"], v, d_mid,
-                            {"d": d_mid, "dh": d_head, "a": a_eff, "g": gid})
+                            {"d": d_mid, "dh": d_head, "a": a_eff, "src": src})
         st["fm"] = st["fm"] + v.to(torch.int64)
-        if count_evaluations:
-            n["evaluations"] += int((v & live_tiles[:, None]).sum())
 
     hold_k = torch.full((T_tiles, SUBTILES, kt), -inf, dtype=torch.float32,
                         device=dev)
-    hold_g = torch.zeros((T_tiles, SUBTILES, kt), dtype=torch.int64, device=dev)
+    hold_s = torch.zeros((T_tiles, SUBTILES, kt), dtype=torch.int64, device=dev)
     n_stream = -(-max_count // B)
     for b in range(n_stream + -(-kt // B)):
-        # K5 stops a tile whose pixels are all done before each of its
-        # stream batches and before its drain (only counted here: a done
-        # pixel's outputs do not change). Batches past a tile's segment
-        # emit only ghosts, so the check at b = n_stream is its drain's.
+        # The kernels stop a tile whose pixels are all done before each of
+        # its stream batches and before its drain (only counted here: a done
+        # pixel's outputs do not change). Batches past a tile's segment emit
+        # only ghosts, so the check at b = n_stream is its drain's.
         if b <= n_stream:
             live_tiles = live_tiles & ~st["done"].all(dim=1)
         if b < n_stream:
@@ -347,33 +384,235 @@ def blend_hier_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
                     patch_w=3, patch_h=3)
                 valid = valid & (power4 <= opacity_power_threshold[gid][:, None])
             key = torch.where(valid, d_tail, -inf)
-            gids = gid[:, None, :].expand(-1, SUBTILES, -1)
-            if count_evaluations:
-                n["tail_keys"] += SUBTILES * int((live & live_tiles[:, None]).sum())
-                ran = live_tiles & (b * B < counts)
+            srcs = pos.expand(T_tiles, SUBTILES, B)
+            if n is not None:
+                n["tail_keys"] += SUBTILES * int(
+                    (live & live_tiles[:, None]).sum())
+            ran = live_tiles & (b * B < counts)
         else:
             key = torch.full((T_tiles, SUBTILES, B), inf, device=dev)
-            gids = torch.zeros((T_tiles, SUBTILES, B), dtype=torch.int64,
+            srcs = torch.zeros((T_tiles, SUBTILES, B), dtype=torch.int64,
                                device=dev)
             ran = live_tiles
-        if count_evaluations:
+        if n is not None:
             n["tail_slots"] += SUBTILES * (kt + B) * int(ran.sum())
         srt_k, order = torch.sort(torch.cat([hold_k, key], dim=-1), dim=-1,
                                   stable=True)
-        srt_g = torch.gather(torch.cat([hold_g, gids], dim=-1), -1, order)
-        hold_k, hold_g = srt_k[..., B:], srt_g[..., B:]
-        emit_k, emit_g = srt_k[..., :B], srt_g[..., :B]
+        srt_s = torch.gather(torch.cat([hold_s, srcs], dim=-1), -1, order)
+        hold_k, hold_s = srt_k[..., B:], srt_s[..., B:]
+        emit_k, emit_s = srt_k[..., :B], srt_s[..., :B]
         # Steps where no sub-tile emits a real entry change nothing.
         for e in torch.isfinite(emit_k).any(dim=1).any(dim=0).nonzero().flatten().tolist():
-            cascade(emit_k[..., e], emit_g[..., e])
+            cascade(emit_k[..., e], emit_s[..., e])
     for _ in range(km):
         push_head(st["fm"] > 0)
     for _ in range(kh):
         head_pop(st["fh"] > 0)
+
+
+def _counts():
+    return {"tail_keys": 0, "tail_slots": 0, "evaluations": 0,
+            "mid_inserts": 0, "head_inserts": 0, "commits": 0}
+
+
+def blend_hier_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
+                             cov3d_inv9, opacity_power_threshold, inverse_vp,
+                             campos, *, queue_sizes, hier_4x4_culling: bool,
+                             grid_x: int, grid_y: int, width: int, height: int,
+                             count_evaluations: bool = False):
+    """Plain PyTorch version of kernel K5, same signature and outputs.
+
+    With ``count_evaluations`` it also returns a dict of what K5 does on
+    these inputs (a tile stops once every pixel of it is done):
+    ``tail_keys`` (sub-tile keys of stream positions), ``tail_slots``
+    (entries placed by the tail merges), ``evaluations`` (per-pixel
+    recomputes of an emitted entry: alpha and the head ray depth),
+    ``mid_inserts`` (per-quad entries of an emitted entry: the quad-center
+    ray depth and the mid insert, the same for the 4 pixels of a quad),
+    ``head_inserts`` (per-pixel mid pops) and ``commits`` (those with
+    a > 0, the sum of n_contrib).
+    """
+    queue_sizes = check_hier_queues(*queue_sizes)
+    dev = xy.device
+    n = _counts()
+    if point_list.numel() == 0:  # nothing enters any window
+        img = torch.zeros((height, width), dtype=torch.float32, device=dev)
+        out = (torch.zeros((3, height, width), dtype=torch.float32,
+                           device=dev), img + 1.0,
+               torch.zeros((height, width), dtype=torch.int32, device=dev), img)
+        return out + (n,) if count_evaluations else out
+    shape = (grid_x * grid_y, TILE_PIXELS)
+    acc = {"T": torch.ones(shape, dtype=torch.float32, device=dev),
+           "C": torch.zeros((3, *shape), dtype=torch.float32, device=dev),
+           "D": torch.zeros(shape, dtype=torch.float32, device=dev),
+           "nc": torch.zeros(shape, dtype=torch.int32, device=dev)}
+
+    def pop(pop_h, a0, d0, src, done):
+        """The blend: U = T (1 - a0) commits where not done and U >= 1e-4."""
+        T = acc["T"]
+        U = T * (1.0 - a0)
+        commit = pop_h & ~done & (U >= T_THRESHOLD)
+        w = a0 * T
+        col = rgb[_gids(point_list, starts, src)].permute(2, 0, 1)  # [3, T, 256]
+        acc["C"] = torch.where(commit, acc["C"] + w * col, acc["C"])
+        acc["D"] = torch.where(commit, acc["D"] + w * d0, acc["D"])
+        acc["T"] = torch.where(commit, U, T)
+        acc["nc"] = acc["nc"] + (commit & (a0 > 0.0)).to(torch.int32)
+        if count_evaluations:
+            n["commits"] += int((commit & (a0 > 0.0)).sum())
+        return done | (pop_h & (U < T_THRESHOLD))
+
+    _replay(point_list, starts, ends, xy, conic_opacity, cov3d_inv9,
+            opacity_power_threshold, inverse_vp, campos,
+            queue_sizes=queue_sizes, hier_4x4_culling=hier_4x4_culling,
+            grid_x=grid_x, grid_y=grid_y, width=width, height=height,
+            done=~pack_image(torch.ones((height, width), dtype=torch.bool,
+                                        device=dev), grid_x, grid_y),
+            pop=pop, skip_done=False, n=n if count_evaluations else None)
     out = tuple(unpack_image(x, grid_x, grid_y, width, height).contiguous()
-                for x in (st["C"], st["T"], st["nc"], st["D"]))
-    if count_evaluations:
-        # An entry enters all 16 pixels of its sub-tile or none of them.
-        n["mid_inserts"] = n["evaluations"] // 4
-        return out + (n,)
-    return out
+                for x in (acc["C"], acc["T"], acc["nc"], acc["D"]))
+    return out + (n,) if count_evaluations else out
+
+
+def blend_hier_backward(point_list, starts, ends, xy, conic_opacity, rgb,
+                        cov3d_inv9, opacity_power_threshold, inverse_vp,
+                        campos, color, final_t, n_contrib, grad_color,
+                        grad_final_t, *, queue_sizes, hier_4x4_culling: bool,
+                        grid_x: int, grid_y: int, width: int, height: int):
+    """Per-pair gradients of K5's color and final_T (kernel K6).
+
+    Takes K5's inputs, its saved outputs ``color`` (raw, before the
+    background), ``final_t`` and ``n_contrib``, and the cotangents
+    ``grad_color`` [3, H, W] and ``grad_final_t`` [H, W]. Returns d_pair
+    [N, 9] float32 in sorted-slot order, columns ``GRAD_COLS``: the gradient
+    with respect to each pair's x, y, conic a, b, c, opacity and r, g, b,
+    summed over the pixels that committed it. No gradient flows to
+    ``cov3d_inv9``, the camera or ``opacity_power_threshold``: they only
+    choose the cascade's order and validity. CUDA tensors go to kernel K6
+    (counted in ``blend_hier_backward.launches``); CPU tensors to the plain
+    version.
+    """
+    kt, km, kh = check_hier_queues(*queue_sizes)
+    _check_hier_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
+                       cov3d_inv9, opacity_power_threshold, inverse_vp, campos,
+                       grid_x, grid_y, width, height)
+    dev = xy.device
+    _check_backward_inputs(color, final_t, n_contrib, grad_color,
+                           grad_final_t, width, height, dev)
+    if dev.type == "cpu":
+        return blend_hier_backward_plain(
+            point_list, starts, ends, xy, conic_opacity, rgb, cov3d_inv9,
+            opacity_power_threshold, inverse_vp, campos, color, final_t,
+            n_contrib, grad_color, grad_final_t, queue_sizes=(kt, km, kh),
+            hier_4x4_culling=hier_4x4_culling, grid_x=grid_x, grid_y=grid_y,
+            width=width, height=height,
+        )
+    cam, sx, sy = _cuda_prelude(xy, conic_opacity, inverse_vp, campos, width,
+                                height)
+    fn = _bind_bwd()
+    n_pairs = point_list.shape[0]
+    # Each tile's block zeroes and fills its own rows [start, end).
+    scratch = torch.empty((n_pairs, SCRATCH_FLOATS), dtype=torch.float32,
+                          device=dev)
+    d_pair = torch.empty((n_pairs, len(GRAD_COLS)), dtype=torch.float32,
+                         device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(
+        point_list.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+        xy.data_ptr(), conic_opacity.data_ptr(), rgb.data_ptr(),
+        cov3d_inv9.data_ptr(), opacity_power_threshold.data_ptr(),
+        cam.data_ptr(), sx, sy, kt, km, kh, _instance(km, MID_SIZES),
+        _instance(kh, HEAD_SIZES), int(bool(hier_4x4_culling)),
+        color.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
+        grad_color.data_ptr(), grad_final_t.data_ptr(), grid_x, grid_y,
+        width, height, scratch.data_ptr(), d_pair.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError_t {err}")
+    blend_hier_backward.launches += 1
+    return d_pair
+
+
+blend_hier_backward.launches = 0
+
+
+def blend_hier_backward_plain(point_list, starts, ends, xy, conic_opacity,
+                              rgb, cov3d_inv9, opacity_power_threshold,
+                              inverse_vp, campos, color, final_t, n_contrib,
+                              grad_color, grad_final_t, *, queue_sizes,
+                              hier_4x4_culling: bool, grid_x: int, grid_y: int,
+                              width: int, height: int,
+                              count_evaluations: bool = False):
+    """Plain PyTorch version of kernel K6, same signature and outputs.
+
+    The replay repeats K5's cascade (``_replay``); only commits of a0 > 0
+    count (a commit of a0 = 0 changes neither T nor any sum), and a pixel
+    stops once it has made its ``n_contrib`` of them. At every commit, the
+    algebra of K4
+    (``kbuffer_blend.blend_kbuffer_backward_plain``):
+      w = a0 T;  acc = acc + w (c.g);
+      galpha = a0 < 0.99 ? (c.g) T - (S_tot - acc + K_T) / (1 - a0) : 0,
+    with c.g formed from the entry's rgb and the pixel's g, S_tot = color . g
+    and K_T = g_T final_T, and the nine terms from dpower = -a0 galpha. The
+    terms are summed as K6 sums them: per tile and warp of 32 threads (K5's
+    thread map, ``thread_pixel``), step by step and within a step in
+    ascending lane order, into the committed pair's row; then each pair's 8
+    warp rows in warp order. With ``count_evaluations`` it also returns the
+    replay's counts (those of ``blend_hier_forward_plain``, over the pixels
+    that have not stopped).
+    """
+    queue_sizes = check_hier_queues(*queue_sizes)
+    dev = xy.device
+    n_pairs = point_list.shape[0]
+    n = _counts()
+    d_pair = torch.zeros((n_pairs, len(GRAD_COLS)), dtype=torch.float32,
+                         device=dev)
+    if n_pairs == 0:  # nothing to replay
+        return (d_pair, n) if count_evaluations else d_pair
+    T_tiles = grid_x * grid_y
+    counts = (ends - starts).to(torch.int64)
+    pix_x, pix_y = _tile_pixel_coords(grid_x, grid_y, dev)
+    g = pack_image(grad_color, grid_x, grid_y)               # [3, T, 256]
+    c = pack_image(color, grid_x, grid_y)
+    s_tot = c[0] * g[0] + c[1] * g[1] + c[2] * g[2]
+    k_t = pack_image(grad_final_t, grid_x, grid_y) * pack_image(
+        final_t, grid_x, grid_y)
+    target = pack_image(n_contrib, grid_x, grid_y)  # 0 outside the image
+    rows = _warp_rows(T_tiles, int(counts.max()), dev)
+    lanes = thread_pixel(dev)
+    shape = (T_tiles, TILE_PIXELS)
+    st = {"T": torch.ones(shape, dtype=torch.float32, device=dev),
+          "acc_g": torch.zeros(shape, dtype=torch.float32, device=dev),
+          "nc": torch.zeros(shape, dtype=torch.int32, device=dev)}
+
+    def pop(pop_h, a0, d0, src, done):
+        """A head pop's commit and its gradient terms, routed. Commits of
+        a0 = 0 change nothing (their terms are +-0) and are skipped."""
+        T = st["T"]
+        U = T * (1.0 - a0)
+        commit = pop_h & ~done & (U >= T_THRESHOLD) & (a0 > 0.0)
+        gid = _gids(point_list, starts, src)
+        col = rgb[gid]                                        # [T, 256, 3]
+        cg = col[..., 0] * g[0] + col[..., 1] * g[1] + col[..., 2] * g[2]
+        w = a0 * T
+        acc_g = torch.where(commit, st["acc_g"] + w * cg, st["acc_g"])
+        galpha = torch.where(a0 < ALPHA_MAX,
+                             cg * T - (s_tot - acc_g + k_t) / (1.0 - a0), 0.0)
+        vals = _commit_terms(a0, galpha, w, g, conic_opacity[gid],
+                             xy[gid, 0] - pix_x, xy[gid, 1] - pix_y)
+        _route(rows, commit[:, lanes], src[:, lanes], vals[:, lanes])
+        st["T"] = torch.where(commit, U, T)
+        st["acc_g"] = acc_g
+        st["nc"] = st["nc"] + commit.to(torch.int32)
+        if count_evaluations:
+            n["commits"] += int(commit.sum())
+        return done | (pop_h & (U < T_THRESHOLD)) | (st["nc"] == target)
+
+    _replay(point_list, starts, ends, xy, conic_opacity, cov3d_inv9,
+            opacity_power_threshold, inverse_vp, campos,
+            queue_sizes=queue_sizes, hier_4x4_culling=hier_4x4_culling,
+            grid_x=grid_x, grid_y=grid_y, width=width, height=height,
+            done=target == 0, pop=pop, skip_done=True,
+            n=n if count_evaluations else None)
+    _pair_sums(rows, starts, counts, d_pair)
+    return (d_pair, n) if count_evaluations else d_pair

@@ -310,6 +310,60 @@ def blend_kbuffer_forward_plain(point_list, starts, ends, xy, conic_opacity,
     return out
 
 
+def _warp_rows(T_tiles, max_count, dev):
+    """Per (tile, warp) gradient rows of every tile's segment, [T, 8, L, 9],
+    as the backward kernels keep them in their scratch."""
+    return torch.zeros((T_tiles, WARPS, max(max_count, 1), len(GRAD_COLS)),
+                       dtype=torch.float32, device=dev)
+
+
+def _commit_terms(a0, galpha, w, g, co, dx, dy):
+    """The nine per-pair gradient terms of a commit ([..., 9], columns
+    ``GRAD_COLS``) from its alpha gradient, in the kernels' order."""
+    a, b, c, o = co.unbind(-1)
+    dpower = -a0 * galpha
+    return torch.stack([
+        dpower * (a * dx + b * dy),
+        dpower * (c * dy + b * dx),
+        dpower * 0.5 * dx * dx,
+        dpower * dx * dy,
+        dpower * 0.5 * dy * dy,
+        galpha * a0 / torch.clamp(o, min=1e-12),
+        w * g[0],
+        w * g[1],
+        w * g[2],
+    ], dim=-1)
+
+
+def _route(acc, commit, src, vals):
+    """One step of the kernels' routing: the committing lanes' terms
+    (``commit``, ``src`` [T, 256] and ``vals`` [T, 256, 9], pixels in
+    thread order) added into the rows ``acc`` of their warp, each lane in
+    ascending order."""
+    T_tiles = acc.shape[0]
+    commit = commit.reshape(T_tiles, WARPS, 32)
+    src = src.reshape(T_tiles, WARPS, 32)
+    vals = vals.reshape(T_tiles, WARPS, 32, len(GRAD_COLS))
+    t_idx = torch.arange(T_tiles, device=acc.device)[:, None]
+    w_idx = torch.arange(WARPS, device=acc.device)[None, :]
+    for lane in commit.any(dim=1).any(dim=0).nonzero().flatten().tolist():
+        m = commit[:, :, lane]
+        s = torch.where(m, src[:, :, lane], 0)
+        cur = acc[t_idx, w_idx, s]
+        acc[t_idx, w_idx, s] = torch.where(m[..., None],
+                                           cur + vals[:, :, lane], cur)
+
+
+def _pair_sums(acc, starts, counts, d_pair):
+    """Each pair's warp rows added in warp order into its sorted slot."""
+    total = acc[:, 0]
+    for w in range(1, WARPS):
+        total = total + acc[:, w]                          # [T, L, 9]
+    s = torch.arange(total.shape[1], device=acc.device)[None, :]
+    mine = s < counts[:, None]
+    d_pair[(starts.to(torch.int64)[:, None] + s)[mine]] = total[mine]
+
+
 def blend_kbuffer_backward(point_list, starts, ends, xy, conic_opacity, rgb,
                            cov3d_inv9, inverse_vp, campos, color, final_t,
                            n_contrib, grad_color, grad_final_t, *, k: int,
@@ -414,23 +468,7 @@ def blend_kbuffer_backward_plain(point_list, starts, ends, xy, conic_opacity,
     acc_g = torch.zeros(shape, dtype=torch.float32, device=dev)
     nc = torch.zeros(shape, dtype=torch.int32, device=dev)
     done = target == 0
-    # Per (tile, warp) gradient rows of the tile's segment, as K4 keeps them.
-    acc = torch.zeros((T_tiles, WARPS, max(max_count, 1), len(GRAD_COLS)),
-                      dtype=torch.float32, device=dev)
-    t_idx = torch.arange(T_tiles, device=dev)[:, None]
-    w_idx = torch.arange(WARPS, device=dev)[None, :]
-
-    def route(commit, src, vals):
-        commit = commit.reshape(T_tiles, WARPS, 32)
-        src = src.reshape(T_tiles, WARPS, 32)
-        vals = vals.reshape(T_tiles, WARPS, 32, len(GRAD_COLS))
-        lanes = commit.any(dim=1).any(dim=0).nonzero().flatten().tolist()
-        for lane in lanes:
-            m = commit[:, :, lane]
-            s = torch.where(m, src[:, :, lane], 0)
-            cur = acc[t_idx, w_idx, s]
-            acc[t_idx, w_idx, s] = torch.where(m[..., None],
-                                               cur + vals[:, :, lane], cur)
+    acc = _warp_rows(T_tiles, max_count, dev)
 
     def pop(win, fill, T, acc_g, nc, done, popm):
         a0, cg, src = win["a"][0], win["cg"][0], win["src"][0]
@@ -443,23 +481,9 @@ def blend_kbuffer_backward_plain(point_list, starts, ends, xy, conic_opacity,
                              cg * T - (s_tot - acc_g + kt) / (1.0 - a0), 0.0)
         gid = point_list[(starts.to(torch.int64)[:, None] + src).clamp(
             max=max(n_pairs - 1, 0))].to(torch.int64)
-        co = conic_opacity[gid]
-        dx = xy[gid, 0] - pix_x
-        dy = xy[gid, 1] - pix_y
-        a, b, cc, o = co.unbind(-1)
-        dpower = -a0 * galpha
-        vals = torch.stack([
-            dpower * (a * dx + b * dy),
-            dpower * (cc * dy + b * dx),
-            dpower * 0.5 * dx * dx,
-            dpower * dx * dy,
-            dpower * 0.5 * dy * dy,
-            galpha * a0 / torch.clamp(o, min=1e-12),
-            w * g[0],
-            w * g[1],
-            w * g[2],
-        ], dim=-1)  # [T, 256, 9]
-        route(commit, src, vals)
+        vals = _commit_terms(a0, galpha, w, g, conic_opacity[gid],
+                             xy[gid, 0] - pix_x, xy[gid, 1] - pix_y)
+        _route(acc, commit, src, vals)
         T = torch.where(commit, U, T)
         nc = nc + commit.to(torch.int32)
         done = done | (nc == target)
@@ -492,12 +516,7 @@ def blend_kbuffer_backward_plain(point_list, starts, ends, xy, conic_opacity,
     for _ in range(k):
         win, fill, T, acc_g, nc, done = pop(win, fill, T, acc_g, nc, done,
                                            (fill > 0) & ~done)
-    total = acc[:, 0]
-    for w in range(1, WARPS):
-        total = total + acc[:, w]                          # [T, L, 9]
-    s = torch.arange(total.shape[1], device=dev)[None, :]
-    mine = s < counts[:, None]
-    d_pair[(starts.to(torch.int64)[:, None] + s)[mine]] = total[mine]
+    _pair_sums(acc, starts, counts, d_pair)
     if count_evaluations:
         return d_pair, n
     return d_pair

@@ -2,7 +2,7 @@
 
 Port of ``stopthepop_tpu/render/pipeline.py::render_tiled`` (GLOBAL sort mode),
 ``render_tiled_kbuffer`` (PER_PIXEL_KBUFFER, 16x16 binning) and
-``render_tiled_hier`` (HIERARCHICAL, 16x16 binning, forward only), the analog
+``render_tiled_hier`` (HIERARCHICAL, 16x16 binning), the analog
 of Rasterizer::forward, rasterizer_impl.cu:221-413:
 
   stage          reference                         here
@@ -19,10 +19,11 @@ of Rasterizer::forward, rasterizer_impl.cu:221-413:
                                                    per-Gaussian segmented sum
                                                    (kernels/blend_vjp)
                  renderkBufferBackwardCUDA         kernel K4 + the same sum
+                 hierarchical renderer backward    kernel K6 + the same sum
 
 With any per-Gaussian row requiring grad (and grad mode on) the blend goes
-through ``BlendGlobal`` / ``BlendKBuffer``; otherwise K1 / K3 is called
-directly. HIER has no backward yet (kernel K6): with grad it raises.
+through ``BlendGlobal`` / ``BlendKBuffer`` / ``BlendHier``; otherwise K1 /
+K3 / K5 is called directly.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from ..config import GlobalSortOrder
 from ..constants import TILE_X, TILE_Y
-from ..kernels.blend_vjp import BlendGlobal, BlendKBuffer
+from ..kernels.blend_vjp import BlendGlobal, BlendHier, BlendKBuffer
 from ..kernels.global_blend import blend_global_forward
 from ..kernels.hier_blend import blend_hier_forward
 from ..kernels.kbuffer_blend import blend_kbuffer_forward
@@ -145,35 +146,37 @@ def render_tiled_hier(
     tile_based_culling: bool = False,
     hier_4x4_culling: bool = False,
 ):
-    """HIERARCHICAL tiled render (16x16 binning tiles), forward only: every
-    tile's stream cascades through the tail (4x4 sub-tile), mid (2x2 quad)
-    and head (pixel) windows of ``queue_sizes`` = (tile_4x4, tile_2x2,
-    per_pixel) entries, and a head pop blends (kernel K5).
+    """HIERARCHICAL tiled render (16x16 binning tiles): every tile's stream
+    cascades through the tail (4x4 sub-tile), mid (2x2 quad) and head (pixel)
+    windows of ``queue_sizes`` = (tile_4x4, tile_2x2, per_pixel) entries, and
+    a head pop blends (kernel K5; its backward K6).
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits with
     alpha > 0), pairs, depth_acc [H, W]), as the JAX package's
-    ``render_tiled_hier`` does. Raises NotImplementedError where a
-    per-Gaussian row requires grad: the HIER backward (kernel K6) is not
-    ported.
+    ``render_tiled_hier`` does.
     """
-    rows = _rows(prep)
-    if _needs_grad(rows + (prep.cov3d_inv9,)):
-        raise NotImplementedError(
-            "HIER gradients are not ported yet: kernel K6 "
-            "(blend_hier_backward), ROADMAP.md Queue 1 item 9. Render HIER "
-            "under torch.no_grad() or train in GLOBAL or PPX_KBUFFER.")
     grid_x, grid_y = tile_grid(image_width, image_height)
     pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
                         sort_order=sort_order,
                         tile_based_culling=tile_based_culling, campos=campos,
                         inverse_vp=inverse_vp, image_width=image_width,
                         image_height=image_height)
-    color, final_t, n_contrib, depth_acc = blend_hier_forward(
-        pairs.gauss_id, pairs.starts, pairs.ends, *rows,
-        prep.cov3d_inv9.contiguous(),
-        prep.opacity_power_threshold.contiguous(), inverse_vp.contiguous(),
-        campos.contiguous(), queue_sizes=tuple(queue_sizes),
-        hier_4x4_culling=hier_4x4_culling, grid_x=grid_x, grid_y=grid_y,
-        width=image_width, height=image_height)
+    rows = _rows(prep)
+    # The depths, the culling thresholds and the camera only choose the
+    # cascade's order and validity: no gradient flows into them.
+    cam = (prep.cov3d_inv9.detach().contiguous(),
+           prep.opacity_power_threshold.detach().contiguous(),
+           inverse_vp.detach().contiguous(), campos.detach().contiguous())
+    queues = tuple(queue_sizes)
+    if _needs_grad(rows):
+        color, final_t, n_contrib, depth_acc = BlendHier.apply(
+            *rows, *cam, pairs, queues, hier_4x4_culling, grid_x, grid_y,
+            image_width, image_height)
+    else:
+        color, final_t, n_contrib, depth_acc = blend_hier_forward(
+            pairs.gauss_id, pairs.starts, pairs.ends, *rows, *cam,
+            queue_sizes=queues, hier_4x4_culling=hier_4x4_culling,
+            grid_x=grid_x, grid_y=grid_y, width=image_width,
+            height=image_height)
     color = color + final_t[None, :, :] * bg[:, None, None]
     return color, final_t, n_contrib, pairs, depth_acc

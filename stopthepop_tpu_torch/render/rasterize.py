@@ -1,9 +1,8 @@
 """Public rasterization API (torch).
 
-Port of ``stopthepop_tpu/render/rasterize.py`` for the GLOBAL and
-PER_PIXEL_KBUFFER sort modes, under every stream order, and the
-HIERARCHICAL mode forward (its backward, kernel K6, is not ported: HIER with
-gradients raises NotImplementedError). It mirrors the
+Port of ``stopthepop_tpu/render/rasterize.py`` for the GLOBAL,
+PER_PIXEL_KBUFFER and HIERARCHICAL sort modes, under every stream order,
+forward and backward. It mirrors the
 reference's Python surface (diff_gaussian_rasterization/__init__.py:32-53,
 265-314): ``rasterize_gaussians(...)`` and
 ``GaussianRasterizer`` with the same argument names and validation messages,
@@ -12,7 +11,7 @@ returning ``(color [3, H, W], radii [P])``. The render runs on the device of
 
 Gradients flow by autograd to all 8 reference inputs (means3D, means2D, sh,
 colors_precomp, opacities, scales, rotations, cov3Ds_precomp); the blend's
-backward is kernel K2 or K4 (kernels/blend_vjp.py). ``means2D`` is the
+backward is kernel K2, K4 or K6 (kernels/blend_vjp.py). ``means2D`` is the
 densification dummy: its value does not change the render, and its gradient
 is the pixel-space mean gradient scaled by (0.5 W, 0.5 H), as in the JAX
 package. There is no pair capacity: the pair count is read back once per

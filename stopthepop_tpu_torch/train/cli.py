@@ -6,17 +6,17 @@ Usage:
 
 Port of ``stopthepop_tpu/train/cli.py``: dataset loading, the
 densify / prune / opacity-reset schedule, per-group learning rates, periodic
-PSNR evaluation, checkpointing and PLY export, through the port's GLOBAL
-pipeline (kernels K1 and K2 on the GPU; ``--device cpu`` runs their plain
-versions) or, with ``--sort-mode PPX_KBUFFER``, the k-buffer pipeline
+PSNR evaluation, checkpointing and PLY export, through the port's
+HIERARCHICAL pipeline by default, as the JAX CLI (kernels K5 and K6 on the
+GPU, queues ``SortQueueSizes`` (64, 8, 4); ``--device cpu`` runs their plain
+versions), or with ``--sort-mode GLOBAL`` the global-sort pipeline (kernels
+K1 and K2) or with ``--sort-mode PPX_KBUFFER`` the k-buffer pipeline
 (kernels K3 and K4, window ``SortQueueSizes.per_pixel`` = 4). Rasterization
 uses rect, tight-opacity and tile-based culling, as the JAX CLI does. The JAX
 CLI's TPU flags (pair capacity, segment cap, binning tile, bf16 carriers,
 rank key, interpret mode) have no counterpart: the pair count is dynamic
 here. COLMAP captures and the PPX_FULL sort mode are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP.md item; so does
-``--sort-mode HIER``, before any data is loaded: the HIER mode renders
-(kernel K5) but its backward, kernel K6, is not ported.
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -128,12 +128,10 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--sh-degree", type=int, default=3)
     ap.add_argument("--downscale", type=int, default=1)
     ap.add_argument("--white-bg", action="store_true")
-    ap.add_argument("--sort-mode", default="GLOBAL",
+    ap.add_argument("--sort-mode", default="HIER",
                     choices=[m.name for m in SortMode],
-                    help="GLOBAL (default here: the JAX CLI defaults to "
-                         "HIER, whose backward, kernel K6, is not ported "
-                         "yet, ROADMAP.md Queue 1 item 9; HIER renders "
-                         "through render/cli.py but does not train)")
+                    help="HIER (default, as the JAX CLI), GLOBAL or "
+                         "PPX_KBUFFER (PPX_FULL is not ported yet)")
     ap.add_argument("--scene-extent", type=float, default=1.3,
                     help="NeRF-synthetic cameras orbit radius ~4, object ~1.3")
     ap.add_argument("--sh-ramp-every", type=int, default=1000,
@@ -158,12 +156,6 @@ def main(argv=None) -> TrainResult:
 
     device = resolve_device(args.device)
     sort_mode = check_sort_mode(SortMode[args.sort_mode])
-    if sort_mode == SortMode.HIER:
-        raise NotImplementedError(
-            "training in HIER needs its backward, kernel K6 "
-            "(blend_hier_backward), which is not ported yet: ROADMAP.md "
-            "Queue 1 item 9. HIER renders (render/cli.py --sort-mode HIER); "
-            "train in GLOBAL or PPX_KBUFFER.")
     if is_colmap_scene(args.data):
         raise NotImplementedError(
             "COLMAP datasets are not ported yet (io/colmap.py comes with "

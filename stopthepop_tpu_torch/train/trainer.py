@@ -142,8 +142,8 @@ def init_train_state(model: GaussianModel, optimizer) -> TrainState:
 def step_forward(state: TrainState, cam: CameraArrays, target, *,
                  static: GaussianRasterizationSettings,
                  lambda_dssim: float = 0.2, sh_ramp_every: int = 0):
-    """The step's forward stage: render (kernel K1, or K3 in PPX_KBUFFER)
-    and L1 + D-SSIM.
+    """The step's forward stage: render (kernel K1, K3 in PPX_KBUFFER, K5 in
+    HIER) and L1 + D-SSIM.
 
     Returns (loss, RenderOutput, means2d_dummy): the dummy is the leaf whose
     gradient the densification statistics read."""
@@ -172,7 +172,7 @@ def step_forward(state: TrainState, cam: CameraArrays, target, *,
 
 def step_backward(state: TrainState, loss) -> None:
     """The step's backward stage: fresh gradients of every parameter (the
-    blend's through kernel K2, or K4 in PPX_KBUFFER)."""
+    blend's through kernel K2, K4 in PPX_KBUFFER, K6 in HIER)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
 

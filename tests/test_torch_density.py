@@ -13,9 +13,9 @@
 - the point-cloud init (``from_points``, its Morton-window kNN scales)
   against the JAX package's, and the PNG reader (every row filter) and
   ``to_float_rgb`` against the JAX package's pure-Python path;
-- the training CLI for 30 iterations on a tiny synthetic dataset, with
-  densification and an opacity reset firing; its PLY loads in the JAX
-  package.
+- the training CLI for 30 iterations in GLOBAL on a tiny synthetic
+  dataset, with densification and an opacity reset firing; its PLY loads in
+  the JAX package; two iterations at its default, HIER.
 """
 
 import math
@@ -237,7 +237,7 @@ def test_train_cli_densifies_and_writes_a_ply_jax_loads(tmp_path):
                     "--eval-every", "10", "--sh-ramp-every", "10",
                     "--checkpoint-dir", str(tmp_path / "ckpt"),
                     "--checkpoint-every", "15", "--out", str(out),
-                    "--device", "cpu"])
+                    "--sort-mode", "GLOBAL", "--device", "cpu"])
     assert sorted(res.eval_psnr) == [10, 20, 30]
     assert all(np.isfinite(v) for v in res.eval_psnr.values())
     assert res.eval_psnr[30] > res.eval_psnr[10]
@@ -252,9 +252,12 @@ def test_train_cli_densifies_and_writes_a_ply_jax_loads(tmp_path):
 
 def test_train_cli_raises_for_unported_paths(tmp_path):
     _write_dataset(tmp_path, views=1, size=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["--data", str(tmp_path), "--sort-mode", "HIER",
-                  "--device", "cpu"])
+    # HIER trains now (kernels K5 and K6), and is the CLI's default.
+    res = cli.main(["--data", str(tmp_path), "--iters", "2",
+                    "--init-points", "60", "--eval-every", "2",
+                    "--densify-from", "100", "--device", "cpu"])
+    assert res.state.step == 2 and np.isfinite(res.eval_psnr[2])
+    assert res.state.model.means3d.grad.abs().max() > 0
     (tmp_path / "sparse").mkdir()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(["--data", str(tmp_path), "--device", "cpu"])

@@ -49,6 +49,7 @@ from stopthepop_tpu_torch.render import cli as render_cli
 from stopthepop_tpu_torch.render.pipeline import render_tiled_hier, tile_grid
 from stopthepop_tpu_torch.render.preprocess import preprocess
 from stopthepop_tpu_torch.train import cli as train_cli
+from stopthepop_tpu_torch.utils.synthetic import structured_scene, write_nerf_synthetic
 from stopthepop_tpu_torch.utils.testing import Scene, make_camera, random_scene
 
 BG = np.array([0.15, 0.05, 0.3], np.float32)
@@ -434,18 +435,26 @@ def test_hier_needs_the_inverse_view_projection():
 
 
 def test_hier_gradients_raise_naming_k6(tmp_path):
+    # HIER's backward (kernel K6) is ported: the API gives finite, non-zero
+    # gradients and the training CLI trains in HIER (tests of their values:
+    # tests/test_torch_hier_bwd.py, tests/test_torch_hier_train.py).
     cam = make_camera(32, 32, device="cpu")
     scene = random_scene(0, 20, device="cpu")
     opac = scene.opacities.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="kernel K6.*item 9"):
-        stt.GaussianRasterizer(_hier_settings(cam))(
-            scene.means3d, None, opac, colors_precomp=scene.colors,
-            scales=scene.scales, rotations=scene.rotations)
-    # The training CLI refuses HIER before it reads any data: the data
-    # directory does not exist.
-    with pytest.raises(NotImplementedError, match="kernel K6.*item 9"):
-        train_cli.main(["--data", str(tmp_path / "missing"), "--iters", "1",
-                        "--sort-mode", "HIER", "--device", "cpu"])
+    color, _ = stt.GaussianRasterizer(_hier_settings(cam))(
+        scene.means3d, None, opac, colors_precomp=scene.colors,
+        scales=scene.scales, rotations=scene.rotations)
+    color.sum().backward()
+    assert torch.isfinite(opac.grad).all() and (opac.grad != 0).any()
+    gt, _ = structured_scene(400, 0, device="cpu")
+    write_nerf_synthetic(str(tmp_path), gt, views=1, size=16, device="cpu")
+    res = train_cli.main(["--data", str(tmp_path), "--iters", "1",
+                          "--init-points", "60", "--eval-every", "1",
+                          "--densify-from", "100", "--sort-mode", "HIER",
+                          "--device", "cpu"])
+    assert res.state.step == 1 and math.isfinite(res.eval_psnr[1])
+    grad = res.state.model.opacity_logit.grad
+    assert torch.isfinite(grad).all() and (grad != 0).any()
 
 
 def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices():

@@ -283,10 +283,11 @@ def test_forward_only_slice_raises_not_implemented():
                                                  scene.opacities, **kw)
         assert torch.isfinite(color).all()
         assert (color != torch.as_tensor(BG)[:, None, None]).any()
-    # HIER's backward (kernel K6) is not: with gradients it raises.
+    # So is HIER's backward (kernel K6): with gradients it returns them.
     means = scene.means3d.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K6.*item 9"):
-        stt.GaussianRasterizer(hier)(means, None, scene.opacities, **kw)
+    color, _ = stt.GaussianRasterizer(hier)(means, None, scene.opacities, **kw)
+    color.sum().backward()
+    assert torch.isfinite(means.grad).all() and (means.grad != 0).any()
 
     cases = [settings_with(sort_mode=stt.SortMode.PPX_FULL)]
     cases += [rs._replace(render_depth=True), rs._replace(debug=True)]
