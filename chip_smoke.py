@@ -76,11 +76,31 @@ Phases, one JSON line each; any failure exits non-zero:
  14. train_hier: 5 training steps at 1080p/500K in HIER (64, 8, 4); loss
      finite and falling, every gradient finite and nonzero somewhere, K5 and
      K6 once a step, K1-K4 not at all; step time and a per-stage breakdown.
- 15. the kernels line: each ported kernel with its launches on its main
+ 15. kernel_full: hold kernel K7 (PER_PIXEL_FULL, the exact per-pixel sort,
+     forward only) against its plain version — phase 7's two 70x45 scenes
+     and the clone trap scene (32x32: bit-identical clones, pixels with
+     more than three windows of actives), then the 1080p/500K bench frame
+     (color / final_T within atol 1e-5, n_contrib exactly, depth_acc
+     within 1e-5 relative) — and time both; K7's bound from the plain
+     version's counts, its rounds per tile and its registers. Also the
+     API's full_mode="auto" rule on the card: a 70x45 scene through
+     GaussianRasterizer takes K7 under no_grad and the dense oracle when
+     asked for gradients, and the two agree.
+ 16. main_full: render 4 orbit frames of the 500K model at 1920x1080 through
+     render/cli.py::render_frames in PPX_FULL (the API's auto rule takes K7
+     at this size); every frame finite and not background, K7 launched
+     exactly once a frame and K1-K6 never. Then a per-stage breakdown of
+     one frame.
+ 17. quality: frame 0 of the orbit in the 8 cases of benchmarks/quality.py
+     (GLOBAL Z_DEPTH, PTD_CENTER, PTD_MAX; KBUFFER k = 4, 16; PTD_MAX +
+     KBUFFER k = 4; HIER 64/8/4 and 16/8/4 with PTD_MAX), each against the
+     K7 FULL render of the same frame: PSNR, mean and max absolute
+     difference of the images clipped to [0, 1]; one line a case.
+ 18. the kernels line: each ported kernel with its launches on its main
      path (the training steps of phase 5 for K1/K2, of phase 10 for K3/K4
-     and of phase 14 for K6, the HIER frames of phase 12 for K5), its error
-     against the plain version, its time, the plain version's time and its
-     bound on this card.
+     and of phase 14 for K6, the HIER frames of phase 12 for K5, the FULL
+     frames of phase 16 for K7), its error against the plain version, its
+     time, the plain version's time and its bound on this card.
 The line before the last is the card's name and power limit from nvidia-smi;
 the last line is {"ok": true, "device": {...}}.
 
@@ -152,6 +172,11 @@ HIER_SMALL_CASES = (((64, 8, 4), False), ((16, 8, 4), False),
 # K6 also at (32, 12, 8): with the cases above, three of its nine
 # instantiations (MID_MAX, HEAD_MAX) = (8, 4), (12, 8), (20, 16) launch.
 HIER_BWD_EXTRA_CASES = (((32, 12, 8), False),)
+# K7, as K3 per evaluation and ray depth; per pair of actives compared by
+# the sort, log2(n!) for a pixel's n actives (the fewest compares that sort
+# them), one operation; per sorted entry the blend reads, the running sum's
+# add; per commit as K3 (10). log1pf and expf are not counted.
+OPS_PER_SORT_COMPARE, OPS_PER_BLENDED = 1, 1
 TRAIN_STEPS = 5
 # The training CLI's run: a NeRF-synthetic dataset of CLI_VIEWS renders of
 # a CLI_SCENE-Gaussian procedural scene at CLI_SIZE x CLI_SIZE.
@@ -446,6 +471,89 @@ def compare_hier_bwd(name, args, kw, cotangents, *, count_evaluations=False):
             "hier_4x4_culling": kw["hier_4x4_culling"], **stats}, bwd_args
 
 
+def compare_full(name, args, kw, *, count_evaluations=False):
+    """K7 against its plain version; returns stats."""
+    from stopthepop_tpu_torch.kernels import full_blend as fb
+
+    return compare_resort(
+        "kernel_full", name, fb.blend_full_forward,
+        fb.blend_full_forward_plain, args, kw,
+        count_evaluations=count_evaluations)[0]
+
+
+def full_auto_rule(scene, cam, dev):
+    """PER_PIXEL_FULL through ``GaussianRasterizer`` with full_mode="auto"
+    on a small scene on the card: under no_grad it launches K7 once; asked
+    for gradients it takes the dense oracle (no K7 launch), whose image and
+    final_T equal K7's within ATOL (n_contrib on under 2% of the pixels,
+    tests/test_torch_full.py's allowance) and whose gradients are finite.
+    Returns stats."""
+    from stopthepop_tpu_torch.config import (
+        ExtendedSettings,
+        GaussianRasterizationSettings,
+        SortMode,
+    )
+    from stopthepop_tpu_torch.kernels import full_blend as fb
+    from stopthepop_tpu_torch.render.rasterize import GaussianRasterizer
+
+    ext = ExtendedSettings()
+    ext.sort_settings.sort_mode = SortMode.PPX_FULL
+    raster = GaussianRasterizer(GaussianRasterizationSettings(
+        image_height=cam.height, image_width=cam.width, tanfovx=cam.tanfovx,
+        tanfovy=cam.tanfovy, bg=torch.zeros(3, device=dev),
+        scale_modifier=1.0, viewmatrix=cam.viewmatrix,
+        projmatrix=cam.projmatrix, inv_viewprojmatrix=cam.inv_viewprojmatrix,
+        sh_degree=3, campos=cam.campos, prefiltered=False, settings=ext),
+        full_output=True)
+
+    def render(means):
+        return raster(means, None, scene["opacities"], shs=scene["shs"],
+                      scales=scene["scales"], rotations=scene["rotations"])
+
+    before = fb.blend_full_forward.launches
+    with torch.no_grad():
+        k7 = render(scene["means3d"])
+    k7_launches = fb.blend_full_forward.launches - before
+    means = scene["means3d"].clone().requires_grad_(True)
+    dense = render(means)
+    dense_launches = fb.blend_full_forward.launches - before - k7_launches
+    dense.color.sum().backward()
+    stats = {"k7_launches_no_grad": k7_launches,
+             "k7_launches_with_grad": dense_launches,
+             "max_abs_err_color": float((dense.color.detach() - k7.color).abs().max()),
+             "max_abs_err_final_t": float((dense.final_t.detach() - k7.final_t).abs().max()),
+             "n_contrib_mismatch": float((dense.n_contrib != k7.n_contrib).float().mean()),
+             "grad_finite": bool(torch.isfinite(means.grad).all()),
+             "grad_nonzero": bool((means.grad != 0).any())}
+    check(k7_launches == 1 and dense_launches == 0, "kernel_full",
+          f"auto rule: K7 launches {k7_launches} without and {dense_launches} "
+          "with gradients (want 1 and 0)")
+    check(stats["max_abs_err_color"] <= ATOL and stats["max_abs_err_final_t"] <= ATOL
+          and stats["n_contrib_mismatch"] < 0.02, "kernel_full",
+          f"auto rule: the dense oracle and K7 differ: {stats}")
+    check(stats["grad_finite"] and stats["grad_nonzero"], "kernel_full",
+          "auto rule: the dense oracle's gradients are not finite or all zero")
+    return stats
+
+
+def full_ops(n):
+    """Operations of the PER_PIXEL_FULL function from the plain version's
+    counts ``n``."""
+    return (OPS_PER_EVAL * n["evaluations"] + OPS_PER_DEPTH * n["depths"]
+            + OPS_PER_SORT_COMPARE * n["sort_compares"]
+            + OPS_PER_BLENDED * n["blended"] + OPS_PER_COMMIT * n["commits"])
+
+
+def psnr_stats(img, ref):
+    """PSNR (dB), mean and max absolute difference of two images clipped to
+    [0, 1]."""
+    a, b = img.clamp(0.0, 1.0), ref.clamp(0.0, 1.0)
+    diff = (a - b).abs()
+    mse = float((diff * diff).mean())
+    return {"psnr_vs_full": 10.0 * math.log10(1.0 / max(mse, 1e-12)),
+            "mean_abs": float(diff.mean()), "max_abs": float(diff.max())}
+
+
 def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev):
     """One serving path: a warm-up frame, then the orbit ``cams`` through
     render/cli.py::render_frames with every launch count set to 0 just
@@ -632,14 +740,20 @@ def profile_steps(step, n: int, unprofiled_ms: float):
 
 
 def _wrappers():
-    from stopthepop_tpu_torch.kernels import global_blend, hier_blend, kbuffer_blend
+    from stopthepop_tpu_torch.kernels import (
+        full_blend,
+        global_blend,
+        hier_blend,
+        kbuffer_blend,
+    )
 
     return {"k1": global_blend.blend_global_forward,
             "k2": global_blend.blend_global_backward,
             "k3": kbuffer_blend.blend_kbuffer_forward,
             "k4": kbuffer_blend.blend_kbuffer_backward,
             "k5": hier_blend.blend_hier_forward,
-            "k6": hier_blend.blend_hier_backward}
+            "k6": hier_blend.blend_hier_backward,
+            "k7": full_blend.blend_full_forward}
 
 
 def reset_launches():
@@ -648,7 +762,7 @@ def reset_launches():
 
 
 def read_launches():
-    """{"k1": n, ..., "k5": n} kernel launches since the reset."""
+    """{"k1": n, ..., "k7": n} kernel launches since the reset."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
@@ -1129,7 +1243,109 @@ def main(argv=None) -> int:
               "card": card})
     del one_hier_step, model
 
-    # 15. kernels -----------------------------------------------------------------
+    # 15. kernel_full: K7 against its plain version ------------------------------
+    from stopthepop_tpu_torch.kernels import full_blend as fb
+    from stopthepop_tpu_torch.utils.testing import clone_trap_scene
+
+    trap = clone_trap_scene(dev)
+    trap_cam = make_camera(32, 32, device=dev)
+    full_cases = small_scenes + (
+        ("32x32 clone trap scene", {
+            "means3d": trap.means3d, "opacities": trap.opacities,
+            "scales": trap.scales, "rotations": trap.rotations,
+            "shs": trap.shs}),)
+    full_small_stats = []
+    with torch.no_grad():
+        for case, scene_arrays in full_cases:
+            ccam, size = ((trap_cam, (32, 32)) if "trap" in case
+                          else (small_cam, (70, 45)))
+            prep, pairs, skw = prepare(scene_arrays, ccam, *size)
+            st = compare_full(case, kb_args(prep, pairs, ccam), skw,
+                              count_evaluations=True)
+            full_small_stats.append(st)
+            emit({"phase": "kernel_full", "ok": True, "case": case,
+                  "pairs": pairs.num_rendered, **st})
+    check(full_small_stats[-1]["max_commits"] > 3 * fb.WINDOW, "kernel_full",
+          "the trap scene has no pixel with more than three windows")
+    emit({"phase": "kernel_full", "ok": True,
+          "case": "auto rule through GaussianRasterizer, " + small_scenes[0][0],
+          **full_auto_rule(small_scenes[0][1], small_cam, dev)})
+    model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3, device=dev)
+    with torch.no_grad():
+        model.scales_log -= 2.3
+    with torch.inference_mode():
+        prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
+        full_bench_args = kb_args(prep, pairs, bench_cam)
+        full_bench = compare_full("1080p", full_bench_args, kw,
+                                  count_evaluations=True)
+        k7_ms = cuda_ms(lambda: fb.blend_full_forward(*full_bench_args, **kw),
+                        20)
+        k7_plain_ms = cuda_ms(lambda: fb.blend_full_forward_plain(
+            *full_bench_args, **kw), 1, 0)
+    N = pairs.num_rendered
+    k7_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3 + 9) + 19 + WIDTH * HEIGHT * 6)
+    k7_ops = full_ops(full_bench)
+    k7_bytes_ms, k7_ops_ms = bound_ms(k7_bytes, k7_ops)
+    emit({"phase": "kernel_full", "ok": True,
+          "case": "1920x1080, 500K Gaussians, bench camera", "pairs": N,
+          **full_bench, "window": fb.WINDOW, "k7_ms": k7_ms,
+          "plain_ms": k7_plain_ms,
+          "bytes": k7_bytes, "ops": k7_ops, "bytes_bound_ms": k7_bytes_ms,
+          "ops_bound_ms": k7_ops_ms,
+          "ptxas": ptxas_summary(build.build_log.get(fb.KERNEL, {}).get("ptxas", "")),
+          "card": card})
+    del prep, pairs, full_bench_args
+
+    # 16. main_full: the serving path in PPX_FULL --------------------------------
+    full_settings = ExtendedSettings()
+    full_settings.sort_settings.sort_mode = SortMode.PPX_FULL
+    full_settings.culling_settings.rect_bounding = True
+    full_settings.culling_settings.tight_opacity_bounding = True
+    fields, serve_full = serve_phase(
+        "main_full", model, cams, full_settings, "k7", kb_args,
+        functools.partial(fb.blend_full_forward, **kw), dev)
+    emit({"phase": "main_full", "ok": True, "window": fb.WINDOW, **fields,
+          "card": card})
+
+    # 17. quality: the sort modes against the FULL render ------------------------
+    from stopthepop_tpu_torch.config import GlobalSortOrder
+    from stopthepop_tpu_torch.render.cli import render_frames
+
+    def quality_settings(mode, order, k=None, hq=None):
+        s = ExtendedSettings()
+        s.sort_settings.sort_mode = mode
+        s.sort_settings.sort_order = order
+        s.culling_settings.rect_bounding = True
+        s.culling_settings.tight_opacity_bounding = True
+        q = s.sort_settings.queue_sizes
+        if k is not None:
+            q.per_pixel = k
+        if hq is not None:
+            q.tile_4x4, q.tile_2x2, q.per_pixel = hq
+        return s
+
+    full_img = render_frames(model, cams[:1], full_settings, dev)[0].color
+    G = GlobalSortOrder
+    quality_cases = (
+        ("GLOBAL Z_DEPTH", SortMode.GLOBAL, G.Z_DEPTH, {}),
+        ("GLOBAL PTD_CENTER", SortMode.GLOBAL, G.PTD_CENTER, {}),
+        ("GLOBAL PTD_MAX", SortMode.GLOBAL, G.PTD_MAX, {}),
+        ("KBUFFER k=4", SortMode.PPX_KBUFFER, G.Z_DEPTH, {"k": 4}),
+        ("KBUFFER k=16", SortMode.PPX_KBUFFER, G.Z_DEPTH, {"k": 16}),
+        ("PTD_MAX + KBUFFER k=4", SortMode.PPX_KBUFFER, G.PTD_MAX, {"k": 4}),
+        ("HIER 64/8/4", SortMode.HIER, G.PTD_MAX, {"hq": (64, 8, 4)}),
+        ("HIER 16/8/4", SortMode.HIER, G.PTD_MAX, {"hq": (16, 8, 4)}),
+    )
+    for case, mode, order, opts in quality_cases:
+        img = render_frames(model, cams[:1],
+                            quality_settings(mode, order, **opts), dev)[0].color
+        check(bool(torch.isfinite(img).all()), "quality", f"{case}: not finite")
+        emit({"phase": "quality", "ok": True, "case": case,
+              "frame": 0, "width": WIDTH, "height": HEIGHT,
+              **psnr_stats(img, full_img), "card": card})
+    del full_img, model
+
+    # 18. kernels -----------------------------------------------------------------
     emit({"kernels": [{
         "name": global_blend.KERNEL, "route": "cuda",
         "source": global_blend.SOURCE, "replaces": global_blend.REPLACES,
@@ -1188,6 +1404,15 @@ def main(argv=None) -> int:
         "ms": k6_ms, "plain_ms": k6_plain_ms,
         "bound_ms": max(k6_bytes_ms, k6_ops_ms),
         "bound_by": "bytes" if k6_bytes_ms >= k6_ops_ms else "operations",
+        "library_ms": None,
+    }, {
+        "name": fb.KERNEL, "route": "cuda", "source": fb.SOURCE,
+        "replaces": fb.REPLACES, "launches": serve_full["k7"],
+        "max_abs_err": max(max(st["max_abs_err_color"], st["max_abs_err_final_t"])
+                           for st in (full_bench, *full_small_stats)),
+        "ms": k7_ms, "plain_ms": k7_plain_ms,
+        "bound_ms": max(k7_bytes_ms, k7_ops_ms),
+        "bound_by": "bytes" if k7_bytes_ms >= k7_ops_ms else "operations",
         "library_ms": None,
     }]})
     print(card)

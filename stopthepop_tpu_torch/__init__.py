@@ -1,10 +1,14 @@
 """stopthepop_tpu_torch: the PyTorch/CUDA port of stopthepop_tpu.
 
 A second package beside the JAX one, held against it on the same inputs.
-It renders and trains in the GLOBAL and PER_PIXEL_KBUFFER sort modes (every
-stream order, rect / tight-opacity / tile-based culling, proper EWA
-scaling) with the blends in hand-written CUDA kernels for Hopper
-(``csrc/``: K1/K2 GLOBAL forward/backward, K3/K4 k-buffer forward/backward).
+It renders and trains in the GLOBAL, PER_PIXEL_KBUFFER and HIERARCHICAL sort
+modes and renders in PER_PIXEL_FULL (every stream order, rect /
+tight-opacity / tile-based culling, proper EWA scaling) with the blends in
+hand-written CUDA kernels for Hopper (``csrc/``: K1/K2 GLOBAL
+forward/backward, K3/K4 k-buffer forward/backward, K5/K6 hierarchical
+forward/backward, K7 the exact per-pixel sort, forward only; small
+PER_PIXEL_FULL scenes also through the dense differentiable oracle,
+``full_mode``).
 Entry points run on the GPU unless the caller passes ``device="cpu"``; on
 CPU tensors every kernel wrapper runs its plain PyTorch version.
 
@@ -23,6 +27,7 @@ from .config import (  # noqa: F401
 )
 from .ops.transforms import mark_visible  # noqa: F401
 from .render.rasterize import (  # noqa: F401
+    FULL_MODES,
     GaussianRasterizer,
     RenderOutput,
     rasterize_gaussians,

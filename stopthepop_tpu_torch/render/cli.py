@@ -3,9 +3,12 @@
 Port of ``stopthepop_tpu/render/cli.py``: load a trained 3DGS model, render
 an orbit (or a NeRF-synthetic dataset's cameras) in the GLOBAL sort mode
 (kernel K1), with ``--sort-mode PPX_KBUFFER`` the k-buffer mode (kernel K3,
-window 4) or with ``--sort-mode HIER`` the hierarchical mode (kernel K5,
-queues tile_4x4 64, tile_2x2 8, per_pixel 4), with rect and tight-opacity
-culling, and write PNG frames.
+window 4), with ``--sort-mode HIER`` the hierarchical mode (kernel K5,
+queues tile_4x4 64, tile_2x2 8, per_pixel 4) or with ``--sort-mode PPX_FULL``
+the exact per-pixel sort (the API's ``full_mode="auto"`` rule: kernel K7
+on the GPU; on the CPU the dense oracle of render/naive.py while
+P·W·H <= 2**26), with rect and
+tight-opacity culling, and write PNG frames.
 Renders run on the GPU under ``torch.inference_mode()``.
 
 Usage:
@@ -121,8 +124,8 @@ def main(argv=None):
                          "cameras instead of an orbit")
     ap.add_argument("--sort-mode", default="GLOBAL",
                     choices=[m.name for m in SortMode],
-                    help="GLOBAL, PPX_KBUFFER or HIER (default queues; "
-                         "PPX_FULL is not ported yet)")
+                    help="GLOBAL, PPX_KBUFFER, HIER (default queues) or "
+                         "PPX_FULL (exact per-pixel sort)")
     ap.add_argument("--sh-degree", type=int, default=None,
                     help="override (default: from the PLY)")
     ap.add_argument("--white-bg", action="store_true")

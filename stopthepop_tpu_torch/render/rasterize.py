@@ -1,8 +1,9 @@
 """Public rasterization API (torch).
 
-Port of ``stopthepop_tpu/render/rasterize.py`` for the GLOBAL,
-PER_PIXEL_KBUFFER and HIERARCHICAL sort modes, under every stream order,
-forward and backward. It mirrors the
+Port of ``stopthepop_tpu/render/rasterize.py`` for all four sort modes
+under every stream order: GLOBAL, PER_PIXEL_KBUFFER and HIERARCHICAL forward
+and backward, PER_PIXEL_FULL forward (kernel K7) and, on small scenes,
+differentiable through the dense oracle (``full_mode``). It mirrors the
 reference's Python surface (diff_gaussian_rasterization/__init__.py:32-53,
 265-314): ``rasterize_gaussians(...)`` and
 ``GaussianRasterizer`` with the same argument names and validation messages,
@@ -11,7 +12,9 @@ returning ``(color [3, H, W], radii [P])``. The render runs on the device of
 
 Gradients flow by autograd to all 8 reference inputs (means3D, means2D, sh,
 colors_precomp, opacities, scales, rotations, cov3Ds_precomp); the blend's
-backward is kernel K2, K4 or K6 (kernels/blend_vjp.py). ``means2D`` is the
+backward is kernel K2, K4 or K6 (kernels/blend_vjp.py), or autograd through
+the dense PER_PIXEL_FULL oracle (JAX's ``stop_gradient`` on the tiled FULL
+path gives zero gradients; here that path raises instead). ``means2D`` is the
 densification dummy: its value does not change the render, and its gradient
 is the pixel-space mean gradient scaled by (0.5 W, 0.5 H), as in the JAX
 package. There is no pair capacity: the pair count is read back once per
@@ -28,12 +31,39 @@ from ..config import GaussianRasterizationSettings, GlobalSortOrder, SortMode
 from ..kernels.hier_blend import check_hier_queues
 from ..kernels.kbuffer_blend import check_window
 from ..ops.transforms import mark_visible
-from .pipeline import render_tiled, render_tiled_hier, render_tiled_kbuffer
+from .naive import render_full_sort_naive
+from .pipeline import (
+    render_tiled,
+    render_tiled_full,
+    render_tiled_hier,
+    render_tiled_kbuffer,
+)
 from .preprocess import preprocess
 
-_MODE_ITEMS = {
-    SortMode.PPX_FULL: "10 (PER_PIXEL_FULL, kernel K7)",
-}
+FULL_MODES = ("auto", "naive", "tiled")
+# Off the GPU, or when gradients are asked for, PER_PIXEL_FULL with
+# full_mode="auto" takes the dense oracle while its [P, pixels] tables stay
+# at or below this many entries (the JAX package's rule,
+# render/rasterize.py:314-332), else kernel K7's path.
+FULL_NAIVE_MAX = 1 << 26
+
+
+def full_backend(full_mode: str, device, wants_grad: bool, num_points: int,
+                 width: int, height: int) -> str:
+    """PER_PIXEL_FULL's backend for ``full_mode``: "naive" (the dense
+    oracle) or "tiled" (kernel K7).
+
+    "auto" takes K7 on a CUDA device whenever no gradient is asked for: it
+    serves a frame of any size. Otherwise it keeps the JAX package's rule,
+    the dense oracle while P·W·H <= ``FULL_NAIVE_MAX``, which is also the
+    only backend that gives gradients.
+    """
+    if full_mode != "auto":
+        return full_mode
+    if torch.device(device).type == "cuda" and not wants_grad:
+        return "tiled"
+    return ("naive" if num_points * width * height <= FULL_NAIVE_MAX
+            else "tiled")
 
 
 class RenderOutput(NamedTuple):
@@ -42,28 +72,21 @@ class RenderOutput(NamedTuple):
     final_t: torch.Tensor    # [H, W]
     n_contrib: torch.Tensor  # [H, W] int32 (GLOBAL: position of the last
                              # blend; PPX_KBUFFER: number of commits; HIER:
-                             # number of head-pop commits with alpha > 0)
-    depth_acc: torch.Tensor  # [H, W] sum(depth * alpha * T) (PPX_KBUFFER and
-                             # HIER: the depth along the pixel's ray)
-    num_rendered: int        # (tile, Gaussian) pairs of this frame
-
-
-def check_sort_mode(sort_mode) -> SortMode:
-    """The sort mode, or NotImplementedError naming its ROADMAP.md item."""
-    mode = SortMode(sort_mode)
-    if mode in _MODE_ITEMS:
-        raise NotImplementedError(
-            f"sort mode {mode.name} is not ported yet: ROADMAP.md Queue 1 "
-            f"item {_MODE_ITEMS[mode]}."
-        )
-    return mode
+                             # number of head-pop commits with alpha > 0;
+                             # PPX_FULL: rank of the last committed entry in
+                             # the pixel's depth order, its number of commits)
+    depth_acc: torch.Tensor  # [H, W] sum(depth * alpha * T) (PPX_KBUFFER,
+                             # HIER and PPX_FULL: the depth along the
+                             # pixel's ray)
+    num_rendered: int        # (tile, Gaussian) pairs of this frame (the
+                             # dense PPX_FULL path: those its rects imply)
 
 
 def _check_supported(rs: GaussianRasterizationSettings):
     """(sort mode, stream order, queues) of the settings: the k-buffer
     window for PPX_KBUFFER, (tile_4x4, tile_2x2, per_pixel) for HIER."""
     ext = rs.settings
-    mode = check_sort_mode(ext.sort_settings.sort_mode)
+    mode = SortMode(ext.sort_settings.sort_mode)
     order = GlobalSortOrder(ext.sort_settings.sort_order)
     sizes = ext.sort_settings.queue_sizes
     queues = None
@@ -72,7 +95,7 @@ def _check_supported(rs: GaussianRasterizationSettings):
     elif mode == SortMode.HIER:
         queues = check_hier_queues(sizes.tile_4x4, sizes.tile_2x2,
                                    sizes.per_pixel)
-    per_ray = mode in (SortMode.PPX_KBUFFER, SortMode.HIER) or order in (
+    per_ray = mode != SortMode.GLOBAL or order in (
         GlobalSortOrder.PTD_CENTER, GlobalSortOrder.PTD_MAX)
     if per_ray and rs.inv_viewprojmatrix is None:
         raise ValueError(
@@ -99,8 +122,18 @@ def rasterize_gaussians(
     raster_settings: GaussianRasterizationSettings,
     *,
     full_output: bool = False,
+    full_mode: str = "auto",
 ):
-    """Render. Returns (color, radii) like the reference, or RenderOutput."""
+    """Render. Returns (color, radii) like the reference, or RenderOutput.
+
+    ``full_mode`` chooses PER_PIXEL_FULL's backend: "naive", the dense
+    differentiable oracle (render/naive.py); "tiled", kernel K7, forward
+    only like the reference (its FULL backward throws, backward.cu:733-736),
+    so asking it for gradients raises; "auto", see ``full_backend``: K7 on
+    the GPU when no gradient is asked for, else naive while P·W·H <= 2**26.
+    """
+    if full_mode not in FULL_MODES:
+        raise ValueError(f"full_mode must be one of {FULL_MODES}, got {full_mode!r}")
     rs = raster_settings
 
     def none_if_empty(x):
@@ -163,7 +196,29 @@ def rasterize_gaussians(
     kw = dict(image_width=W, image_height=H, sort_order=sort_order,
               tile_based_culling=ext.culling_settings.tile_based_culling,
               campos=campos, inverse_vp=inverse_vp)
-    if sort_mode == SortMode.PPX_KBUFFER:
+    num_rendered = None
+    if sort_mode == SortMode.PPX_FULL:
+        inputs = (means3D, means2D, sh, colors_precomp, opacities, scales,
+                  rotations, cov3Ds_precomp)
+        wants_grad = torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in inputs)
+        if full_backend(full_mode, dev, wants_grad, means3D.shape[0], W,
+                        H) == "naive":
+            color, final_t, n_contrib, depth_acc = render_full_sort_naive(
+                prep, bg, W, H, campos, inverse_vp)
+            final_t, n_contrib = final_t.reshape(H, W), n_contrib.reshape(H, W)
+            num_rendered = int(prep.tiles_touched.sum())
+        else:
+            if wants_grad:
+                raise RuntimeError(
+                    "PER_PIXEL_FULL through kernel K7 (full_mode='tiled', or "
+                    "'auto' above P*W*H = 2**26) renders forward only, as the "
+                    "reference's FULL mode (backward.cu:733-736 throws); for "
+                    "gradients pass full_mode='naive' (dense, small scenes) or "
+                    "render under torch.no_grad()")
+            color, final_t, n_contrib, pairs, depth_acc = render_tiled_full(
+                prep, bg, **kw)
+    elif sort_mode == SortMode.PPX_KBUFFER:
         color, final_t, n_contrib, pairs, depth_acc = render_tiled_kbuffer(
             prep, bg, k=queues, **kw)
     elif sort_mode == SortMode.HIER:
@@ -175,8 +230,9 @@ def rasterize_gaussians(
         color, final_t, n_contrib, pairs, depth_acc = render_tiled(
             prep, bg, **kw)
     if full_output:
-        return RenderOutput(color, prep.radii, final_t, n_contrib, depth_acc,
-                            pairs.num_rendered)
+        return RenderOutput(
+            color, prep.radii, final_t, n_contrib, depth_acc,
+            pairs.num_rendered if num_rendered is None else num_rendered)
     return color, prep.radii
 
 

@@ -15,8 +15,10 @@ K1 and K2) or with ``--sort-mode PPX_KBUFFER`` the k-buffer pipeline
 uses rect, tight-opacity and tile-based culling, as the JAX CLI does. The JAX
 CLI's TPU flags (pair capacity, segment cap, binning tile, bf16 carriers,
 rank key, interpret mode) have no counterpart: the pair count is dynamic
-here. COLMAP captures and the PPX_FULL sort mode are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+here. COLMAP captures are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP.md item. ``--sort-mode PPX_FULL`` is refused when the
+arguments are parsed: the exact-sort mode renders forward only, as the
+reference's (render it with render/cli.py).
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from ..io.cameras import load_nerf_synthetic, to_camera_arrays
 from ..io.images import read_png_batch, to_float_rgb
 from ..io.ply import save_gaussian_model
 from ..models.gaussians import from_points
-from ..render.rasterize import check_sort_mode
 from ..utils.device import resolve_device
 from .checkpoint import save_checkpoint
 from .density import DensifyConfig, densify_and_prune, reset_opacity
@@ -131,7 +132,7 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--sort-mode", default="HIER",
                     choices=[m.name for m in SortMode],
                     help="HIER (default, as the JAX CLI), GLOBAL or "
-                         "PPX_KBUFFER (PPX_FULL is not ported yet)")
+                         "PPX_KBUFFER (PPX_FULL renders forward only)")
     ap.add_argument("--scene-extent", type=float, default=1.3,
                     help="NeRF-synthetic cameras orbit radius ~4, object ~1.3")
     ap.add_argument("--sh-ramp-every", type=int, default=1000,
@@ -155,7 +156,13 @@ def main(argv=None) -> TrainResult:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    sort_mode = check_sort_mode(SortMode[args.sort_mode])
+    sort_mode = SortMode[args.sort_mode]
+    if sort_mode == SortMode.PPX_FULL:
+        raise ValueError(
+            "--sort-mode PPX_FULL cannot train: the exact per-pixel sort "
+            "renders forward only, as the reference's PER_PIXEL_FULL "
+            "(backward.cu:733-736 throws). Train in HIER, GLOBAL or "
+            "PPX_KBUFFER and render PPX_FULL with render/cli.py.")
     if is_colmap_scene(args.data):
         raise NotImplementedError(
             "COLMAP datasets are not ported yet (io/colmap.py comes with "

@@ -97,3 +97,36 @@ def random_scene(seed: int, num_gaussians: int, extent: float = 1.5,
         torch.as_tensor(np.asarray(x, np.float32), device=dev)
         for x in (means, scales, q, opac, shs, colors)
     ))
+
+
+def clone_trap_scene(device=None) -> Scene:
+    """A scene for the exact per-pixel sort's edge cases, drawn with numpy.
+
+    Framed by ``make_camera(32, 32)``. 20 faint (opacity 0.07), wide
+    Gaussians around the origin, each cloned 3 times bit for bit (as
+    densification's clone does, so their ray depths tie exactly): the
+    central pixels hold ~60 actives and do not saturate. 12 opaque (0.6)
+    Gaussians toward the lower right, each cloned twice: those pixels
+    saturate (T < 1e-4) before their actives run out.
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(1)
+
+    def group(n, copies, opacity, center, spread, scale):
+        means = center + rng.uniform(-spread, spread, (n, 3))
+        means[:, 2] = rng.uniform(-0.5, 0.5, n)
+        scales = scale * rng.uniform(0.8, 1.2, (n, 3))
+        q = rng.standard_normal((n, 4))
+        q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+        opac = np.full((n,), opacity)
+        shs = 0.5 * rng.standard_normal((n, 16, 3))
+        colors = rng.uniform(0.0, 1.0, (n, 3))
+        return [np.repeat(x, copies, axis=0)
+                for x in (means, scales, q, opac, shs, colors)]
+
+    faint = group(20, 3, 0.07, np.zeros(3), 0.3, 0.5)
+    opaque = group(12, 2, 0.6, np.array([0.8, 0.8, 0.0]), 0.2, 0.3)
+    return Scene(*(
+        torch.as_tensor(np.concatenate([a, b]).astype(np.float32), device=dev)
+        for a, b in zip(faint, opaque)
+    ))

@@ -153,6 +153,7 @@ def test_kernel_library_is_keyed_by_source_hash():
     path = build.library_path("global_blend_fwd")
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("global_blend_fwd-") and path.suffix == ".so"
-    assert build.all_sources() == ["global_blend_bwd", "global_blend_fwd",
+    assert build.all_sources() == ["full_blend_fwd", "global_blend_bwd",
+                                   "global_blend_fwd",
                                    "hier_blend_bwd", "hier_blend_fwd",
                                    "kbuffer_blend_bwd", "kbuffer_blend_fwd"]
