@@ -10,7 +10,9 @@ Run from the root of the repository on a machine with one NVIDIA H100:
                                      # train_hier_profile)
 
 Phases, one JSON line each; any failure exits non-zero:
-  1. build: compile every CUDA kernel of the port with nvcc (in parallel).
+  1. build: compile every CUDA kernel of the port with nvcc (in parallel);
+     registers and spills per instantiation (ptxas), and for K5 and K6 the
+     resident blocks per SM of each instantiation at tail sizes 64 and 512.
   2. kernel: hold kernel K1 (GLOBAL blend, forward) against its plain PyTorch
      version on the card — a 70x45 random scene and the full 1920x1080 frame
      of the 500K-Gaussian bench scene (color / final_T within atol 1e-5,
@@ -60,16 +62,17 @@ Phases, one JSON line each; any failure exits non-zero:
      plain version — phase 7's two 70x45 scenes with queues (tile_4x4,
      tile_2x2, per_pixel) = (64, 8, 4), (16, 8, 4), (8, 4, 2) and
      (256, 20, 16), and (16, 8, 4) with hierarchical 4x4 and tile-based
-     culling, then the 1080p/500K bench frame at (64, 8, 4) (color / final_T
-     within atol 1e-5, n_contrib exactly, depth_acc within 1e-5 relative) —
-     and time both.
+     culling, a 32x32 scene of 4 tiles whose segments hold >= 2,000 pairs
+     each at (64, 8, 4), then the 1080p/500K bench frame at (64, 8, 4)
+     (every output bitwise equal, n_contrib exactly) — and time both.
  12. main_hier: render 4 orbit frames of the 500K model at 1920x1080 through
      render/cli.py::render_frames in HIER (default queues 64, 8, 4); every
      frame finite and not background, K5 launched exactly once a frame and
      K1-K4 not at all. Then a per-stage breakdown of one frame.
  13. kernel_hier_bwd: hold kernel K6 (HIERARCHICAL backward) against its
      plain version — phase 11's two scenes and queue cases and (32, 12, 8),
-     so that three of K6's nine instantiations launch, and the 1080p/500K
+     so that three of K6's nine instantiations launch, phase 11's
+     deep-segment scene, and the 1080p/500K
      frame at (64, 8, 4) (each gradient column within 1e-4 of its largest
      value); two K6 launches and two full BlendHier backward passes bitwise
      equal; time K6 and its plain version.
@@ -172,6 +175,10 @@ HIER_SMALL_CASES = (((64, 8, 4), False), ((16, 8, 4), False),
 # K6 also at (32, 12, 8): with the cases above, three of its nine
 # instantiations (MID_MAX, HEAD_MAX) = (8, 4), (12, 8), (20, 16) launch.
 HIER_BWD_EXTRA_CASES = (((32, 12, 8), False),)
+# K5 and K6 on deep segments: random_scene(22, 4000, extent=0.5) at 32x32
+# (4 tiles), every tile's segment at least HIER_DEEP_MIN pairs, so that hold
+# entries stay through many tail batches; at HIER_QUEUES.
+HIER_DEEP_SIZE, HIER_DEEP_MIN = 32, 2000
 # K7, as K3 per evaluation and ray depth; per pair of actives compared by
 # the sort, log2(n!) for a pixel's n actives (the fewest compares that sort
 # them), one operation; per sorted entry the blend reads, the running sum's
@@ -445,13 +452,17 @@ def hier_args(prep, pairs, cam):
 
 
 def compare_hier(name, args, kw, *, count_evaluations=False):
-    """K5 against its plain version; returns stats."""
+    """K5 against its plain version, to the bit; returns stats."""
     from stopthepop_tpu_torch.kernels import hier_blend as hb
 
     stats, _ = compare_resort(
         "kernel_hier", name, hb.blend_hier_forward,
         hb.blend_hier_forward_plain, args, kw,
         count_evaluations=count_evaluations)
+    check(stats["max_abs_err_color"] == 0.0
+          and stats["max_abs_err_final_t"] == 0.0
+          and stats["max_rel_err_depth_acc"] == 0.0, "kernel_hier",
+          f"{name}: K5 is not bitwise equal to its plain version: {stats}")
     return {"queues": list(kw["queue_sizes"]),
             "hier_4x4_culling": kw["hier_4x4_culling"], **stats}
 
@@ -469,6 +480,24 @@ def compare_hier_bwd(name, args, kw, cotangents, *, count_evaluations=False):
         count_evaluations=count_evaluations)
     return {"queues": list(kw["queue_sizes"]),
             "hier_4x4_culling": kw["hier_4x4_culling"], **stats}, bwd_args
+
+
+def hier_deep_case(dev):
+    """The deep-segment case of K5 and K6: (case name, prepare() output,
+    camera); fails unless every segment holds HIER_DEEP_MIN pairs."""
+    from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+
+    scene = random_scene(22, 4000, extent=0.5, device=dev)
+    cam = make_camera(HIER_DEEP_SIZE, HIER_DEEP_SIZE, device=dev)
+    prep, pairs, kw = prepare(
+        {"means3d": scene.means3d, "opacities": scene.opacities,
+         "scales": scene.scales, "rotations": scene.rotations,
+         "shs": scene.shs}, cam, HIER_DEEP_SIZE, HIER_DEEP_SIZE)
+    segments = (pairs.ends - pairs.starts).tolist()
+    check(min(segments) >= HIER_DEEP_MIN, "kernel_hier",
+          f"the deep scene's segments are too short: {segments}")
+    return (f"{HIER_DEEP_SIZE}x{HIER_DEEP_SIZE} deep segments {segments}",
+            (prep, pairs, kw), cam)
 
 
 def compare_full(name, args, kw, *, count_evaluations=False):
@@ -766,6 +795,17 @@ def read_launches():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def hier_occupancy():
+    """Resident blocks per SM, registers, spill bytes and shared bytes of
+    every K5 and K6 instantiation at tail sizes 64 and 512, on this card."""
+    from stopthepop_tpu_torch.kernels import hier_blend as hb
+
+    return {kernel: {f"MID,HEAD={m},{h} kt={kt}": hb.occupancy(kernel, kt, m, h)
+                     for m in hb.MID_SIZES for h in hb.HEAD_SIZES
+                     for kt in (64, hb.TAIL_MAX)}
+            for kernel in (hb.KERNEL, hb.BWD_KERNEL)}
+
+
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers.*?(\d+) bytes smem")
@@ -824,7 +864,8 @@ def main(argv=None) -> int:
           "kernels": {
               n: {"seconds": log["seconds"], "ptxas": ptxas_summary(log["ptxas"])}
               for n, log in build.build_log.items()
-          }})
+          },
+          "hier_occupancy": hier_occupancy()})
 
     # 2. kernel against plain version -----------------------------------------
     scene = random_scene(0, 300, device=dev)
@@ -1144,6 +1185,13 @@ def main(argv=None) -> int:
                 emit({"phase": "kernel_hier", "ok": True, "case": case,
                       "pairs": pairs.num_rendered, "tile_based_culling": cull,
                       **st})
+        deep_case, (prep, pairs, dkw), deep_cam = hier_deep_case(dev)
+        st = compare_hier(deep_case, hier_args(prep, pairs, deep_cam),
+                          {**dkw, "queue_sizes": HIER_QUEUES,
+                           "hier_4x4_culling": False})
+        hier_small_stats.append(st)
+        emit({"phase": "kernel_hier", "ok": True, "case": deep_case,
+              "pairs": pairs.num_rendered, **st})
     model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3, device=dev)
     with torch.no_grad():
         model.scales_log -= 2.3
@@ -1205,6 +1253,14 @@ def main(argv=None) -> int:
                 emit({"phase": "kernel_hier_bwd", "ok": True, "case": case,
                       "pairs": pairs.num_rendered, "tile_based_culling": cull,
                       **st})
+        deep_case, (prep, pairs, dkw), deep_cam = hier_deep_case(dev)
+        st, _ = compare_hier_bwd(
+            deep_case, hier_args(prep, pairs, deep_cam),
+            {**dkw, "queue_sizes": HIER_QUEUES, "hier_4x4_culling": False},
+            cotangents(HIER_DEEP_SIZE, HIER_DEEP_SIZE))
+        hier_small_bwd.append(st)
+        emit({"phase": "kernel_hier_bwd", "ok": True, "case": deep_case,
+              "pairs": pairs.num_rendered, **st})
     cot = cotangents(WIDTH, HEIGHT)
     with torch.no_grad():
         prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)

@@ -3,11 +3,13 @@
 
 K5 replaces ``stopthepop_tpu/kernels/hier_blend.py::blend_hier_forward``
 (the Pallas ``_fwd_kernel``, per-entry cascade) and K6 its
-``blend_hier_backward``. Their shape is K1/K3's: one block of 256 threads
-per 16x16 tile, batches of the tile's (tile, depth)-sorted pairs staged in
-shared memory; K6 replays K5 and routes its gradients as K4 does. The source
-notes (``csrc/hier_blend_fwd.cu``, ``csrc/hier_blend_bwd.cu``) say what
-bounds them on an H100 and how their design keeps the cascade exact.
+``blend_hier_backward``. Both run one cascade (``csrc/hier_common.cuh``):
+one block of 256 threads per 16x16 tile, batches of the tile's (tile,
+depth)-sorted pairs staged in shared memory, each quad's mid keys computed
+once; K6 replays K5 and routes its gradients by groups of lanes that commit
+the same pair. The source notes (``csrc/hier_common.cuh``,
+``csrc/hier_blend_fwd.cu``, ``csrc/hier_blend_bwd.cu``) say what bounds
+them on an H100 and how their design keeps the cascade exact.
 
 Semantics (JAX ``render/naive.py::render_hierarchical_naive`` with
 ``batched_cascade=False``, the reference's hierarchical renderer,
@@ -93,12 +95,12 @@ from .global_blend import (
 )
 from .kbuffer_blend import (
     SCRATCH_FLOATS,
+    WARPS,
     _check_float_rows,
     _commit_terms,
     _cuda_prelude,
     _insert,
     _pair_sums,
-    _route,
     _shift_out,
     _warp_rows,
 )
@@ -138,25 +140,43 @@ def _instance(k: int, sizes) -> int:
     return next(m for m in sizes if m >= k)
 
 
-@functools.lru_cache(maxsize=None)
-def _bind():
-    lib = build.load(KERNEL)
-    fn = lib.stp_hier_blend_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5)
+def bind(lib, backward=False):
+    """K5's (or K6's) C entry point in a loaded library, typed."""
+    if backward:
+        fn = lib.stp_hier_blend_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 2
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+    else:
+        fn = lib.stp_hier_blend_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 2
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bind():
+    return bind(build.load(KERNEL))
 
 
 @functools.lru_cache(maxsize=None)
 def _bind_bwd():
-    lib = build.load(BWD_KERNEL)
-    fn = lib.stp_hier_blend_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(build.load(BWD_KERNEL), backward=True)
+
+
+def occupancy(kernel: str, kt: int, mid_max: int, head_max: int) -> dict:
+    """What instantiation (mid_max, head_max) of K5 (``KERNEL``) or K6
+    (``BWD_KERNEL``) reaches at tail size ``kt`` on the current device:
+    resident blocks per SM, registers and local (spill) bytes a thread,
+    shared bytes a block."""
+    fn = getattr(build.load(kernel), f"stp_{kernel}_occupancy")
+    out = (ctypes.c_int * 4)()
+    err = fn(kt, mid_max, head_max, out)
+    if err != 0:
+        raise RuntimeError(f"{kernel} occupancy query failed: cudaError_t {err}")
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "spill_bytes": out[2], "smem_bytes": out[3]}
 
 
 def _check_hier_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
@@ -243,6 +263,34 @@ def _gids(point_list, starts, src):
     segment (positions past the list are clamped: they are never read)."""
     idx = starts.to(torch.int64).reshape(-1, *([1] * (src.dim() - 1))) + src
     return point_list[idx.clamp(max=point_list.shape[0] - 1)].to(torch.int64)
+
+
+def _route_grouped(acc, commit, src, vals):
+    """One step of K6's grouped routing. The committing lanes of a warp
+    (``commit``, ``src`` [T, 256] and ``vals`` [T, 256, 9], pixels in thread
+    order) that name the same pair form a group; its terms are added in
+    ascending lane order, from its lowest lane's on, and the group's sum is
+    then added into the pair's row of the warp's ``acc`` [T, 8, L, 9]."""
+    T_tiles = acc.shape[0]
+    commit = commit.reshape(T_tiles, WARPS, 32)
+    src = torch.where(commit, src.reshape(T_tiles, WARPS, 32), -1)
+    vals = vals.reshape(T_tiles, WARPS, 32, len(GRAD_COLS))
+    lane = torch.arange(32, device=acc.device)
+    same = (src[..., :, None] == src[..., None, :]) & commit[..., None, :]
+    leader = same.to(torch.uint8).argmax(dim=-1)     # lowest lane of the group
+    joins = commit & (leader != lane)
+    t_idx = torch.arange(T_tiles, device=acc.device)[:, None]
+    w_idx = torch.arange(WARPS, device=acc.device)[None, :]
+    sums = vals.clone()
+    for o in joins.any(dim=1).any(dim=0).nonzero().flatten().tolist():
+        m = joins[:, :, o]
+        ld = leader[:, :, o]
+        cur = sums[t_idx, w_idx, ld]
+        sums[t_idx, w_idx, ld] = torch.where(m[..., None],
+                                             cur + vals[:, :, o], cur)
+    t, w, o = (commit & (leader == lane)).nonzero(as_tuple=True)
+    s = src[t, w, o]
+    acc[t, w, s] = acc[t, w, s] + sums[t, w, o]
 
 
 def _quads(mask):
@@ -555,8 +603,9 @@ def blend_hier_backward_plain(point_list, starts, ends, xy, conic_opacity,
     with c.g formed from the entry's rgb and the pixel's g, S_tot = color . g
     and K_T = g_T final_T, and the nine terms from dpower = -a0 galpha. The
     terms are summed as K6 sums them: per tile and warp of 32 threads (K5's
-    thread map, ``thread_pixel``), step by step and within a step in
-    ascending lane order, into the committed pair's row; then each pair's 8
+    thread map, ``thread_pixel``), step by step; within a step the lanes
+    that commit the same pair are summed in ascending lane order and the
+    sum goes into the pair's row (``_route_grouped``); then each pair's 8
     warp rows in warp order. With ``count_evaluations`` it also returns the
     replay's counts (those of ``blend_hier_forward_plain``, over the pixels
     that have not stopped).
@@ -600,7 +649,7 @@ def blend_hier_backward_plain(point_list, starts, ends, xy, conic_opacity,
                              cg * T - (s_tot - acc_g + k_t) / (1.0 - a0), 0.0)
         vals = _commit_terms(a0, galpha, w, g, conic_opacity[gid],
                              xy[gid, 0] - pix_x, xy[gid, 1] - pix_y)
-        _route(rows, commit[:, lanes], src[:, lanes], vals[:, lanes])
+        _route_grouped(rows, commit[:, lanes], src[:, lanes], vals[:, lanes])
         st["T"] = torch.where(commit, U, T)
         st["acc_g"] = acc_g
         st["nc"] = st["nc"] + commit.to(torch.int32)

@@ -21,6 +21,9 @@ and the API) against autograd and the JAX package's gradients, on the CPU.
   value, rtol 3e-3): (8, 4, 2) at 48x48 through SH, scales and rotations,
   and (64, 8, 4) on one deep 16x16 tile through precomputed colors and
   covariances.
+- K6's grouped routing (``_route_grouped``) against a numpy model of its
+  order of summation, and equal to K4's lane-by-lane ``_route`` where no
+  two lanes of a warp commit the same pair.
 - An empty stream; the kernel library's name hashing the shared header.
 """
 
@@ -37,7 +40,9 @@ import stopthepop_tpu_torch as stt
 from stopthepop_tpu_torch.constants import T_THRESHOLD
 from stopthepop_tpu_torch.kernels import build
 from stopthepop_tpu_torch.kernels.blend_vjp import reduce_pair_grads
+from stopthepop_tpu_torch.kernels.kbuffer_blend import WARPS, _route
 from stopthepop_tpu_torch.kernels.hier_blend import (
+    _route_grouped,
     blend_hier_backward,
     blend_hier_forward_plain,
     subtile_of_pixel,
@@ -395,3 +400,69 @@ def test_an_edited_header_changes_every_library_path(tmp_path, monkeypatch):
     after = {n: build.library_path(n) for n in build.all_sources()}
     assert all(before[n] != after[n] for n in before)
     assert all(after[n].name.startswith(f"{n}-") for n in after)
+
+
+# ---------------------------------------------------------------------------
+# K6's grouped routing
+# ---------------------------------------------------------------------------
+
+def _route_grouped_model(acc, commit, src, vals):
+    """numpy, lane by lane: per tile and warp, the committing lanes that name
+    the same pair are summed in ascending lane order from the lowest one's
+    terms on, then each group's sum is added into its pair's row."""
+    acc = acc.copy()
+    for t in range(acc.shape[0]):
+        for w in range(WARPS):
+            sums = {}
+            for lane in range(32):
+                i = 32 * w + lane
+                if commit[t, i]:
+                    s = int(src[t, i])
+                    sums[s] = sums[s] + vals[t, i] if s in sums else vals[t, i].copy()
+            for s, v in sums.items():
+                acc[t, w, s] = acc[t, w, s] + v
+    return acc
+
+
+def _routing_step(seed, pairs):
+    rng = np.random.default_rng(seed)
+    T, L = 3, 12
+    acc = rng.standard_normal((T, WARPS, L, 9)).astype(np.float32)
+    commit = rng.random((T, 256)) < 0.6
+    src = rng.integers(0, pairs, (T, 256))
+    # Magnitudes 1e-8 .. 1e8, so that the order of the sums shows in the bits.
+    vals = (rng.standard_normal((T, 256, 9))
+            * 10.0 ** rng.integers(-8, 9, (T, 256, 9))).astype(np.float32)
+    return acc, commit, src, vals
+
+
+def test_grouped_routing_sums_each_pair_once_in_lane_order():
+    acc, commit, src, vals = _routing_step(3, pairs=4)
+    # Two pixels of one warp commit the same pair in this step.
+    commit[0, 5] = commit[0, 9] = True
+    src[0, 5] = src[0, 9] = 2
+    expect = _route_grouped_model(acc, commit, src, vals)
+    got = torch.from_numpy(acc.copy())
+    _route_grouped(got, torch.from_numpy(commit), torch.from_numpy(src),
+                   torch.from_numpy(vals))
+    assert np.array_equal(got.numpy(), expect)
+    # The order differs from K4's lane-by-lane adds, and this step shows it.
+    lane_by_lane = torch.from_numpy(acc.copy())
+    _route(lane_by_lane, torch.from_numpy(commit), torch.from_numpy(src),
+           torch.from_numpy(vals))
+    assert not torch.equal(lane_by_lane, got)
+
+
+def test_grouped_routing_is_route_without_shared_pairs():
+    acc, commit, _, vals = _routing_step(4, pairs=1)
+    # Every lane of a warp names its own pair.
+    src = np.tile(np.arange(32) % 12, (3, WARPS))
+    commit &= np.arange(256)[None, :] % 32 < 12
+    a = torch.from_numpy(acc.copy())
+    b = torch.from_numpy(acc.copy())
+    args = (torch.from_numpy(commit), torch.from_numpy(src),
+            torch.from_numpy(vals))
+    _route_grouped(a, *args)
+    _route(b, *args)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, torch.from_numpy(acc))
