@@ -52,9 +52,11 @@ Phases, one JSON line each; any failure exits non-zero:
      and not background, K3 launched exactly once a frame and K1, K2, K4 not
      at all. Then a per-stage breakdown of one frame.
   9. kernel_kb_bwd: hold kernel K4 (k-buffer backward) against its plain
-     version on the same scenes (each gradient column within 1e-4 of its
+     version on the same scenes and on phase 11's deep-segment scene at
+     k = 4 (bitwise equal; each gradient column also within 1e-4 of its
      largest value); two K4 launches and two full BlendKBuffer backward
-     passes bitwise equal; time K4 and its plain version.
+     passes bitwise equal; time K4 and its plain version; its registers,
+     spills, shared memory a block and blocks an SM at MAX_K = 4.
  10. train_kb: 5 training steps at 1080p/500K in PPX_KBUFFER; loss finite and
      falling, every gradient finite and nonzero somewhere, K3 and K4 once a
      step, no other kernel; step time and a per-stage breakdown.
@@ -74,18 +76,19 @@ Phases, one JSON line each; any failure exits non-zero:
      so that three of K6's nine instantiations launch, phase 11's
      deep-segment scene, and the 1080p/500K
      frame at (64, 8, 4) (each gradient column within 1e-4 of its largest
-     value); two K6 launches and two full BlendHier backward passes bitwise
-     equal; time K6 and its plain version.
+     value, and bitwise equal); two K6 launches and two full BlendHier
+     backward passes bitwise equal; time K6 and its plain version.
  14. train_hier: 5 training steps at 1080p/500K in HIER (64, 8, 4); loss
      finite and falling, every gradient finite and nonzero somewhere, K5 and
      K6 once a step, K1-K4 not at all; step time and a per-stage breakdown.
  15. kernel_full: hold kernel K7 (PER_PIXEL_FULL, the exact per-pixel sort,
      forward only) against its plain version — phase 7's two 70x45 scenes
      and the clone trap scene (32x32: bit-identical clones, pixels with
-     more than three windows of actives), then the 1080p/500K bench frame
-     (color / final_T within atol 1e-5, n_contrib exactly, depth_acc
-     within 1e-5 relative) — and time both; K7's bound from the plain
-     version's counts, its rounds per tile and its registers. Also the
+     more than three lists of actives), phase 11's deep-segment scene, then
+     the 1080p/500K bench frame (every output bitwise equal) — and time
+     both; K7's bound from the plain version's counts, its list length,
+     its passes (rounds) per tile, its registers, spills, shared memory a
+     block and blocks an SM. Also the
      API's full_mode="auto" rule on the card: a 70x45 scene through
      GaussianRasterizer takes K7 under no_grad and the dense oracle when
      asked for gradients, and the two agree.
@@ -400,8 +403,8 @@ def compare_resort_bwd(phase, name, wrapper, plain, bwd_args, kw, *,
     """A backward kernel that takes a camera (K4, K6) against its plain
     version on the same inputs (its forward's inputs, raw colour, final_T,
     n_contrib and the cotangents): each gradient column within K2_RTOL of
-    its largest magnitude, and two launches with the same bits. Returns
-    stats."""
+    its largest magnitude, the same bits as the plain version, and two
+    launches with the same bits. Returns stats."""
     from stopthepop_tpu_torch.kernels.global_blend import GRAD_COLS
 
     before = wrapper.launches
@@ -426,6 +429,8 @@ def compare_resort_bwd(phase, name, wrapper, plain, bwd_args, kw, *,
     check(stats["finite"] and bool((err <= K2_RTOL * scale).all()),
           phase, f"{name}: kernel disagrees: {stats}")
     check(stats["bitwise_repeat"], phase, f"{name}: two launches differ")
+    check(stats["bitwise_equal_plain"], phase,
+          f"{name}: not bitwise equal to its plain version: {stats}")
     if count_evaluations:
         stats["replay"] = counts
     return stats
@@ -501,13 +506,18 @@ def hier_deep_case(dev):
 
 
 def compare_full(name, args, kw, *, count_evaluations=False):
-    """K7 against its plain version; returns stats."""
+    """K7 against its plain version, to the bit; returns stats."""
     from stopthepop_tpu_torch.kernels import full_blend as fb
 
-    return compare_resort(
+    stats = compare_resort(
         "kernel_full", name, fb.blend_full_forward,
         fb.blend_full_forward_plain, args, kw,
         count_evaluations=count_evaluations)[0]
+    check(stats["max_abs_err_color"] == 0.0
+          and stats["max_abs_err_final_t"] == 0.0
+          and stats["max_rel_err_depth_acc"] == 0.0, "kernel_full",
+          f"{name}: K7 is not bitwise equal to its plain version: {stats}")
+    return stats
 
 
 def full_auto_rule(scene, cam, dev):
@@ -1124,6 +1134,16 @@ def main(argv=None) -> int:
                 kb_small_bwd.append(st)
                 emit({"phase": "kernel_kb_bwd", "ok": True, "case": case,
                       **st})
+        # K3 and K4 on deep segments: K4's routing at trained-scene depth.
+        deep_case, (prep, pairs, dkw), deep_cam = hier_deep_case(dev)
+        dargs = kb_args(prep, pairs, deep_cam)
+        _, dfwd = compare_kb(deep_case, dargs, dkw, KB_K)
+        st, _ = compare_kb_bwd(deep_case, dargs, dkw, KB_K, dfwd,
+                               cotangents(HIER_DEEP_SIZE, HIER_DEEP_SIZE))
+        kb_small_bwd.append(st)
+        emit({"phase": "kernel_kb_bwd", "ok": True, "case": deep_case,
+              "pairs": pairs.num_rendered, **st})
+        del prep, pairs, dargs, dfwd
     cot = cotangents(WIDTH, HEIGHT)
     with torch.no_grad():
         kb_full_bwd, k4_args = compare_kb_bwd(
@@ -1153,7 +1173,11 @@ def main(argv=None) -> int:
           "case": "1920x1080, 500K Gaussians, bench camera", "pairs": N,
           **kb_full_bwd, "k4_ms": k4_ms, "plain_ms": k4_plain_ms,
           "bytes": k4_bytes, "ops": k4_ops, "bytes_bound_ms": k4_bytes_ms,
-          "ops_bound_ms": k4_ops_ms, "card": card})
+          "ops_bound_ms": k4_ops_ms,
+          "occupancy_max_k_4": kb.occupancy_bwd(kb._instance(KB_K)),
+          "ptxas_max_k_4": ptxas_summary(build.build_log.get(
+              kb.BWD_KERNEL, {}).get("ptxas", "")).get("MAX_K=4"),
+          "card": card})
     del k4_args, kb_bench_args, kb_bench_fwd, cot
 
     # 10. train_kb: the training step in PPX_KBUFFER -----------------------------
@@ -1323,6 +1347,14 @@ def main(argv=None) -> int:
                   "pairs": pairs.num_rendered, **st})
     check(full_small_stats[-1]["max_commits"] > 3 * fb.WINDOW, "kernel_full",
           "the trap scene has no pixel with more than three windows")
+    with torch.no_grad():
+        deep_case, (prep, pairs, dkw), deep_cam = hier_deep_case(dev)
+        st = compare_full(deep_case, kb_args(prep, pairs, deep_cam), dkw,
+                          count_evaluations=True)
+        full_small_stats.append(st)
+        emit({"phase": "kernel_full", "ok": True, "case": deep_case,
+              "pairs": pairs.num_rendered, **st})
+        del prep, pairs
     emit({"phase": "kernel_full", "ok": True,
           "case": "auto rule through GaussianRasterizer, " + small_scenes[0][0],
           **full_auto_rule(small_scenes[0][1], small_cam, dev)})
@@ -1347,7 +1379,7 @@ def main(argv=None) -> int:
           **full_bench, "window": fb.WINDOW, "k7_ms": k7_ms,
           "plain_ms": k7_plain_ms,
           "bytes": k7_bytes, "ops": k7_ops, "bytes_bound_ms": k7_bytes_ms,
-          "ops_bound_ms": k7_ops_ms,
+          "ops_bound_ms": k7_ops_ms, "occupancy": fb.occupancy(),
           "ptxas": ptxas_summary(build.build_log.get(fb.KERNEL, {}).get("ptxas", "")),
           "card": card})
     del prep, pairs, full_bench_args

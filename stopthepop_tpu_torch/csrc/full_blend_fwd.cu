@@ -5,31 +5,40 @@
 // [seg_full, 128] VMEM planes, sorts them with an unstable bitonic network
 // and cuts segments at seg_full). The reference sorts each pixel's tile range
 // with cub::BlockRadixSort (renderSortedFullCUDA, resorted_render.cuh:
-// 474-675). K7 needs neither a cap nor scratch memory nor a library sort:
+// 474-675). K7 needs neither a cap nor scratch in device memory nor a library
+// sort:
 //
 //   * one block of 256 threads per 16x16 tile, one thread per pixel
 //     (pixels row-major within the tile), K3's shape: the block stages
 //     batches of 256 of its segment's pairs in shared memory through the
 //     sorted ids (xy, conic+opacity and the 9 floats of the packed inverse
 //     covariance, 60 bytes a pair); pixels outside the image start done;
-//   * each pixel takes its active pairs (power >= 0, alpha >= 1/255, depth
-//     t = (u . d) / max(1e-5, d^T Sigma^-1 d) along its view ray >= 0) in
-//     rounds. A round streams the whole segment and keeps, in a register
-//     window of K entries (depth, stream position, alpha) sorted by
-//     (depth, position), the K smallest actives above the pixel's floor
-//     (d_f, p_f) in that lexicographic order: a new entry goes behind every
-//     entry of equal or smaller depth (positions only grow within a round),
-//     and a full window drops its last entry, so an entry enters a full
-//     window iff its depth is below the last one's;
-//   * after the segment, the pixel blends its window front to back with the
+//   * each pixel keeps a list of up to kList entries (ray depth, stream
+//     position) in shared memory, sorted by (depth, position). The list is
+//     entry-major, [kList][256], so that a lane's entry i lies at
+//     i * 256 + lane and the warp's accesses fall in distinct banks whatever
+//     fill each lane has reached;
+//   * a pass streams the whole segment. Each pixel takes its active pairs
+//     (power >= 0, alpha >= 1/255, depth t = (u . d) / max(1e-5,
+//     d^T Sigma^-1 d) along its view ray >= 0) above its floor (d_f, p_f) in
+//     (depth, position) order. While its list has room it appends them in
+//     stream order; a list that fills is sorted then by a stable insertion
+//     sort on depth (ties stay in stream order), and from then on it takes
+//     an entry only if its depth is below the last one's: entries of greater
+//     depth move one slot up, the new entry goes behind the first entry of
+//     equal or smaller depth, and the last entry drops out. A list that
+//     never fills is sorted once after the segment;
+//   * after the segment, the pixel blends its list front to back with the
 //     log-space running sum of the JAX oracle (render/naive.py::
-//     blend_prefix): S += log1p(-alpha), U = exp(S); U < 1e-4 ends the
-//     pixel; otherwise w = alpha T, C += w rgb (rgb read through the pair's
-//     id), depth_acc += w depth, T = U, n_contrib += 1. A window with fewer
-//     than K entries held the pixel's last actives and ends it too;
-//     otherwise the floor moves to the window's last entry, whose key is
-//     above every key blended so far and below every key not yet seen;
-//   * the block runs rounds while any of its pixels is live
+//     blend_prefix): alpha is derived again from the pair's rows (read
+//     through point_list[start + position]) with the stream's operations in
+//     the stream's order, so its bits are the stream's; S += log1p(-alpha),
+//     U = exp(S); U < 1e-4 ends the pixel; otherwise w = alpha T,
+//     C += w rgb, depth_acc += w depth, T = U, n_contrib += 1. A list that
+//     is not full held the pixel's last actives and ends it too; otherwise
+//     the floor moves to the list's last entry, whose key is above every
+//     key blended so far and below every key not yet taken, and the block
+//     runs another pass while any of its pixels is live
 //     (__syncthreads_or). The floor is lexicographic on (depth, position):
 //     exact depth ties are real (densification's clone makes bit-identical
 //     Gaussians) and a depth-only floor would drop or repeat them.
@@ -42,13 +51,20 @@
 // (about 11 FP32 operations and an expf), a ray depth for the pairs that pass
 // the alpha tests (24), the sort of each pixel's actives, and a log1pf, an
 // expf and about 10 operations an entry blended; bytes are the id list, the
-// rows and ~50 MB of output at 1080p: bound by operations. K7 repeats the
-// alpha and depth of every pair in every round, so its time grows with the
-// rounds its slowest pixel needs (actives / K where a pixel never
-// saturates); the window of K entries keeps each round's insert at K
-// compares and selects. K = 16 measured faster than 8 on the
-// 1080p bench frame; every window loop is unrolled with compile-time indices
-// so that the window stays in registers.
+// rows and ~50 MB of output at 1080p: bound by operations. A window in
+// registers would pay an unrolled compare and shift over all its slots at
+// every insert and, being short, stream the segment again for every pixel
+// that holds more actives than it before saturating. The list takes 8
+// bytes an entry in shared memory, so it is long enough that a tile takes
+// one pass where its pixels hold at most kList actives before they
+// saturate (61 commits at most on the 1080p bench frame, 1.109 passes a
+// tile there), an append costs one store, and the sort after the stream
+// costs the inversions of a stream that Z_DEPTH keeps close to ray-depth
+// order.
+// kList trades passes against resident blocks: the list takes kList * 2 KB
+// of the SM's 228 KB (kMinBlocks below); 48 entries leave two blocks an SM.
+// Alpha is derived again at the blend rather than stored, which would take
+// 12 bytes an entry and one block an SM at 48 entries.
 //
 // Numerics: accurate expf and log1pf, IEEE division and square root, and
 // built with -fmad=false, so that each product and sum rounds as in the plain
@@ -69,9 +85,41 @@ constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaThreshold = 1.0f / 255.0f;
 constexpr float kTThreshold = 1.0e-4f;
 constexpr float kDenFloor = 1.0e-5f;
-constexpr int K = 16;  // the register window, kernels/full_blend.py::WINDOW
+// Entries a pixel's list holds (kernels/full_blend.py::WINDOW).
+constexpr int kList = 48;
+constexpr size_t kListBytes = sizeof(float2) * kList * kBlock;
+// The staging batch: xy, conic+opacity, two float4 and a float of the
+// inverse covariance a pair.
+constexpr size_t kStageBytes = kBlock * (8 + 16 + 16 + 16 + 4);
+// Blocks that fit an SM's 228 KB of shared memory (1 KB of it reserved a
+// block).
+constexpr int kMinBlocks =
+    static_cast<int>(233472 / (kListBytes + kStageBytes + 1024));
+static_assert(kMinBlocks >= 1, "the list does not fit an SM");
 
-__global__ void __launch_bounds__(kBlock)
+__device__ __forceinline__ float pair_alpha(float2 m, float4 co, float pfx,
+                                            float pfy, float* power) {
+  const float dx = m.x - pfx;
+  const float dy = m.y - pfy;
+  *power = 0.5f * (co.x * dx * dx + co.z * dy * dy) + co.y * dx * dy;
+  return fminf(kAlphaMax, co.w * expf(-*power));
+}
+
+// Stable insertion sort of a lane's first n entries by depth.
+__device__ __forceinline__ void sort_list(float2* list, int n) {
+  for (int k = 1; k < n; ++k) {
+    const float2 e = list[k * kBlock];
+    int i = k;
+    for (; i > 0; --i) {
+      const float2 prev = list[(i - 1) * kBlock];
+      if (!(prev.x > e.x)) break;
+      list[i * kBlock] = prev;
+    }
+    list[i * kBlock] = e;
+  }
+}
+
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 full_blend_fwd_kernel(const int* __restrict__ point_list,
                       const int* __restrict__ starts,
                       const int* __restrict__ ends,
@@ -90,6 +138,9 @@ full_blend_fwd_kernel(const int* __restrict__ point_list,
   __shared__ float4 s_i0[kBlock];  // xx, xy, xz, yy
   __shared__ float4 s_i1[kBlock];  // yz, zz, u0, u1
   __shared__ float s_u2[kBlock];   // u2
+  // [kList][kBlock] entries (depth, position bits); this lane's column.
+  extern __shared__ float2 s_list[];
+  float2* list = s_list + threadIdx.x;
 
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
@@ -125,17 +176,10 @@ full_blend_fwd_kernel(const int* __restrict__ point_list,
   bool done = !inside;
   float floor_d = -CUDART_INF_F;
   int floor_p = -1;
-  float wd[K], wa[K];
-  int wp[K];
 
   while (__syncthreads_or(!done)) {
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      wd[i] = CUDART_INF_F;
-      wa[i] = 0.0f;
-      wp[i] = 0;
-    }
     int fill = 0;
+    float last_d = CUDART_INF_F;  // the last entry's depth once full
     for (int base = 0; base < count; base += kBlock) {
       // Barrier: the previous batch is consumed by every thread before the
       // next one overwrites shared memory.
@@ -155,15 +199,9 @@ full_blend_fwd_kernel(const int* __restrict__ point_list,
 
       const int n = min(kBlock, count - base);
       for (int j = 0; j < n; ++j) {
-        const float2 m = s_xy[j];
-        const float4 co = s_co[j];
-        const float dx = m.x - pfx;
-        const float dy = m.y - pfy;
-        const float power =
-            0.5f * (co.x * dx * dx + co.z * dy * dy) + co.y * dx * dy;
-        if (power < 0.0f) continue;
-        const float alpha = fminf(kAlphaMax, co.w * expf(-power));
-        if (alpha < kAlphaThreshold) continue;
+        float power;
+        const float alpha = pair_alpha(s_xy[j], s_co[j], pfx, pfy, &power);
+        if (power < 0.0f || alpha < kAlphaThreshold) continue;
         const float4 i0 = s_i0[j];
         const float4 i1 = s_i1[j];
         const float num = i1.z * vdx + i1.w * vdy + s_u2[j] * vdz;
@@ -177,59 +215,56 @@ full_blend_fwd_kernel(const int* __restrict__ point_list,
         // Above the floor, (depth, position) lexicographically.
         if (!(depth > floor_d || (depth == floor_d && pos_s > floor_p)))
           continue;
-        if (fill == K && !(depth < wd[K - 1])) continue;
-        // Insert behind every entry of equal or smaller depth; a full
-        // window drops its last entry.
-        int pos = 0;
-#pragma unroll
-        for (int i = 0; i < K; ++i) pos += (wd[i] <= depth) ? 1 : 0;
-#pragma unroll
-        for (int i = K - 1; i > 0; --i) {
-          if (i > pos) {
-            wd[i] = wd[i - 1];
-            wa[i] = wa[i - 1];
-            wp[i] = wp[i - 1];
-          } else if (i == pos) {
-            wd[i] = depth;
-            wa[i] = alpha;
-            wp[i] = pos_s;
+        if (fill < kList) {
+          list[fill * kBlock] = make_float2(depth, __int_as_float(pos_s));
+          if (++fill == kList) {
+            sort_list(list, kList);
+            last_d = list[(kList - 1) * kBlock].x;
           }
+          continue;
         }
-        if (pos == 0) {
-          wd[0] = depth;
-          wa[0] = alpha;
-          wp[0] = pos_s;
+        if (!(depth < last_d)) continue;
+        int i = kList - 1;  // the last entry drops out
+        // From the back: entries of greater depth move one slot up.
+        for (; i > 0; --i) {
+          const float2 prev = list[(i - 1) * kBlock];
+          if (!(prev.x > depth)) break;
+          list[i * kBlock] = prev;
         }
-        if (fill < K) ++fill;
+        list[i * kBlock] = make_float2(depth, __int_as_float(pos_s));
+        last_d = list[(kList - 1) * kBlock].x;
       }
     }
 
     if (done) continue;
-    // Blend the window front to back.
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      if (done || i >= fill) break;
-      S = S + log1pf(-wa[i]);
+    if (fill < kList) sort_list(list, fill);
+    // Blend the list front to back.
+    for (int i = 0; i < fill; ++i) {
+      const float2 e = list[i * kBlock];
+      const int g = point_list[start + __float_as_int(e.y)];
+      float power;
+      const float alpha = pair_alpha(xy[g], conic_opacity[g], pfx, pfy, &power);
+      S = S + log1pf(-alpha);
       const float U = expf(S);
       if (U < kTThreshold) {
         done = true;
-      } else {
-        const int g = point_list[start + wp[i]];
-        const float w = wa[i] * T;
-        c0 = c0 + w * rgb[3 * g];
-        c1 = c1 + w * rgb[3 * g + 1];
-        c2 = c2 + w * rgb[3 * g + 2];
-        d_acc = d_acc + w * wd[i];
-        T = U;
-        ++nc;
+        break;
       }
+      const float w = alpha * T;
+      c0 = c0 + w * rgb[3 * g];
+      c1 = c1 + w * rgb[3 * g + 1];
+      c2 = c2 + w * rgb[3 * g + 2];
+      d_acc = d_acc + w * e.x;
+      T = U;
+      ++nc;
     }
     if (!done) {
-      if (fill < K) {
+      if (fill < kList) {
         done = true;
       } else {
-        floor_d = wd[K - 1];
-        floor_p = wp[K - 1];
+        const float2 e = list[(kList - 1) * kBlock];
+        floor_d = e.x;
+        floor_p = __float_as_int(e.y);
       }
     }
   }
@@ -256,7 +291,11 @@ extern "C" int stp_full_blend_fwd(
     void* out_n_contrib, void* out_depth, void* stream) {
   const int num_tiles = grid_x * grid_y;
   if (num_tiles == 0) return 0;
-  full_blend_fwd_kernel<<<num_tiles, kBlock, 0,
+  cudaError_t err = cudaFuncSetAttribute(
+      full_blend_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kListBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  full_blend_fwd_kernel<<<num_tiles, kBlock, kListBytes,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(point_list), static_cast<const int*>(starts),
       static_cast<const int*>(ends), static_cast<const float2*>(xy),
@@ -266,4 +305,25 @@ extern "C" int stp_full_blend_fwd(
       static_cast<float*>(out_color), static_cast<float*>(out_final_t),
       static_cast<int*>(out_n_contrib), static_cast<float*>(out_depth));
   return static_cast<int>(cudaGetLastError());
+}
+
+// What K7 reaches on this device: out[0] resident blocks per SM, out[1]
+// registers a thread, out[2] local (spill) bytes a thread, out[3] static and
+// out[4] dynamic (the list's) shared bytes a block, out[5] the list's
+// entries a pixel.
+extern "C" int stp_full_blend_fwd_occupancy(int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      full_blend_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kListBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, full_blend_fwd_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = static_cast<int>(attr.sharedSizeBytes);
+  out[4] = static_cast<int>(kListBytes);
+  out[5] = kList;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, full_blend_fwd_kernel, kBlock, kListBytes));
 }

@@ -31,17 +31,13 @@
 //     whose 4 pixels have ended its mid work, but every thread keeps ranking
 //     tail entries for its sub-tile and takes part in every barrier and
 //     warp step until the whole block is done (__syncthreads_and);
-//   * grouped routing: each (tile, warp) owns rows acc[warp][src][9] for
-//     every pair of the tile's segment, in the tile's own rows [start, end)
-//     of a 320-byte-a-pair scratch in device memory (with the pair's xy and
-//     conic). A lane commits at most once a step; at each step the
-//     committing lanes stage their 9 terms in shared memory, find the lanes
-//     that commit the same pair (__match_any_sync), and the lowest lane of
-//     each group adds the group's terms in ascending lane order and then the
-//     sum into its pair's row: one independent read-modify-write a distinct
-//     pair. After the replay, each pair's 8 warp rows are added in warp
-//     order into d_pair[start + src]. Every slot of the tile is written and
-//     every order is fixed, so two runs give the same bits.
+//   * the grouped routing of route_common.cuh, which K4 shares: per-(tile,
+//     warp) rows of every pair of the segment in a 320-byte-a-pair scratch
+//     in device memory; at each step's end the lanes that commit the same
+//     pair sum their terms in ascending lane order and add the sum into the
+//     pair's row once; after the replay each pair's 8 warp rows are added in
+//     warp order into d_pair[start + src]. Every order is fixed, so two
+//     runs give the same bits.
 //
 // Output: d_pair [N, 9] float32 in sorted-slot order, columns
 // (d_x, d_y, d_a, d_b, d_c, d_opacity, d_r, d_g, d_b). No gradient flows to
@@ -61,32 +57,28 @@
 // interface, loaded with ctypes.
 
 #include "hier_common.cuh"
+#include "route_common.cuh"
 
 namespace {
 
 using namespace hier;
+using route::kCols;
+using route::kFeat;
+using route::kPairFloats;
+using route::kWarps;
 
-constexpr int kWarps = kBlock / 32;
-constexpr int kCols = 9;
-// Floats a pair takes in the scratch: 8 of features (xy, pad, conic and
-// opacity) and kWarps * kCols of gradient sums.
-constexpr int kFeat = 8;
-constexpr int kPairFloats = kFeat + kWarps * kCols;
+static_assert(route::kBlock == kBlock, "one thread a pixel of the tile");
 
 // The gradient at each commit, and its routing at each step's end.
 struct Grad {
   static constexpr bool kByPosition = true;
   const float* __restrict__ rgb;
   const float4* feat;   // the segment's features, by src
-  float* acc_warp;      // this warp's rows, by src
-  float* stage_warp;    // this warp's staged terms, 9 a lane
-  int lane;
+  route::Router router;
   float pfx, pfy, g0, g1, g2, s_tot, k_t;
   int n_target;
   float acc_g = 0.0f;
   int nc = 0;
-  bool committed = false;
-  int src_c = 0;
 
   // A commit of a0 = 0 changes nothing (w = 0, T stays, every term is +-0,
   // which leaves a sum that starts at +0 as it is): not counted, not routed.
@@ -104,7 +96,7 @@ struct Grad {
     const float dx = f.x - pfx;
     const float dy = f.y - pfy;
     const float dpower = -a0 * galpha;
-    float* st = stage_warp + lane * kCols;
+    float* st = router.stage();
     st[0] = dpower * (co.x * dx + co.y * dy);
     st[1] = dpower * (co.z * dy + co.y * dx);
     st[2] = dpower * 0.5f * dx * dx;
@@ -114,41 +106,11 @@ struct Grad {
     st[6] = w * g0;
     st[7] = w * g1;
     st[8] = w * g2;
-    committed = true;
-    src_c = src;
+    router.staged(src);
     return ++nc == n_target;
   }
 
-  // Warp-wide: fold this step's commits into the warp's rows. Lanes that
-  // commit the same pair form a group; its lowest lane sums the group's
-  // terms in ascending lane order, then adds the sum into the pair's row.
-  __device__ __forceinline__ void step_end() {
-    const unsigned m = __ballot_sync(0xffffffffu, committed);
-    if (m == 0u) return;
-    __syncwarp();
-    if (committed) {
-      const unsigned group = __match_any_sync(m, src_c);
-      if ((group & ((1u << lane) - 1u)) == 0u) {
-        float sum[kCols];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) sum[c] = stage_warp[lane * kCols + c];
-        unsigned rest = group & (group - 1u);
-        while (rest) {
-          const int o = __ffs(rest) - 1;
-          rest &= rest - 1u;
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            sum[c] = sum[c] + stage_warp[o * kCols + c];
-          }
-        }
-        float* row = acc_warp + src_c * kCols;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) row[c] = row[c] + sum[c];
-      }
-      committed = false;
-    }
-    __syncwarp();
-  }
+  __device__ __forceinline__ void step_end() { router.step_end(); }
 };
 
 template <int MID_MAX, int HEAD_MAX>
@@ -164,11 +126,11 @@ hier_blend_bwd_kernel(Args a, const float* __restrict__ color,
   __shared__ float s_stage[kWarps][32 * kCols];
   extern __shared__ float s_tail[];
   const Pixel p(a.grid_x, a.width, a.height);
-  const int t = threadIdx.x;
   const int tile = blockIdx.x;
   const int start = a.starts[tile];
   const int count = a.ends[tile] - start;
 
+  const int t = threadIdx.x;
   // The segment's rows: features [count][kFeat], then the per-warp sums
   // [kWarps][count][kCols].
   float* rows = scratch + static_cast<long long>(start) * kPairFloats;
@@ -183,8 +145,9 @@ hier_blend_bwd_kernel(Args a, const float* __restrict__ color,
   }
 
   // The cotangent terms and n_target stay 0 outside the image.
-  Grad hook{a.rgb, feat, acc + p.warp * count * kCols, s_stage[p.warp],
-            p.lane, static_cast<float>(p.px), static_cast<float>(p.py)};
+  Grad hook{a.rgb, feat,
+            {acc + p.warp * count * kCols, s_stage[p.warp], p.lane},
+            static_cast<float>(p.px), static_cast<float>(p.py)};
   if (p.inside) {
     const int pix = p.py * a.width + p.px;
     const int plane = a.width * a.height;

@@ -24,24 +24,17 @@
 //       dpower = -a0 galpha
 //     d(x, y, a, b, c) from dpower and the source pair's xy and conic,
 //     d_opacity = galpha a0 / o, d_rgb = w g;
-//   * routing without atomics. A pixel commits pair src at a stream step that
-//     differs from pixel to pixel, so K2's fixed tree at a stream position
-//     does not apply. Instead each (tile, warp) owns private rows
-//     acc[warp][s][9] for every pair s of the tile's segment. At every
-//     stream or drain step the warp's committing lanes write their 9 values
-//     and src to a per-warp staging area; after __syncwarp, lane c (c < 9)
-//     adds column c of every committing lane, in ascending lane order, into
-//     acc[warp][src][c]. Lane c is the only thread that ever touches column
-//     c of its warp's rows, so no two threads add to one address. After the
-//     replay, each pair's 8 warp rows are added in warp order into
-//     d_pair[start + s]. Every slot of the tile is written (zero where no
-//     pixel committed the pair), so two runs give the same bits;
-//   * the rows and the segment's xy and conic (read at commit time for any
-//     src) live in the tile's own rows [start, end) of a scratch in device
-//     memory, 320 bytes a pair, that the block zeroes and fills itself. Not
-//     shared memory: at the bench scene's 314-pair segments the rows would
-//     take ~100 KB a block and hold one block an SM, and on the H100 that ran
-//     slower than this scratch, whose blocks' rows stay in the 50 MB L2.
+//   * the grouped routing of route_common.cuh, which K6 shares. A lane
+//     commits at most once a step (one pop for each valid arrival, one for
+//     each drain iteration). At each stream or drain step's end the
+//     committing lanes of a warp that name the same pair sum their 9 staged
+//     terms in ascending lane order, and the group's lowest lane adds the
+//     sum into the pair's row of the warp's rows in a 320-byte-a-pair
+//     scratch in device memory (which also holds the pair's xy and conic for
+//     the commits): one independent read-modify-write a distinct pair and
+//     step. After the replay each pair's 8 warp rows are added in warp order
+//     into d_pair[start + src]. Every slot of the tile is written and every
+//     order is fixed, so two runs give the same bits.
 //
 // Output: d_pair [N, 9] float32 in sorted-slot order, columns
 // (d_x, d_y, d_a, d_b, d_c, d_opacity, d_r, d_g, d_b).
@@ -52,9 +45,10 @@
 // operations, as K3 is. Its design against that bound: every staged pair is
 // read once per tile and served to 256 pixels from shared memory, the window
 // stays in registers, a pixel stops at its last commit and the block when
-// every pixel has; the routing costs a ballot per step and one add into the
-// scratch per committing lane and column; the small static shared memory
-// (~30 KB) leaves the registers to set the occupancy.
+// every pixel has. The routing takes most of the rest: adding each
+// committing lane's terms in turn would chain up to 32 dependent
+// read-modify-writes a column and step; grouped, each distinct pair takes
+// one, and those of different pairs overlap.
 //
 // Built by stopthepop_tpu_torch/kernels/build.py with nvcc for sm_90a; plain C
 // interface, loaded with ctypes.
@@ -62,24 +56,27 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "route_common.cuh"
+
 namespace {
 
 constexpr int kTileX = 16;
 constexpr int kTileY = 16;
 constexpr int kBlock = kTileX * kTileY;
-constexpr int kWarps = kBlock / 32;
-constexpr int kCols = 9;
-// Floats a pair takes in the rows area: 8 of features (xy, pad, conic and
-// opacity) and kWarps * kCols of gradient sums.
-constexpr int kFeat = 8;
-constexpr int kPairFloats = kFeat + kWarps * kCols;
+using route::kCols;
+using route::kFeat;
+using route::kPairFloats;
+using route::kWarps;
+static_assert(route::kBlock == kBlock, "one thread a pixel of the tile");
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaThreshold = 1.0f / 255.0f;
 constexpr float kTThreshold = 1.0e-4f;
 constexpr float kDenFloor = 1.0e-5f;
 
+// Four blocks an SM (64 registers a thread) ran faster on an H100 than the
+// three that 70 registers allow (PERF.md).
 template <int MAX_K>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 4)
 kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
                          const int* __restrict__ starts,
                          const int* __restrict__ ends,
@@ -103,7 +100,6 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
   __shared__ float4 s_i1[kBlock];  // yz, zz, u0, u1
   __shared__ float4 s_i2[kBlock];  // u2, r, g, b
   __shared__ float s_stage[kWarps][32 * kCols];
-  __shared__ int s_src[kWarps][32];
 
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
@@ -130,7 +126,7 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
     feat[2 * s] = make_float4(m.x, m.y, 0.0f, 0.0f);
     feat[2 * s + 1] = conic_opacity[g];
   }
-  float* acc_warp = acc + warp * count * kCols;
+  route::Router router{acc + warp * count * kCols, s_stage[warp], lane};
 
   float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, s_tot = 0.0f, kt = 0.0f;
   int n_target = 0;
@@ -178,14 +174,12 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
   bool done = n_target == 0;  // outside pixels have n_target 0 too
 
   // Pop the front entry; on a commit stage its 9 gradient terms.
-  auto pop = [&]() -> bool {
-    bool commit = false;
+  auto pop = [&]() {
     const float a0 = wa[0];
     const float U = T * (1.0f - a0);
     if (U < kTThreshold) {
       done = true;
     } else {
-      commit = true;
       const float cg = wc[0];
       const int src = ws[0];
       const float w = a0 * T;
@@ -197,7 +191,7 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
       const float dx = f.x - pfx;
       const float dy = f.y - pfy;
       const float dpower = -a0 * galpha;
-      float* st = &s_stage[warp][lane * kCols];
+      float* st = router.stage();
       st[0] = dpower * (co.x * dx + co.y * dy);
       st[1] = dpower * (co.z * dy + co.y * dx);
       st[2] = dpower * 0.5f * dx * dx;
@@ -207,7 +201,7 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
       st[6] = w * g0;
       st[7] = w * g1;
       st[8] = w * g2;
-      s_src[warp][lane] = src;
+      router.staged(src);
       T = U;
       ++nc;
       if (nc == n_target) done = true;
@@ -224,24 +218,6 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
     wc[MAX_K - 1] = 0.0f;
     ws[MAX_K - 1] = 0;
     --fill;
-    return commit;
-  };
-
-  // Warp-uniform: fold this step's commits into the warp's rows, column c
-  // by lane c, committing lanes in ascending order.
-  auto route = [&](bool commit) {
-    unsigned m = __ballot_sync(0xffffffffu, commit);
-    if (m == 0u) return;
-    __syncwarp();
-    if (lane < kCols) {
-      while (m) {
-        const int l = __ffs(m) - 1;
-        m &= m - 1u;
-        float* a = acc_warp + s_src[warp][l] * kCols + lane;
-        *a = *a + s_stage[warp][l * kCols + lane];
-      }
-    }
-    __syncwarp();
   };
 
   __syncthreads();  // rows zeroed and features written
@@ -262,7 +238,6 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
 
     const int n = min(kBlock, count - base);
     for (int jj = 0; jj < n; ++jj) {
-      bool commit = false;
       if (!done) {
         const int j = base + jj;
         const float2 m = s_xy[jj];
@@ -284,7 +259,7 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
                                       i1.x * vdy * vdz);
             const float depth = num / fmaxf(kDenFloor, den);
             if (depth >= 0.0f) {
-              if (fill == k) commit = pop();
+              if (fill == k) pop();
               if (!done) {
                 const float cg = i2.y * g0 + i2.z * g1 + i2.w * g2;
                 int pos = 0;
@@ -316,14 +291,13 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
           }
         }
       }
-      route(commit);
+      router.step_end();
     }
   }
 
   for (int i = 0; i < k; ++i) {
-    bool commit = false;
-    if (!done && fill > 0) commit = pop();
-    route(commit);
+    if (!done && fill > 0) pop();
+    router.step_end();
   }
 
   __syncthreads();
@@ -393,4 +367,37 @@ extern "C" int stp_kbuffer_blend_bwd(
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef STP_LAUNCH
+}
+
+// Instantiation max_k on this device: out[0] resident blocks per SM, out[1]
+// registers a thread, out[2] local (spill) bytes a thread, out[3] shared
+// bytes a block.
+extern "C" int stp_kbuffer_blend_bwd_occupancy(int max_k, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaErrorInvalidValue;
+#define STP_OCC(MK)                                                          \
+  case MK:                                                                   \
+    err = cudaFuncGetAttributes(&attr, kbuffer_blend_bwd_kernel<MK>);        \
+    if (err == cudaSuccess)                                                  \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
+          out, kbuffer_blend_bwd_kernel<MK>, kBlock, 0);                     \
+    break;
+  switch (max_k) {
+    STP_OCC(1)
+    STP_OCC(2)
+    STP_OCC(4)
+    STP_OCC(8)
+    STP_OCC(12)
+    STP_OCC(16)
+    STP_OCC(20)
+    STP_OCC(24)
+    default:
+      break;
+  }
+#undef STP_OCC
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
 }

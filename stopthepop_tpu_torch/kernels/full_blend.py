@@ -5,9 +5,11 @@ K7 replaces ``stopthepop_tpu/kernels/full_blend.py::blend_full_forward``
 (the Pallas ``_fwd_kernel``: five [seg_full, 128] VMEM planes sorted by an
 unstable bitonic network, segments cut at ``seg_full``). Its shape is K3's:
 one block of 256 threads per 16x16 tile, batches of the tile's pairs staged
-in shared memory. It has no segment cap and sorts stably. The source note
-(``csrc/full_blend_fwd.cu``) says how it sorts without scratch memory and
-what bounds it on an H100.
+in shared memory. It has no segment cap and sorts stably: each pixel keeps
+a sorted list of ``WINDOW`` entries in shared memory, in passes over the
+segment above a (depth, position) floor. The source note
+(``csrc/full_blend_fwd.cu``) says how it sorts without scratch in device
+memory and what bounds it on an H100.
 
 Semantics (JAX ``render/naive.py::render_full_sort_naive``, the reference's
 renderSortedFullCUDA, resorted_render.cuh:474-675). Each pixel evaluates
@@ -55,22 +57,41 @@ from .kbuffer_blend import _check_float_rows, _cuda_prelude, _view_rays
 KERNEL = "full_blend_fwd"
 SOURCE = "stopthepop_tpu_torch/csrc/full_blend_fwd.cu"
 REPLACES = "stopthepop_tpu/kernels/full_blend.py:317"
-# K7 takes each pixel's actives in rounds of a register window of this many
-# entries (the constant K of its source).
-WINDOW = 16
+# K7 takes each pixel's actives in passes ("rounds") of a sorted list of
+# this many entries in shared memory (the constant kList of its source).
+WINDOW = 48
 # The plain version's tables hold at most this many (pixel, pair) entries
 # at a time (about 40 bytes each with the sort's).
 _CHUNK_ENTRIES = 1 << 25
 
 
-@functools.lru_cache(maxsize=None)
-def _bind():
-    lib = build.load(KERNEL)
+def bind(lib):
+    """K7's C entry point in a loaded library, typed."""
     fn = lib.stp_full_blend_fwd
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bind():
+    return bind(build.load(KERNEL))
+
+
+def occupancy(lib=None) -> dict:
+    """What K7 (the checkout's build, or ``lib``) reaches on the current
+    device: resident blocks per SM, registers and local (spill) bytes a
+    thread, static and dynamic (the list's) shared bytes a block, and the
+    list's entries a pixel."""
+    lib = build.load(KERNEL) if lib is None else lib
+    out = (ctypes.c_int * 6)()
+    err = lib.stp_full_blend_fwd_occupancy(out)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} occupancy query failed: cudaError_t {err}")
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "spill_bytes": out[2], "static_smem_bytes": out[3],
+            "dynamic_smem_bytes": out[4], "list": out[5]}
 
 
 def _check_full_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
@@ -158,8 +179,9 @@ def blend_full_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
     ``actives``, ``sort_compares`` (sum over pixels of log2(n!) for n
     actives, the fewest compares that sort them), ``blended`` (sorted
     entries the blend reads, commits and each pixel's stopping entry) and
-    ``commits``; and ``rounds``: the mean and the largest number of rounds
-    of K7's window a tile runs (as many as its slowest pixel).
+    ``commits``; and ``rounds``: the mean and the largest number of passes
+    of K7's list over its segment a tile runs (as many as its slowest
+    pixel).
     """
     _check_full_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
                        cov3d_inv9, inverse_vp, campos, grid_x, grid_y, width,
@@ -234,9 +256,9 @@ def blend_full_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
             n["actives"] += int(n_act.sum())
             n["sort_compares"] += float(
                 torch.lgamma(n_act.to(torch.float64) + 1.0).sum() / math.log(2.0))
-            # With K = WINDOW, a pixel that stops at sorted entry e blends it
-            # in round e // K + 1; one whose n actives run out finds fewer
-            # than K entries in round n // K + 1.
+            # With a list of K = WINDOW entries, a pixel that stops at sorted
+            # entry e blends it in round e // K + 1; one whose n actives run
+            # out finds fewer than K entries in round n // K + 1.
             per_pixel = torch.where(stop >= 0, stop // WINDOW,
                                     n_act // WINDOW) + 1
             per_pixel = torch.where(inside[t0:t1], per_pixel, 0)

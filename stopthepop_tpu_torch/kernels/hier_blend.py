@@ -95,12 +95,12 @@ from .global_blend import (
 )
 from .kbuffer_blend import (
     SCRATCH_FLOATS,
-    WARPS,
     _check_float_rows,
     _commit_terms,
     _cuda_prelude,
     _insert,
     _pair_sums,
+    _route_grouped,
     _shift_out,
     _warp_rows,
 )
@@ -263,34 +263,6 @@ def _gids(point_list, starts, src):
     segment (positions past the list are clamped: they are never read)."""
     idx = starts.to(torch.int64).reshape(-1, *([1] * (src.dim() - 1))) + src
     return point_list[idx.clamp(max=point_list.shape[0] - 1)].to(torch.int64)
-
-
-def _route_grouped(acc, commit, src, vals):
-    """One step of K6's grouped routing. The committing lanes of a warp
-    (``commit``, ``src`` [T, 256] and ``vals`` [T, 256, 9], pixels in thread
-    order) that name the same pair form a group; its terms are added in
-    ascending lane order, from its lowest lane's on, and the group's sum is
-    then added into the pair's row of the warp's ``acc`` [T, 8, L, 9]."""
-    T_tiles = acc.shape[0]
-    commit = commit.reshape(T_tiles, WARPS, 32)
-    src = torch.where(commit, src.reshape(T_tiles, WARPS, 32), -1)
-    vals = vals.reshape(T_tiles, WARPS, 32, len(GRAD_COLS))
-    lane = torch.arange(32, device=acc.device)
-    same = (src[..., :, None] == src[..., None, :]) & commit[..., None, :]
-    leader = same.to(torch.uint8).argmax(dim=-1)     # lowest lane of the group
-    joins = commit & (leader != lane)
-    t_idx = torch.arange(T_tiles, device=acc.device)[:, None]
-    w_idx = torch.arange(WARPS, device=acc.device)[None, :]
-    sums = vals.clone()
-    for o in joins.any(dim=1).any(dim=0).nonzero().flatten().tolist():
-        m = joins[:, :, o]
-        ld = leader[:, :, o]
-        cur = sums[t_idx, w_idx, ld]
-        sums[t_idx, w_idx, ld] = torch.where(m[..., None],
-                                             cur + vals[:, :, o], cur)
-    t, w, o = (commit & (leader == lane)).nonzero(as_tuple=True)
-    s = src[t, w, o]
-    acc[t, w, s] = acc[t, w, s] + sums[t, w, o]
 
 
 def _quads(mask):

@@ -1,26 +1,40 @@
-"""Time other builds of K5 and K6 against the checkout's, on one card.
+"""Time other builds of a family of kernels against the checkout's, on one card.
 
     python3 -m stopthepop_tpu_torch.kernels.hier_probe NAME=DIR [NAME=DIR ...]
-        [--out FILE]
+        [--family hier|kbuffer|full] [--out FILE]
 
-Each DIR holds a ``hier_blend_fwd.cu``, a ``hier_blend_bwd.cu`` and the
-``hier_common.cuh`` they include, with the C interfaces of
-``csrc/hier_blend_fwd.cu`` and ``csrc/hier_blend_bwd.cu``: an earlier
-version of the kernels (e.g. unpacked with ``git show``) or a step of a
-redesign. The checkout's own ``csrc/`` joins as ``tree``, last. Every
-variant is built with ``build.NVCC_FLAGS`` (all nvcc processes at once),
-then run on the bench frame of ``chip_smoke.py`` (1920x1080, 500K
-Gaussians from seed 0, queues (64, 8, 4)):
+A family is the kernels of one sort mode whose sources a redesign touches:
 
-* K5's outputs against ``blend_hier_forward_plain`` (bitwise), K6's d_pair
-  against ``blend_hier_backward_plain`` (largest error over each column's
-  largest value; bitwise flag);
+* ``hier`` (the default): K5 and K6. Each DIR holds a ``hier_blend_fwd.cu``,
+  a ``hier_blend_bwd.cu`` and the headers they include (``hier_common.cuh``,
+  ``route_common.cuh``), with the C interfaces of the checkout's.
+* ``kbuffer``: K4, from ``kbuffer_blend_bwd.cu`` and the headers it
+  includes; its input is the plain K3's output at k = 4.
+* ``full``: K7, from ``full_blend_fwd.cu``; its list length (``kList``, or
+  ``K`` of the register window before it) is read from the source.
+
+A DIR holds an earlier version of the sources (e.g. unpacked with ``git
+show``) or a step of a redesign. The checkout's own ``csrc/`` joins as
+``tree``, last. Every variant is built with ``build.NVCC_FLAGS`` (all nvcc
+processes at once), then run on the bench frame of ``chip_smoke.py``
+(1920x1080, 500K Gaussians from seed 0; queues (64, 8, 4) for ``hier``):
+
+* each kernel's outputs against its plain version: K5's and K7's bitwise,
+  K4's and K6's d_pair as the largest error over each column's largest
+  value, a bitwise flag and a flag that two launches give the same bits;
+  for K7 also the passes ("rounds") a tile takes at the variant's list
+  length, from the plain version's counts;
 * times, CUDA events over 20 launches after 2, taken in turns: every
   variant in the given order, then in the reverse order (A B .. Z Z .. B A),
-  and each variant's two times averaged.
+  and each variant's two times averaged;
+* registers and spill stores (ptxas; K5/K6 at (8, 4), K4 at MAX_K = 4), and
+  where the source exports its occupancy query, blocks an SM and shared
+  bytes a block.
 
 Prints one JSON line a variant, the card's name and power limit, and writes
-the lines to FILE when given. Needs a CUDA card and nvcc.
+the lines to FILE when given. Exits 1 if a variant disagrees with the plain
+version (a diagnostic build that skips work does). Needs a CUDA card and
+nvcc.
 """
 
 from __future__ import annotations
@@ -36,44 +50,57 @@ from pathlib import Path
 import torch
 
 from . import build
+from . import full_blend as fb
 from . import hier_blend as hb
+from . import kbuffer_blend as kb
 
 QUEUES = (64, 8, 4)
+KB_K = 4
 WIDTH, HEIGHT, GAUSSIANS = 1920, 1080, 500_000
 ITERS = 20
-_PTXAS = re.compile(r"Compiling entry function '\S*Li8ELi4E\S*'.*?(\d+) bytes spill "
-                    r"stores.*?Used (\d+) registers", re.S)
+# The instantiation whose registers a family reports.
+_ENTRY = {"hier": r"\S*Li8ELi4E\S*", "kbuffer": r"\S*ILi4EE\S*",
+          "full": r"\S*full_blend_fwd_kernel\S*"}
+_SOURCES = {"hier": ("hier_blend_fwd", "hier_blend_bwd"),
+            "kbuffer": ("kbuffer_blend_bwd",), "full": ("full_blend_fwd",)}
+_LIST = re.compile(r"constexpr int (?:kList|K) = (\d+);")
 
 
-def _build(variants):
-    """{name: (K5 fn, K6 fn, {"fwd": (registers, spill stores), "bwd":
-    ...} of the (8, 4) instantiation)}."""
-    out_root = build.BUILD_DIR.parent / "hier_probe"
+def _ptxas(family, log):
+    m = re.search(rf"Compiling entry function '{_ENTRY[family]}'.*?(\d+) bytes "
+                  r"spill stores.*?Used (\d+) registers", log, re.S)
+    return (int(m.group(2)), int(m.group(1))) if m else None
+
+
+def _build(family, variants):
+    """{name: ({source stem: loaded library}, {source stem: (registers,
+    spill stores)})}."""
+    out_root = build.BUILD_DIR.parent / f"{family}_probe"
     procs = {}
     for name, src in variants.items():
         out_dir = out_root / name
         out_dir.mkdir(parents=True, exist_ok=True)
-        for part in ("fwd", "bwd"):
-            so = out_dir / f"{part}.so"
+        for stem in _SOURCES[family]:
+            so = out_dir / f"{stem}.so"
             cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                   str(Path(src) / f"hier_blend_{part}.cu")]
-            procs[name, part] = (so, subprocess.Popen(
+                   str(Path(src) / f"{stem}.cu")]
+            procs[name, stem] = (so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
     libs = {}
-    for (name, part), (so, proc) in procs.items():
+    for (name, stem), (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} {part}:\n{log}")
-        m = _PTXAS.search(log)
-        fn = hb.bind(ctypes.CDLL(str(so)), backward=part == "bwd")
-        fns, regs = libs.setdefault(name, ({}, {}))
-        fns[part] = fn
-        regs[part] = (int(m.group(2)), int(m.group(1))) if m else None
-    return {n: (f["fwd"], f["bwd"], r) for n, (f, r) in libs.items()}
+            raise RuntimeError(f"nvcc failed for {name} {stem}:\n{log}")
+        found, regs = libs.setdefault(name, ({}, {}))
+        found[stem] = ctypes.CDLL(str(so))
+        regs[stem] = _ptxas(family, log)
+    return libs
 
 
 def _bench_frame(dev):
+    """The bench frame's K5 inputs (K3's with the culling thresholds at
+    index 7) and keywords."""
     from ..models.gaussians import init_random
     from ..render.duplicate import build_pairs
     from ..render.pipeline import tile_grid
@@ -99,8 +126,7 @@ def _bench_frame(dev):
             prep.cov3d_inv9.contiguous(),
             prep.opacity_power_threshold.contiguous(),
             cam.inv_viewprojmatrix.contiguous(), cam.campos.contiguous())
-    kw = dict(queue_sizes=QUEUES, hier_4x4_culling=False, grid_x=gx,
-              grid_y=gy, width=WIDTH, height=HEIGHT)
+    kw = dict(grid_x=gx, grid_y=gy, width=WIDTH, height=HEIGHT)
     return args, kw
 
 
@@ -117,9 +143,156 @@ def _ms(fn):
     return start.elapsed_time(end) / ITERS
 
 
+def _cotangents(dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return (torch.randn((3, HEIGHT, WIDTH), generator=gen, device=dev),
+            torch.randn((HEIGHT, WIDTH), generator=gen, device=dev))
+
+
+def _grad_checks(prefix, got, again, ref):
+    scale = ref.abs().amax(dim=0)
+    return {f"{prefix}_max_rel_err": float(((got - ref).abs().amax(dim=0)
+                                            / scale.clamp(min=1e-30)).max()),
+            f"{prefix}_bitwise_plain": bool(torch.equal(got, ref)),
+            f"{prefix}_bitwise_repeat": bool(torch.equal(got, again))}
+
+
+class _Hier:
+    """K5 and K6 (the probe's first family; its keys are unchanged)."""
+    module, timed = hb, ("k5", "k6")
+
+    def __init__(self, dev):
+        args, kw = _bench_frame(dev)
+        self.args, self.kw = args, {**kw, "queue_sizes": QUEUES,
+                                    "hier_4x4_culling": False}
+        with torch.no_grad():
+            self.ref = hb.blend_hier_forward_plain(*self.args, **self.kw)
+            self.bwd_args = (*self.args, *self.ref[:3], *_cotangents(dev))
+            self.ref_d = hb.blend_hier_backward_plain(*self.bwd_args, **self.kw)
+
+    def bind(self, libs):
+        hb._bind = lambda f=hb.bind(libs["hier_blend_fwd"]): f
+        hb._bind_bwd = lambda f=hb.bind(libs["hier_blend_bwd"], backward=True): f
+
+    def run(self):
+        return {"k5": lambda: hb.blend_hier_forward(*self.args, **self.kw),
+                "k6": lambda: hb.blend_hier_backward(*self.bwd_args, **self.kw)}
+
+    def check(self, libs, regs, source):
+        got = hb.blend_hier_forward(*self.args, **self.kw)
+        d = hb.blend_hier_backward(*self.bwd_args, **self.kw)
+        again = hb.blend_hier_backward(*self.bwd_args, **self.kw)
+        torch.cuda.synchronize()
+        return {
+            "registers_spill_stores_8_4": {"fwd": regs["hier_blend_fwd"],
+                                           "bwd": regs["hier_blend_bwd"]},
+            "k5_bitwise": all(torch.equal(g, r) for g, r in zip(got, self.ref)),
+            "k5_n_contrib_mismatches": int((got[2] != self.ref[2]).sum()),
+            "k5_max_abs_err_color": float((got[0] - self.ref[0]).abs().max()),
+            **_grad_checks("k6", d, again, self.ref_d)}
+
+    @staticmethod
+    def ok(row):
+        return (row["k5_bitwise"] and row["k6_max_rel_err"] <= 1e-4
+                and row["k6_bitwise_repeat"])
+
+
+class _KBuffer:
+    """K4 at k = 4 on the plain K3's output."""
+    module, timed = kb, ("k4",)
+
+    def __init__(self, dev):
+        args, kw = _bench_frame(dev)
+        self.args = args[:7] + args[8:]
+        self.kw = {**kw, "k": KB_K}
+        with torch.no_grad():
+            fwd = kb.blend_kbuffer_forward_plain(*self.args, **self.kw)
+            self.bwd_args = (*self.args, *fwd[:3], *_cotangents(dev))
+            self.ref_d = kb.blend_kbuffer_backward_plain(*self.bwd_args,
+                                                         **self.kw)
+
+    def bind(self, libs):
+        kb._bind_bwd = (lambda f=kb.bind(libs["kbuffer_blend_bwd"],
+                                         backward=True): f)
+
+    def run(self):
+        return {"k4": lambda: kb.blend_kbuffer_backward(*self.bwd_args,
+                                                        **self.kw)}
+
+    def check(self, libs, regs, source):
+        d = kb.blend_kbuffer_backward(*self.bwd_args, **self.kw)
+        again = kb.blend_kbuffer_backward(*self.bwd_args, **self.kw)
+        torch.cuda.synchronize()
+        lib = libs["kbuffer_blend_bwd"]
+        occ = (kb.occupancy_bwd(KB_K, lib)
+               if hasattr(lib, "stp_kbuffer_blend_bwd_occupancy") else None)
+        return {"registers_spill_stores_max_k_4": regs["kbuffer_blend_bwd"],
+                "occupancy_max_k_4": occ,
+                **_grad_checks("k4", d, again, self.ref_d)}
+
+    @staticmethod
+    def ok(row):
+        return row["k4_bitwise_plain"] and row["k4_bitwise_repeat"]
+
+
+class _Full:
+    """K7, with its passes a tile at the variant's list length."""
+    module, timed = fb, ("k7",)
+
+    def __init__(self, dev):
+        args, self.kw = _bench_frame(dev)
+        self.args = args[:7] + args[8:]
+        with torch.no_grad():
+            self.ref = fb.blend_full_forward_plain(*self.args, **self.kw)
+        self.rounds = {}
+
+    def rounds_at(self, length):
+        if length not in self.rounds:
+            window = fb.WINDOW
+            try:
+                fb.WINDOW = length
+                with torch.no_grad():
+                    n = fb.blend_full_forward_plain(*self.args, **self.kw,
+                                                    count_evaluations=True)[4]
+            finally:
+                fb.WINDOW = window
+            self.rounds[length] = n["rounds"]
+        return self.rounds[length]
+
+    def bind(self, libs):
+        fb._bind = lambda f=fb.bind(libs["full_blend_fwd"]): f
+
+    def run(self):
+        return {"k7": lambda: fb.blend_full_forward(*self.args, **self.kw)}
+
+    def check(self, libs, regs, source):
+        got = fb.blend_full_forward(*self.args, **self.kw)
+        torch.cuda.synchronize()
+        lib = libs["full_blend_fwd"]
+        occ = (fb.occupancy(lib)
+               if hasattr(lib, "stp_full_blend_fwd_occupancy") else None)
+        m = _LIST.search((Path(source) / "full_blend_fwd.cu").read_text())
+        length = int(m.group(1)) if m else None
+        return {"registers_spill_stores": regs["full_blend_fwd"],
+                "occupancy": occ, "list": length,
+                "rounds": self.rounds_at(length) if length else None,
+                "k7_bitwise": all(torch.equal(g, r)
+                                  for g, r in zip(got, self.ref)),
+                "k7_n_contrib_mismatches": int((got[2] != self.ref[2]).sum()),
+                "k7_max_abs_err_color": float((got[0] - self.ref[0]).abs().max())}
+
+    @staticmethod
+    def ok(row):
+        return row["k7_bitwise"]
+
+
+FAMILIES = {"hier": _Hier, "kbuffer": _KBuffer, "full": _Full}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("variants", nargs="+", metavar="NAME=DIR")
+    ap.add_argument("--family", choices=sorted(FAMILIES), default="hier")
     ap.add_argument("--out")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -130,61 +303,39 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    fns = _build(variants)
-    dev = torch.device("cuda")
-    args, kw = _bench_frame(dev)
-    with torch.no_grad():
-        ref = hb.blend_hier_forward_plain(*args, **kw)
-        gen = torch.Generator(device=dev).manual_seed(7)
-        cot = (torch.randn((3, HEIGHT, WIDTH), generator=gen, device=dev),
-               torch.randn((HEIGHT, WIDTH), generator=gen, device=dev))
-        bwd_args = (*args, ref[0], ref[1], ref[2], *cot)
-        ref_d = hb.blend_hier_backward_plain(*bwd_args, **kw)
-    scale = ref_d.abs().amax(dim=0)
-    bind_fwd, bind_bwd = hb._bind, hb._bind_bwd
-    rows, times = {}, {n: {"k5": [], "k6": []} for n in variants}
+    libs = _build(opts.family, variants)
+    fam = FAMILIES[opts.family](torch.device("cuda"))
+    mod = fam.module
+    saved = {n: getattr(mod, n) for n in ("_bind", "_bind_bwd")
+             if hasattr(mod, n)}
+    rows = {}
+    times = {n: {k: [] for k in fam.timed} for n in variants}
     order = list(variants) + list(reversed(variants))
     try:
         for name in variants:
-            k5, k6, regs = fns[name]
-            hb._bind, hb._bind_bwd = (lambda f=k5: f), (lambda f=k6: f)
-            got = hb.blend_hier_forward(*args, **kw)
-            d = hb.blend_hier_backward(*bwd_args, **kw)
-            again = hb.blend_hier_backward(*bwd_args, **kw)
-            torch.cuda.synchronize()
-            rows[name] = {
-                "variant": name, "source": variants[name],
-                "registers_spill_stores_8_4": regs,
-                "k5_bitwise": all(torch.equal(g, r) for g, r in zip(got, ref)),
-                "k5_n_contrib_mismatches": int((got[2] != ref[2]).sum()),
-                "k5_max_abs_err_color": float((got[0] - ref[0]).abs().max()),
-                "k6_max_rel_err": float(((d - ref_d).abs().amax(dim=0)
-                                         / scale.clamp(min=1e-30)).max()),
-                "k6_bitwise_plain": bool(torch.equal(d, ref_d)),
-                "k6_bitwise_repeat": bool(torch.equal(d, again)),
-            }
+            found, regs = libs[name]
+            fam.bind(found)
+            rows[name] = {"variant": name, "source": variants[name],
+                          **fam.check(found, regs, variants[name])}
         for name in order:
-            k5, k6, _ = fns[name]
-            hb._bind, hb._bind_bwd = (lambda f=k5: f), (lambda f=k6: f)
-            times[name]["k5"].append(_ms(lambda: hb.blend_hier_forward(*args, **kw)))
-            times[name]["k6"].append(_ms(lambda: hb.blend_hier_backward(*bwd_args, **kw)))
+            fam.bind(libs[name][0])
+            for key, fn in fam.run().items():
+                times[name][key].append(_ms(fn))
     finally:
-        hb._bind, hb._bind_bwd = bind_fwd, bind_bwd
+        for n, f in saved.items():
+            setattr(mod, n, f)
     lines = []
     for name in variants:
-        t = times[name]
-        rows[name].update({"k5_ms": t["k5"], "k6_ms": t["k6"],
-                           "k5_ms_mean": sum(t["k5"]) / 2,
-                           "k6_ms_mean": sum(t["k6"]) / 2, "card": card})
+        for key, t in times[name].items():
+            rows[name].update({f"{key}_ms": t, f"{key}_ms_mean": sum(t) / 2})
+        rows[name]["card"] = card
         lines.append(json.dumps(rows[name]))
         print(lines[-1], flush=True)
     print(card)
     if opts.out:
         Path(opts.out).parent.mkdir(parents=True, exist_ok=True)
         Path(opts.out).write_text("\n".join(lines) + "\n")
-    ok = all(r["k5_bitwise"] and r["k6_max_rel_err"] <= 1e-4
-             and r["k6_bitwise_repeat"] for r in rows.values())
-    return 0 if ok else 1
+    return 0 if all(fam.ok(r) for r in rows.values()) else 1
 
 
 if __name__ == "__main__":

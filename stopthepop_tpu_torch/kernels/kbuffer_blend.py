@@ -86,25 +86,45 @@ def _instance(k: int) -> int:
     return next(m for m in WINDOW_SIZES if m >= k)
 
 
-@functools.lru_cache(maxsize=None)
-def _bind():
-    lib = build.load(KERNEL)
-    fn = lib.stp_kbuffer_blend_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5)
+def bind(lib, backward=False):
+    """K3's (or K4's) C entry point in a loaded library, typed."""
+    if backward:
+        fn = lib.stp_kbuffer_blend_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_float] * 2
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+    else:
+        fn = lib.stp_kbuffer_blend_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_float] * 2
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bind():
+    return bind(build.load(KERNEL))
 
 
 @functools.lru_cache(maxsize=None)
 def _bind_bwd():
-    lib = build.load(BWD_KERNEL)
-    fn = lib.stp_kbuffer_blend_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(build.load(BWD_KERNEL), backward=True)
+
+
+def occupancy_bwd(max_k: int, lib=None) -> dict:
+    """What instantiation ``max_k`` of K4 (the checkout's build, or ``lib``)
+    reaches on the current device: resident blocks per SM, registers and
+    local (spill) bytes a thread, static shared bytes a block (it takes no
+    dynamic shared memory)."""
+    lib = build.load(BWD_KERNEL) if lib is None else lib
+    out = (ctypes.c_int * 4)()
+    err = lib.stp_kbuffer_blend_bwd_occupancy(max_k, out)
+    if err != 0:
+        raise RuntimeError(
+            f"{BWD_KERNEL} occupancy query failed: cudaError_t {err}")
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "spill_bytes": out[2], "static_smem_bytes": out[3],
+            "dynamic_smem_bytes": 0}
 
 
 def _check_float_rows(xy, expect):
@@ -335,23 +355,33 @@ def _commit_terms(a0, galpha, w, g, co, dx, dy):
     ], dim=-1)
 
 
-def _route(acc, commit, src, vals):
-    """One step of the kernels' routing: the committing lanes' terms
-    (``commit``, ``src`` [T, 256] and ``vals`` [T, 256, 9], pixels in
-    thread order) added into the rows ``acc`` of their warp, each lane in
-    ascending order."""
+def _route_grouped(acc, commit, src, vals):
+    """One step of K4's and K6's grouped routing (``csrc/route_common.cuh``).
+    The committing lanes of a warp (``commit``, ``src`` [T, 256] and ``vals``
+    [T, 256, 9], pixels in thread order) that name the same pair form a
+    group; its terms are added in ascending lane order, from its lowest
+    lane's on, and the group's sum is then added into the pair's row of the
+    warp's ``acc`` [T, 8, L, 9]."""
     T_tiles = acc.shape[0]
     commit = commit.reshape(T_tiles, WARPS, 32)
-    src = src.reshape(T_tiles, WARPS, 32)
+    src = torch.where(commit, src.reshape(T_tiles, WARPS, 32), -1)
     vals = vals.reshape(T_tiles, WARPS, 32, len(GRAD_COLS))
+    lane = torch.arange(32, device=acc.device)
+    same = (src[..., :, None] == src[..., None, :]) & commit[..., None, :]
+    leader = same.to(torch.uint8).argmax(dim=-1)     # lowest lane of the group
+    joins = commit & (leader != lane)
     t_idx = torch.arange(T_tiles, device=acc.device)[:, None]
     w_idx = torch.arange(WARPS, device=acc.device)[None, :]
-    for lane in commit.any(dim=1).any(dim=0).nonzero().flatten().tolist():
-        m = commit[:, :, lane]
-        s = torch.where(m, src[:, :, lane], 0)
-        cur = acc[t_idx, w_idx, s]
-        acc[t_idx, w_idx, s] = torch.where(m[..., None],
-                                           cur + vals[:, :, lane], cur)
+    sums = vals.clone()
+    for o in joins.any(dim=1).any(dim=0).nonzero().flatten().tolist():
+        m = joins[:, :, o]
+        ld = leader[:, :, o]
+        cur = sums[t_idx, w_idx, ld]
+        sums[t_idx, w_idx, ld] = torch.where(m[..., None],
+                                             cur + vals[:, :, o], cur)
+    t, w, o = (commit & (leader == lane)).nonzero(as_tuple=True)
+    s = src[t, w, o]
+    acc[t, w, s] = acc[t, w, s] + sums[t, w, o]
 
 
 def _pair_sums(acc, starts, counts, d_pair):
@@ -435,9 +465,10 @@ def blend_kbuffer_backward_plain(point_list, starts, ends, xy, conic_opacity,
       galpha = a0 < 0.99 ? (c.g) T - (S_tot - acc + K_T) / (1 - a0) : 0,
     with S_tot = color . g and K_T = g_T final_T per pixel, and the nine
     per-pair terms follow from dpower = -a0 galpha. The terms are summed as
-    K4 sums them: per tile and warp of 32 pixels, step by step and within a
-    step in ascending lane order, into the committed pair's row; then each
-    pair's 8 warp sums in warp order. With ``count_evaluations`` it also
+    K4 sums them: per tile and warp of 32 pixels, step by step; within a
+    step the lanes that commit the same pair are summed in ascending lane
+    order and the sum goes into the pair's row (``_route_grouped``); then
+    each pair's 8 warp sums in warp order. With ``count_evaluations`` it also
     returns K3's counts for the replay (see ``blend_kbuffer_forward_plain``).
     """
     k = check_window(k)
@@ -483,7 +514,7 @@ def blend_kbuffer_backward_plain(point_list, starts, ends, xy, conic_opacity,
             max=max(n_pairs - 1, 0))].to(torch.int64)
         vals = _commit_terms(a0, galpha, w, g, conic_opacity[gid],
                              xy[gid, 0] - pix_x, xy[gid, 1] - pix_y)
-        _route(acc, commit, src, vals)
+        _route_grouped(acc, commit, src, vals)
         T = torch.where(commit, U, T)
         nc = nc + commit.to(torch.int32)
         done = done | (nc == target)

@@ -102,12 +102,14 @@ def random_scene(seed: int, num_gaussians: int, extent: float = 1.5,
 def clone_trap_scene(device=None) -> Scene:
     """A scene for the exact per-pixel sort's edge cases, drawn with numpy.
 
-    Framed by ``make_camera(32, 32)``. 20 faint (opacity 0.07), wide
-    Gaussians around the origin, each cloned 3 times bit for bit (as
+    Framed by ``make_camera(32, 32)``. 56 faint (opacity 0.025), wide
+    Gaussians around the origin, each cloned 5 times bit for bit (as
     densification's clone does, so their ray depths tie exactly): the
-    central pixels hold ~60 actives and do not saturate. 12 opaque (0.6)
-    Gaussians toward the lower right, each cloned twice: those pixels
-    saturate (T < 1e-4) before their actives run out.
+    central pixels hold ~280 actives, more than four lists of K7's 48 or 64
+    entries, and do not saturate; a list boundary splits a group of clones
+    (48, 64 and 96 are no multiples of 5). 12 opaque (0.6) Gaussians toward
+    the lower right, each cloned twice: those pixels saturate (T < 1e-4)
+    before their actives run out.
     """
     dev = resolve_device(device)
     rng = np.random.default_rng(1)
@@ -124,7 +126,7 @@ def clone_trap_scene(device=None) -> Scene:
         return [np.repeat(x, copies, axis=0)
                 for x in (means, scales, q, opac, shs, colors)]
 
-    faint = group(20, 3, 0.07, np.zeros(3), 0.3, 0.5)
+    faint = group(56, 5, 0.025, np.zeros(3), 0.3, 0.5)
     opaque = group(12, 2, 0.6, np.array([0.8, 0.8, 0.0]), 0.2, 0.3)
     return Scene(*(
         torch.as_tensor(np.concatenate([a, b]).astype(np.float32), device=dev)

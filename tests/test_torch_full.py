@@ -13,8 +13,8 @@ mode, on a scene without depth near-ties (its bitonic network is not
 stable and it forms the ray with a reciprocal): its test's atol 1e-4.
 
 The trap scene clones Gaussians bit for bit (exact depth ties) and gives
-pixels more than three windows of actives. A small numpy model of K7's
-rounds (a window of K entries above a floor) equals the plain version
+pixels more than three lists of K7's actives. A small numpy model of K7's
+rounds (a list of K entries above a floor) equals the plain version
 there with the floor compared on (depth, stream position), and differs
 from it with a floor on depth alone, which drops tied clones.
 """
@@ -165,7 +165,7 @@ def test_trap_scene_plain_k7_equals_oracle():
     np.testing.assert_allclose(final_t.numpy().reshape(-1), rT, atol=1e-5)
     np.testing.assert_allclose(depth_acc.numpy(), rD, atol=1e-4)
     np.testing.assert_array_equal(n_contrib.numpy().reshape(-1), rn)
-    # More than three windows of 16 commits on a pixel, and pixels that
+    # More than three lists of K7's commits on a pixel, and pixels that
     # stop at the threshold.
     assert int(n_contrib.max()) > 3 * full_blend.WINDOW
     assert float(final_t.min()) < 2 * T_THRESHOLD
@@ -179,15 +179,17 @@ def _k7_rounds(entries, K, lexicographic):
     floor = (-np.inf, -1)
     S, T, C, nc = f32(0), f32(1), np.zeros(3, f32), 0
     while True:
-        win = []
+        win, keys = [], []
         for e in entries:
             d, p = e[0], e[1]
             above = d > floor[0] or (lexicographic and d == floor[0]
                                      and p > floor[1])
-            if not above or (len(win) == K and not d < win[-1][0]):
+            if not above or (len(win) == K and not d < keys[-1]):
                 continue
-            win.insert(bisect.bisect_right([x[0] for x in win], d), e)
-            del win[K:]
+            i = bisect.bisect_right(keys, d)
+            win.insert(i, e)
+            keys.insert(i, d)
+            del win[K:], keys[K:]
         for d, p, a, rgb in win:
             S = f32(S + np.log1p(-a))
             U = f32(np.exp(S))

@@ -21,9 +21,11 @@ and the API) against autograd and the JAX package's gradients, on the CPU.
   value, rtol 3e-3): (8, 4, 2) at 48x48 through SH, scales and rotations,
   and (64, 8, 4) on one deep 16x16 tile through precomputed colors and
   covariances.
-- K6's grouped routing (``_route_grouped``) against a numpy model of its
-  order of summation, and equal to K4's lane-by-lane ``_route`` where no
-  two lanes of a warp commit the same pair.
+- The grouped routing that K4 and K6 share (``_route_grouped``) against a
+  numpy model of its order of summation, and equal to a lane-by-lane model
+  (each committing lane's terms added into its pair's row in ascending
+  lane order, K4's routing before it was grouped) where no two lanes of a
+  warp commit the same pair.
 - An empty stream; the kernel library's name hashing the shared header.
 """
 
@@ -40,9 +42,8 @@ import stopthepop_tpu_torch as stt
 from stopthepop_tpu_torch.constants import T_THRESHOLD
 from stopthepop_tpu_torch.kernels import build
 from stopthepop_tpu_torch.kernels.blend_vjp import reduce_pair_grads
-from stopthepop_tpu_torch.kernels.kbuffer_blend import WARPS, _route
+from stopthepop_tpu_torch.kernels.kbuffer_blend import WARPS, _route_grouped
 from stopthepop_tpu_torch.kernels.hier_blend import (
-    _route_grouped,
     blend_hier_backward,
     blend_hier_forward_plain,
     subtile_of_pixel,
@@ -403,8 +404,19 @@ def test_an_edited_header_changes_every_library_path(tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# K6's grouped routing
+# The grouped routing of K4 and K6
 # ---------------------------------------------------------------------------
+
+def _route_lane_model(acc, commit, src, vals):
+    """numpy, lane by lane: each committing lane's terms added into its
+    pair's row of its warp, lanes in ascending order."""
+    acc = acc.copy()
+    for t in range(acc.shape[0]):
+        for i in np.flatnonzero(commit[t]):
+            w, s = i // 32, int(src[t, i])
+            acc[t, w, s] = acc[t, w, s] + vals[t, i]
+    return acc
+
 
 def _route_grouped_model(acc, commit, src, vals):
     """numpy, lane by lane: per tile and warp, the committing lanes that name
@@ -446,11 +458,9 @@ def test_grouped_routing_sums_each_pair_once_in_lane_order():
     _route_grouped(got, torch.from_numpy(commit), torch.from_numpy(src),
                    torch.from_numpy(vals))
     assert np.array_equal(got.numpy(), expect)
-    # The order differs from K4's lane-by-lane adds, and this step shows it.
-    lane_by_lane = torch.from_numpy(acc.copy())
-    _route(lane_by_lane, torch.from_numpy(commit), torch.from_numpy(src),
-           torch.from_numpy(vals))
-    assert not torch.equal(lane_by_lane, got)
+    # The order differs from lane-by-lane adds, and this step shows it.
+    lane_by_lane = _route_lane_model(acc, commit, src, vals)
+    assert not np.array_equal(lane_by_lane, got.numpy())
 
 
 def test_grouped_routing_is_route_without_shared_pairs():
@@ -459,10 +469,7 @@ def test_grouped_routing_is_route_without_shared_pairs():
     src = np.tile(np.arange(32) % 12, (3, WARPS))
     commit &= np.arange(256)[None, :] % 32 < 12
     a = torch.from_numpy(acc.copy())
-    b = torch.from_numpy(acc.copy())
-    args = (torch.from_numpy(commit), torch.from_numpy(src),
-            torch.from_numpy(vals))
-    _route_grouped(a, *args)
-    _route(b, *args)
-    assert torch.equal(a, b)
+    _route_grouped(a, torch.from_numpy(commit), torch.from_numpy(src),
+                   torch.from_numpy(vals))
+    assert np.array_equal(a.numpy(), _route_lane_model(acc, commit, src, vals))
     assert not torch.equal(a, torch.from_numpy(acc))

@@ -5,6 +5,10 @@ gradients, on the CPU.
   version of K3 (written in differentiable torch operations): per-Gaussian
   gradients within 1e-5 of each column's largest value, over window sizes,
   DISTANCE and tile culling. The two share no gradient code.
+- The plain K4 on a step where lanes of one warp commit the same pair: its
+  grouped routing (``_route_grouped``) sums them before their row, the
+  result meets autograd at the same 1e-5, and lane-by-lane routing gives
+  other bits there.
 - The 8 gradients of ``GaussianRasterizer`` in PPX_KBUFFER mode (means3D,
   means2D, sh, colors_precomp, opacities, scales, rotations, cov3Ds_precomp)
   against ``jax.grad`` of the JAX package's preprocess and its k-buffer
@@ -32,6 +36,7 @@ from stopthepop_tpu.train import trainer as jtrainer
 
 import stopthepop_tpu_torch as stt
 from stopthepop_tpu_torch.io.cameras import CameraArrays
+from stopthepop_tpu_torch.kernels import kbuffer_blend
 from stopthepop_tpu_torch.kernels.blend_vjp import reduce_pair_grads
 from stopthepop_tpu_torch.kernels.kbuffer_blend import (
     blend_kbuffer_backward,
@@ -55,9 +60,10 @@ from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
 BG = np.array([0.3, 0.1, 0.2], np.float32)
 
 
-@pytest.mark.parametrize("k,order,cull", [(1, 0, False), (4, 0, True), (8, 1, True)],
-                         ids=["k1", "k4-tilecull", "k8-distance-tilecull"])
-def test_plain_backward_matches_autograd(k, order, cull):
+def _autograd_case(k, order, cull):
+    """A 70x45 scene's K3 inputs with seeded cotangents: (pairs, rows
+    [xy, conic_opacity, rgb] that require grad, the camera arguments, the
+    keywords, the cotangents (g_color, g_t))."""
     w, h = 70, 45
     scene = random_scene(5, 200, scale_range=(0.05, 0.4), device="cpu")
     cam = make_camera(w, h, device="cpu")
@@ -79,6 +85,13 @@ def test_plain_backward_matches_autograd(k, order, cull):
             for x in (prep.mean2d, prep.conic_opacity, prep.rgb)]
     cam_args = (prep.cov3d_inv9.detach(), cam.inv_viewprojmatrix, cam.campos)
     kw = dict(k=k, grid_x=gx, grid_y=gy, width=w, height=h)
+    return pairs, rows, cam_args, kw, (g_color, g_t)
+
+
+@pytest.mark.parametrize("k,order,cull", [(1, 0, False), (4, 0, True), (8, 1, True)],
+                         ids=["k1", "k4-tilecull", "k8-distance-tilecull"])
+def test_plain_backward_matches_autograd(k, order, cull):
+    pairs, rows, cam_args, kw, (g_color, g_t) = _autograd_case(k, order, cull)
     color, final_t, n_contrib, _ = blend_kbuffer_forward_plain(
         pairs.gauss_id, pairs.starts, pairs.ends, *rows, *cam_args, **kw)
     assert n_contrib.max() > k  # windows overflow
@@ -94,6 +107,57 @@ def test_plain_backward_matches_autograd(k, order, cull):
         scale = ref.abs().amax(dim=0)
         assert (scale > 0).all(), name
         assert ((got - ref).abs() <= 1e-5 * scale).all(), name
+
+
+def _route_lane_by_lane(acc, commit, src, vals):
+    """Each committing lane's terms added into its pair's row of its warp,
+    lanes in ascending order (no grouping)."""
+    T_tiles, warps = acc.shape[:2]
+    commit = commit.reshape(T_tiles, warps, 32)
+    src = torch.where(commit, src.reshape(T_tiles, warps, 32), 0)
+    vals = vals.reshape(T_tiles, warps, 32, 9)
+    t_idx = torch.arange(T_tiles)[:, None]
+    w_idx = torch.arange(warps)[None, :]
+    for lane in range(32):
+        m, s = commit[:, :, lane], src[:, :, lane]
+        cur = acc[t_idx, w_idx, s]
+        acc[t_idx, w_idx, s] = torch.where(m[..., None],
+                                           cur + vals[:, :, lane], cur)
+
+
+def test_plain_backward_groups_lanes_that_commit_one_pair(monkeypatch):
+    pairs, rows, cam_args, kw, (g_color, g_t) = _autograd_case(4, 0, False)
+    color, final_t, n_contrib, _ = blend_kbuffer_forward_plain(
+        pairs.gauss_id, pairs.starts, pairs.ends, *rows, *cam_args, **kw)
+    expect = torch.autograd.grad((color * g_color).sum() + (final_t * g_t).sum(),
+                                 rows)
+    args = (pairs.gauss_id, pairs.starts, pairs.ends,
+            *(r.detach() for r in rows), *cam_args, color.detach(),
+            final_t.detach(), n_contrib, g_color, g_t)
+    shared = []
+    grouped = kbuffer_blend._route_grouped
+
+    def recording(acc, commit, src, vals):
+        c = commit.reshape(-1, 32)
+        s = torch.where(c, src.reshape(-1, 32), -1)
+        same = (s[:, :, None] == s[:, None, :]) & c[:, :, None] & c[:, None, :]
+        shared.append(int(same.sum()) - int(c.sum()))  # ordered lane pairs
+        grouped(acc, commit, src, vals)
+
+    monkeypatch.setattr(kbuffer_blend, "_route_grouped", recording)
+    d_pair = blend_kbuffer_backward(*args, **kw)
+    # Steps on which two lanes of a warp committed the same pair.
+    assert sum(n > 0 for n in shared) > 10
+    d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
+    for name, got, ref in zip(("xy", "conic_opacity", "rgb"),
+                              (d[:, 0:2], d[:, 2:6], d[:, 6:9]), expect):
+        scale = ref.abs().amax(dim=0)
+        assert ((got - ref).abs() <= 1e-5 * scale).all(), name
+    monkeypatch.setattr(kbuffer_blend, "_route_grouped", _route_lane_by_lane)
+    lane_by_lane = blend_kbuffer_backward(*args, **kw)
+    assert not torch.equal(lane_by_lane, d_pair)
+    scale = d_pair.abs().amax(dim=0)
+    assert ((lane_by_lane - d_pair).abs() <= 1e-5 * scale).all()
 
 
 def _settings(mod, cam, w, h, as_array, k):
