@@ -23,10 +23,13 @@ Phases, one JSON line each; any failure exits non-zero:
      finite and not background, ~1M+ pairs a frame, K1 launched exactly once
      per frame. Then a per-stage breakdown of one frame (CUDA events).
   4. kernel_bwd: hold kernel K2 (GLOBAL blend, backward) against its plain
-     version on the same two scenes with seeded random cotangents (each of
-     the 9 per-pair gradient columns within 1e-4 of that column's largest
-     value); two K2 launches and two full BlendGlobal backward passes
-     bitwise equal; time K2 and its plain version.
+     version on the same two scenes and phase 11's deep-segment scene with
+     seeded random cotangents (each of the 9 per-pair gradient columns
+     within 1e-4 of that column's largest value); two K2 launches and two
+     full BlendGlobal backward passes bitwise equal; time K2 and its plain
+     version; the share of (warp, pair) steps K2's footprint test keeps and
+     the plain version's warp-step counts at 1080p; K2's registers, spills
+     and blocks an SM.
   5. train: the training path at full width — the bench model, the bench
      camera at 1920x1080, a seeded random target, one warm-up step and 5
      timed steps of train/trainer.py's step (K1, K2, L1 + D-SSIM, per-group
@@ -43,10 +46,12 @@ Phases, one JSON line each; any failure exits non-zero:
      rises, the Gaussian count changes, the PLY loads, only K1 and K2
      launch.
   7. kernel_kb: hold kernel K3 (PER_PIXEL_KBUFFER blend, forward) against
-     its plain version — phase 2's 70x45 scene and a denser draw of it with
-     windows k = 1, 4, 8 and 24, and the 1080p/500K bench frame with k = 4 (color / final_T
-     within atol 1e-5, n_contrib (commit counts) exactly, depth_acc within
-     1e-5 relative) — and time both.
+     its plain version — phase 2's 70x45 scene and a denser draw of it and
+     phase 11's deep-segment scene with windows k = 1, 4, 8 and 24, and the
+     1080p/500K bench frame with k = 4 (every output bitwise equal) — and
+     time both; the share of (warp, pair) steps K3's footprint test keeps,
+     the plain version's warp-step counts and the rounds of K3's second
+     phase at 1080p; K3's registers, spills and blocks an SM at MAX_K = 4.
   8. main_kb: render 4 orbit frames of the 500K model at 1920x1080 through
      render/cli.py::render_frames in PPX_KBUFFER (k = 4); every frame finite
      and not background, K3 launched exactly once a frame and K1, K2, K4 not
@@ -140,17 +145,18 @@ PEAK_FP32_S = 67e12
 # quadratic form) and per blend (w, three colour and one depth update);
 # expf, min and compares are not counted, so the bound stays a lower bound.
 OPS_PER_EVAL, OPS_PER_BLEND = 11, 9
-# K2 replays each evaluation as K1 does (11), and per blend forms the alpha
+# K2 replays each evaluation as K1 does (11), counted only in the warps its
+# footprint test keeps (the rest need none), and per blend forms the alpha
 # gradient and the nine per-pair terms (36 operations) and adds them into
 # the nine per-pair sums (9).
 OPS_PER_BLEND_BWD = 45
 K2_RTOL = 1e-4  # of each gradient column's largest magnitude
-# K3 evaluates each (pixel, pair) alpha as K1 does (11); for the pairs that
-# pass the alpha tests, the ray depth: u . d (5) and d^T Sigma^-1 d (18) and
-# the divide (1). Each insert takes k compares and k selects for each of the
-# 5 window fields (6 k); each commit w, three colour and one depth update,
-# the new T and the count (10). The floor, the min and the tests are not
-# counted.
+# K3 evaluates each (pixel, pair) alpha as K1 does (11), counted only in the
+# warps its footprint test keeps; for the pairs that pass the alpha tests,
+# the ray depth: u . d (5) and d^T Sigma^-1 d (18) and the divide (1). Each
+# insert takes k compares and k selects for each of the 5 window fields
+# (6 k); each commit w, three colour and one depth update, the new T and the
+# count (10). The floor, the min and the tests are not counted.
 OPS_PER_DEPTH, OPS_PER_INSERT_SLOT, OPS_PER_COMMIT = 24, 6, 10
 # K4 replays K3's evaluations, depths and inserts (its window holds 4
 # fields, counted as K3's 5) and per commit forms the alpha gradient and the
@@ -305,8 +311,10 @@ def compare_kernel_bwd(name, args, kw, cotangents, *, count_evaluations=False):
     torch.cuda.synchronize()
     check(blend_global_backward.launches == before + 2, "kernel_bwd",
           f"{name}: launch counter did not move")
+    warps = {} if count_evaluations else None
     ref = blend_global_backward_plain(*bwd_args, **kw,
-                                      count_evaluations=count_evaluations)
+                                      count_evaluations=count_evaluations,
+                                      warp_counts=warps)
     if count_evaluations:
         ref, evaluations, blends = ref
     scale = ref.abs().amax(dim=0)
@@ -324,7 +332,13 @@ def compare_kernel_bwd(name, args, kw, cotangents, *, count_evaluations=False):
           f"{name}: two K2 launches differ")
     if count_evaluations:
         stats["evaluations"], stats["blends"] = evaluations, blends
+        stats.update(warps, footprint_kept_share=kept_share(warps))
     return stats, bwd_args
+
+
+def kept_share(counts):
+    """The share of (warp, pair) steps that a footprint test keeps."""
+    return counts["warp_pairs_kept"] / max(counts["warp_pairs"], 1)
 
 
 def backward_grads(prep, apply, cotangents):
@@ -376,6 +390,8 @@ def compare_resort(phase, name, wrapper, plain, args, kw, *,
              "n_contrib_mismatches": int((got[2] != ref[2]).sum()),
              "max_rel_err_depth_acc": err_depth,
              "max_commits": int(got[2].max()),
+             "bitwise_equal_plain": all(torch.equal(g, r)
+                                        for g, r in zip(got, ref[:4])),
              "finite": all(bool(torch.isfinite(x).all())
                            for x in (got[0], got[1], got[3]))}
     check(stats["finite"] and stats["max_abs_err_color"] <= ATOL
@@ -388,13 +404,18 @@ def compare_resort(phase, name, wrapper, plain, args, kw, *,
 
 
 def compare_kb(name, args, kw, k, *, count_evaluations=False):
-    """K3 against its plain version; returns (stats, K3's output)."""
+    """K3 against its plain version, to the bit; returns (stats, K3's
+    output)."""
     from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
 
     stats, got = compare_resort(
         "kernel_kb", name, kb.blend_kbuffer_forward,
         kb.blend_kbuffer_forward_plain, args, {**kw, "k": k},
         count_evaluations=count_evaluations)
+    check(stats["bitwise_equal_plain"], "kernel_kb",
+          f"{name}: K3 is not bitwise equal to its plain version: {stats}")
+    if count_evaluations:
+        stats["footprint_kept_share"] = kept_share(stats)
     return {"k": k, **stats}, got
 
 
@@ -487,7 +508,7 @@ def compare_hier_bwd(name, args, kw, cotangents, *, count_evaluations=False):
             "hier_4x4_culling": kw["hier_4x4_culling"], **stats}, bwd_args
 
 
-def hier_deep_case(dev):
+def hier_deep_case(dev, phase="kernel_hier"):
     """The deep-segment case of K5 and K6: (case name, prepare() output,
     camera); fails unless every segment holds HIER_DEEP_MIN pairs."""
     from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
@@ -499,7 +520,7 @@ def hier_deep_case(dev):
          "scales": scene.scales, "rotations": scene.rotations,
          "shs": scene.shs}, cam, HIER_DEEP_SIZE, HIER_DEEP_SIZE)
     segments = (pairs.ends - pairs.starts).tolist()
-    check(min(segments) >= HIER_DEEP_MIN, "kernel_hier",
+    check(min(segments) >= HIER_DEEP_MIN, phase,
           f"the deep scene's segments are too short: {segments}")
     return (f"{HIER_DEEP_SIZE}x{HIER_DEEP_SIZE} deep segments {segments}",
             (prep, pairs, kw), cam)
@@ -946,6 +967,14 @@ def main(argv=None) -> int:
                                           cotangents(70, 45))
     emit({"phase": "kernel_bwd", "ok": True,
           "case": "70x45 random scene, 300 Gaussians", **small_bwd})
+    # K2 on deep segments: many staged batches a tile.
+    deep_case, (prep, pairs, dkw), _ = hier_deep_case(dev, "kernel_bwd")
+    with torch.no_grad():
+        deep_bwd, _ = compare_kernel_bwd(
+            deep_case, blend_args(prep, pairs), dkw,
+            cotangents(HIER_DEEP_SIZE, HIER_DEEP_SIZE))
+    emit({"phase": "kernel_bwd", "ok": True, "case": deep_case,
+          "pairs": pairs.num_rendered, **deep_bwd})
     bench_cam = make_camera(WIDTH, HEIGHT, campos=(0.0, 0.0, -4.0), device=dev)
     with torch.no_grad():
         prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
@@ -963,7 +992,8 @@ def main(argv=None) -> int:
             kw["grid_y"], kw["width"], kw["height"]), cot)
     N = pairs.num_rendered
     k2_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3) + WIDTH * HEIGHT * 9 + N * 9)
-    k2_ops = (OPS_PER_EVAL * full_bwd["evaluations"]
+    # The evaluations K2 needs: those in the warps its footprint test keeps.
+    k2_ops = (OPS_PER_EVAL * full_bwd["evaluations_kept"]
               + OPS_PER_BLEND_BWD * full_bwd["blends"])
     k2_bytes_ms = k2_bytes / PEAK_BYTES_S * 1e3
     k2_ops_ms = k2_ops / PEAK_FP32_S * 1e3
@@ -971,7 +1001,11 @@ def main(argv=None) -> int:
           "case": "1920x1080, 500K Gaussians, bench camera", "pairs": N,
           **full_bwd, "k2_ms": k2_ms, "plain_ms": k2_plain_ms,
           "bytes": k2_bytes, "ops": k2_ops, "bytes_bound_ms": k2_bytes_ms,
-          "ops_bound_ms": k2_ops_ms, "card": card})
+          "ops_bound_ms": k2_ops_ms,
+          "occupancy": global_blend.occupancy_bwd(),
+          "ptxas": ptxas_summary(build.build_log.get(
+              global_blend.BWD_KERNEL, {}).get("ptxas", "")).get("kernel"),
+          "card": card})
     del prep, pairs, k2_args, cot
 
     # 5. train: the training step at full width ----------------------------------
@@ -1083,6 +1117,16 @@ def main(argv=None) -> int:
                 emit({"phase": "kernel_kb", "ok": True, "case": case,
                       "pairs": pairs.num_rendered, **st})
             kb_cases.append((case, sargs, skw, fwd))
+        # K3 on deep segments: many staged batches a tile.
+        deep_case, (prep, pairs, dkw), deep_cam = hier_deep_case(
+            dev, "kernel_kb")
+        dargs = kb_args(prep, pairs, deep_cam)
+        for k in KB_SMALL_KS:
+            st, _ = compare_kb(f"{deep_case}, k={k}", dargs, dkw, k)
+            kb_small_stats.append(st)
+            emit({"phase": "kernel_kb", "ok": True, "case": deep_case,
+                  "pairs": pairs.num_rendered, **st})
+        del prep, pairs, dargs
     model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3, device=dev)
     with torch.no_grad():
         model.scales_log -= 2.3
@@ -1099,7 +1143,8 @@ def main(argv=None) -> int:
             *kb_bench_args, k=k, **kw), 5) for k in (1, 8, 24)}
     N = pairs.num_rendered
     k3_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3 + 9) + 19 + WIDTH * HEIGHT * 6)
-    k3_ops = (OPS_PER_EVAL * kb_full["evaluations"]
+    # The evaluations K3 needs: those in the warps its footprint test keeps.
+    k3_ops = (OPS_PER_EVAL * kb_full["evaluations_kept"]
               + OPS_PER_DEPTH * kb_full["depths"]
               + OPS_PER_INSERT_SLOT * KB_K * kb_full["inserts"]
               + OPS_PER_COMMIT * kb_full["commits"])
@@ -1109,6 +1154,9 @@ def main(argv=None) -> int:
           **kb_full, "k3_ms": k3_ms, "plain_ms": k3_plain_ms,
           "k3_ms_by_window": k3_by_k, "bytes": k3_bytes, "ops": k3_ops,
           "bytes_bound_ms": k3_bytes_ms, "ops_bound_ms": k3_ops_ms,
+          "occupancy_max_k_4": kb.occupancy_fwd(kb._instance(KB_K)),
+          "ptxas_max_k_4": ptxas_summary(build.build_log.get(
+              kb.KERNEL, {}).get("ptxas", "")).get("MAX_K=4"),
           "card": card})
 
     # 8. main_kb: the serving path in PPX_KBUFFER -------------------------------
@@ -1449,7 +1497,8 @@ def main(argv=None) -> int:
         "name": global_blend.BWD_KERNEL, "route": "cuda",
         "source": global_blend.BWD_SOURCE, "replaces": global_blend.BWD_REPLACES,
         "launches": train_fields["launches"]["k2"],
-        "max_abs_err": max(small_bwd["max_abs_err"], full_bwd["max_abs_err"]),
+        "max_abs_err": max(small_bwd["max_abs_err"], deep_bwd["max_abs_err"],
+                           full_bwd["max_abs_err"]),
         "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": max(k2_bytes_ms, k2_ops_ms),
         "bound_by": "bytes" if k2_bytes_ms >= k2_ops_ms else "operations",

@@ -4,14 +4,15 @@
 // (the Pallas _fwd_kernel). Its shape is the reference's renderkBufferCUDA
 // (resorted_render.cuh:17-221) and K1's (global_blend_fwd.cu):
 //
-//   * one block of 256 threads per 16x16 tile, one thread per pixel
-//     (pixels row-major within the tile); pixels outside the image start
-//     done and are not written;
+//   * one block of 256 threads per 16x16 tile, one thread per pixel, each
+//     warp an 8x4 block of pixels (footprint_common.cuh); pixels outside
+//     the image start done and are not written;
 //   * the block reads its own [start, end) range of the (tile, depth)-sorted
 //     Gaussian id list and stages batches of 256 pairs in shared memory
 //     through the sorted ids: xy, conic+opacity, rgb and the 9 floats of the
 //     packed inverse covariance (Sigma^-1 and u = Sigma^-1 (mean - campos)),
-//     76 bytes a pair, 19 KB a batch;
+//     76 bytes a pair, 19 KB a batch, and each pair's footprint mask: the
+//     warps whose pixels it can reach; a warp skips the others;
 //   * each thread computes its pixel's world-space view ray once
 //     (stopthepop_common.cuh:68-74: rows 0, 1, 3 of the inverse
 //     view-projection, the integer pixel coordinate) and keeps a window of
@@ -29,6 +30,14 @@
 //     w = alpha T) where U = T (1 - alpha) >= 1e-4, and sets the done latch
 //     where U < 1e-4; a done pixel never commits again and does no more
 //     work. After the stream, the window drains front to back;
+//   * the batch goes in chunks of 32 pairs, in two phases that keep a warp's
+//     lanes together: each lane first marks the chunk's pairs that pass the
+//     alpha tests at its pixel (a 32-bit mask), then takes its marked pairs
+//     one a round, in stream order, for the ray depth, the pop and the
+//     insert, with the alpha evaluated again by the same expression. A warp
+//     runs as many rounds as its busiest lane has passers, not one round for
+//     every pair that any lane passes; each lane meets its pairs in the same
+//     order as a per-pair loop, so every output has its bits;
 //   * the block leaves the stream when __syncthreads_count says that every
 //     pixel is done: exact, because a done pixel's outputs are final.
 //
@@ -44,8 +53,13 @@
 // commit. Against that, ~50 MB written at 1080p and the id list and
 // per-Gaussian rows read: bound by operations. Its design against that
 // bound: every staged pair is read from device memory once per tile and
-// served to 256 pixels from shared memory; the window never leaves
-// registers; done pixels stop; the smallest instantiation >= k runs.
+// served to 256 pixels from shared memory; a warp evaluates only the pairs
+// whose footprint reaches it (~38% of the (warp, pair) steps at the 1080p
+// bench frame) and runs the depth and insert without divergence; the window
+// never leaves registers; done pixels stop; the smallest instantiation >= k
+// runs. On an H100 (PERF.md) 8x4 warps ran faster than two rows of 16, the
+// box test faster than the exact one, and 4 blocks an SM faster than 2, 3
+// or 5.
 //
 // Numerics: accurate expf, IEEE division and square root, and built with
 // -fmad=false, so that each product and sum rounds as in the plain PyTorch
@@ -58,18 +72,30 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "footprint_common.cuh"
+
 namespace {
 
 constexpr int kTileX = 16;
 constexpr int kTileY = 16;
 constexpr int kBlock = kTileX * kTileY;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaThreshold = 1.0f / 255.0f;
 constexpr float kTThreshold = 1.0e-4f;
 constexpr float kDenFloor = 1.0e-5f;
+// Each warp covers kWarpW x kWarpH pixels of the tile and culls staged pairs
+// by their footprint (footprint_common.cuh).
+constexpr int kWarpW = 8;
+constexpr int kWarpH = 4;
+// Resident blocks an SM asked of the compiler for windows up to 4: at
+// MAX_K = 4 four blocks (64 registers, 12 B of spill stores) ran faster on an
+// H100 than two (92 registers) or five (48 registers, 150 B spilled)
+// (PERF.md).
+constexpr int kMinBlocks = 4;
 
 template <int MAX_K>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, MAX_K <= 4 ? kMinBlocks : 1)
 kbuffer_blend_fwd_kernel(const int* __restrict__ point_list,
                          const int* __restrict__ starts,
                          const int* __restrict__ ends,
@@ -89,11 +115,17 @@ kbuffer_blend_fwd_kernel(const int* __restrict__ point_list,
   __shared__ float4 s_i0[kBlock];  // xx, xy, xz, yy
   __shared__ float4 s_i1[kBlock];  // yz, zz, u0, u1
   __shared__ float4 s_i2[kBlock];  // u2, r, g, b
+  __shared__ unsigned char s_mask[kBlock];
 
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
-  const int px = (tile % grid_x) * kTileX + t % kTileX;
-  const int py = (tile / grid_x) * kTileY + t / kTileX;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int ox = (tile % grid_x) * kTileX;
+  const int oy = (tile / grid_x) * kTileY;
+  const int2 in_tile = footprint::pixel_in_tile<kWarpW, kWarpH>(t);
+  const int px = ox + in_tile.x;
+  const int py = oy + in_tile.y;
   const bool inside = px < width && py < height;
   const float pfx = static_cast<float>(px);
   const float pfy = static_cast<float>(py);
@@ -163,6 +195,19 @@ kbuffer_blend_fwd_kernel(const int* __restrict__ point_list,
     --fill;
   };
 
+  // Pair j's alpha at this pixel, or -1 where it fails the alpha tests.
+  auto alpha_of = [&](int j) {
+    const float2 m = s_xy[j];
+    const float4 co = s_co[j];
+    const float dx = m.x - pfx;
+    const float dy = m.y - pfy;
+    const float power =
+        0.5f * (co.x * dx * dx + co.z * dy * dy) + co.y * dx * dy;
+    if (power < 0.0f) return -1.0f;
+    const float alpha = fminf(kAlphaMax, co.w * expf(-power));
+    return alpha < kAlphaThreshold ? -1.0f : alpha;
+  };
+
   for (int base = 0; base < count; base += kBlock) {
     // Barrier: the previous batch is consumed by every thread before the
     // next one overwrites shared memory.
@@ -171,67 +216,88 @@ kbuffer_blend_fwd_kernel(const int* __restrict__ point_list,
     if (kk < count) {
       const int g = point_list[start + kk];
       const float* q = inv9 + 9 * static_cast<long long>(g);
-      s_xy[t] = xy[g];
-      s_co[t] = conic_opacity[g];
+      const float2 m = xy[g];
+      const float4 co = conic_opacity[g];
+      s_xy[t] = m;
+      s_co[t] = co;
       s_i0[t] = make_float4(q[0], q[1], q[2], q[3]);
       s_i1[t] = make_float4(q[4], q[5], q[6], q[7]);
       s_i2[t] = make_float4(q[8], rgb[3 * g], rgb[3 * g + 1], rgb[3 * g + 2]);
+      s_mask[t] = static_cast<unsigned char>(
+          footprint::warp_mask<kWarpW, kWarpH>(
+              m, co, static_cast<float>(ox), static_cast<float>(oy)));
     }
     __syncthreads();
+    if (__all_sync(kFull, done)) continue;
 
+    // Chunks of 32 pairs. Phase 1: each lane marks the pairs of the chunk
+    // that pass the alpha tests at its pixel, over the pairs the warp's
+    // footprint keeps. Phase 2: each lane takes its marked pairs in stream
+    // order, one a round, the warp running as many rounds as its busiest
+    // lane: the ray depth, the depth test, the pop and the insert, as the
+    // per-pair loop made them.
     const int n = min(kBlock, count - base);
-    for (int j = 0; !done && j < n; ++j) {
-      const float2 m = s_xy[j];
-      const float4 co = s_co[j];
-      const float dx = m.x - pfx;
-      const float dy = m.y - pfy;
-      const float power =
-          0.5f * (co.x * dx * dx + co.z * dy * dy) + co.y * dx * dy;
-      if (power < 0.0f) continue;
-      const float alpha = fminf(kAlphaMax, co.w * expf(-power));
-      if (alpha < kAlphaThreshold) continue;
-      const float4 i0 = s_i0[j];
-      const float4 i1 = s_i1[j];
-      const float4 i2 = s_i2[j];
-      const float num = i1.z * vdx + i1.w * vdy + i2.x * vdz;
-      const float den = i0.x * vdx * vdx + i0.w * vdy * vdy +
-                        i1.y * vdz * vdz +
-                        2.0f * (i0.y * vdx * vdy + i0.z * vdx * vdz +
-                                i1.x * vdy * vdz);
-      const float depth = num / fmaxf(kDenFloor, den);
-      if (!(depth >= 0.0f)) continue;
-      if (fill == k) {
-        pop();
-        if (done) break;
-      }
-      // Insert behind every entry of equal or smaller depth.
-      int pos = 0;
-#pragma unroll
-      for (int i = 0; i < MAX_K; ++i) pos += (wd[i] <= depth) ? 1 : 0;
-#pragma unroll
-      for (int i = MAX_K - 1; i > 0; --i) {
-        if (i > pos) {
-          wd[i] = wd[i - 1];
-          wa[i] = wa[i - 1];
-          wr[i] = wr[i - 1];
-          wg[i] = wg[i - 1];
-          wb[i] = wb[i - 1];
-        } else if (i == pos) {
-          wd[i] = depth;
-          wa[i] = alpha;
-          wr[i] = i2.y;
-          wg[i] = i2.z;
-          wb[i] = i2.w;
+    for (int c = 0; c < n; c += 32) {
+      const unsigned keep = __ballot_sync(
+          kFull, c + lane < n && ((s_mask[c + lane] >> warp) & 1u));
+      unsigned pass = 0u;
+      if (!done) {
+        for (unsigned rest = keep; rest != 0u; rest &= rest - 1u) {
+          const int jj = __ffs(rest) - 1;
+          if (alpha_of(c + jj) >= 0.0f) pass |= 1u << jj;
         }
       }
-      if (pos == 0) {
-        wd[0] = depth;
-        wa[0] = alpha;
-        wr[0] = i2.y;
-        wg[0] = i2.z;
-        wb[0] = i2.w;
+      while (__any_sync(kFull, pass != 0u)) {
+        if (pass == 0u) continue;
+        const int j = c + __ffs(pass) - 1;
+        pass &= pass - 1u;
+        const float alpha = alpha_of(j);
+        const float4 i0 = s_i0[j];
+        const float4 i1 = s_i1[j];
+        const float4 i2 = s_i2[j];
+        const float num = i1.z * vdx + i1.w * vdy + i2.x * vdz;
+        const float den = i0.x * vdx * vdx + i0.w * vdy * vdy +
+                          i1.y * vdz * vdz +
+                          2.0f * (i0.y * vdx * vdy + i0.z * vdx * vdz +
+                                  i1.x * vdy * vdz);
+        const float depth = num / fmaxf(kDenFloor, den);
+        if (!(depth >= 0.0f)) continue;
+        if (fill == k) {
+          pop();
+          if (done) {
+            pass = 0u;
+            continue;
+          }
+        }
+        // Insert behind every entry of equal or smaller depth.
+        int pos = 0;
+#pragma unroll
+        for (int i = 0; i < MAX_K; ++i) pos += (wd[i] <= depth) ? 1 : 0;
+#pragma unroll
+        for (int i = MAX_K - 1; i > 0; --i) {
+          if (i > pos) {
+            wd[i] = wd[i - 1];
+            wa[i] = wa[i - 1];
+            wr[i] = wr[i - 1];
+            wg[i] = wg[i - 1];
+            wb[i] = wb[i - 1];
+          } else if (i == pos) {
+            wd[i] = depth;
+            wa[i] = alpha;
+            wr[i] = i2.y;
+            wg[i] = i2.z;
+            wb[i] = i2.w;
+          }
+        }
+        if (pos == 0) {
+          wd[0] = depth;
+          wa[0] = alpha;
+          wr[0] = i2.y;
+          wg[0] = i2.z;
+          wb[0] = i2.w;
+        }
+        ++fill;
       }
-      ++fill;
     }
   }
 
@@ -301,4 +367,37 @@ extern "C" int stp_kbuffer_blend_fwd(
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef STP_LAUNCH
+}
+
+// Instantiation max_k on this device: out[0] resident blocks per SM, out[1]
+// registers a thread, out[2] local (spill) bytes a thread, out[3] shared
+// bytes a block.
+extern "C" int stp_kbuffer_blend_fwd_occupancy(int max_k, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaErrorInvalidValue;
+#define STP_OCC(MK)                                                          \
+  case MK:                                                                   \
+    err = cudaFuncGetAttributes(&attr, kbuffer_blend_fwd_kernel<MK>);        \
+    if (err == cudaSuccess)                                                  \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
+          out, kbuffer_blend_fwd_kernel<MK>, kBlock, 0);                     \
+    break;
+  switch (max_k) {
+    STP_OCC(1)
+    STP_OCC(2)
+    STP_OCC(4)
+    STP_OCC(8)
+    STP_OCC(12)
+    STP_OCC(16)
+    STP_OCC(20)
+    STP_OCC(24)
+    default:
+      break;
+  }
+#undef STP_OCC
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
 }

@@ -43,6 +43,7 @@ from ..constants import (
     TILE_Y,
 )
 from . import build
+from .footprint import WarpCounter, thread_pixels
 
 KERNEL = "global_blend_fwd"
 SOURCE = "stopthepop_tpu_torch/csrc/global_blend_fwd.cu"
@@ -52,6 +53,8 @@ BWD_SOURCE = "stopthepop_tpu_torch/csrc/global_blend_bwd.cu"
 BWD_REPLACES = "stopthepop_tpu/kernels/global_blend.py:485"
 # Columns of K2's per-pair gradient rows.
 GRAD_COLS = ("x", "y", "a", "b", "c", "opacity", "r", "g", "b_rgb")
+# The pixels a warp of K2 covers: kWarpW, kWarpH of csrc/global_blend_bwd.cu.
+WARP_SHAPE = (8, 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,14 +66,32 @@ def _bind():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _bind_bwd():
-    lib = build.load(BWD_KERNEL)
+def bind_bwd(lib):
+    """K2's C entry point in a loaded library, typed."""
     fn = lib.stp_global_blend_bwd
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_bwd():
+    return bind_bwd(build.load(BWD_KERNEL))
+
+
+def occupancy_bwd(lib=None) -> dict:
+    """What K2 (the checkout's build, or ``lib``) reaches on the current
+    device: resident blocks per SM, registers and local (spill) bytes a
+    thread, static shared bytes a block."""
+    lib = build.load(BWD_KERNEL) if lib is None else lib
+    out = (ctypes.c_int * 4)()
+    err = lib.stp_global_blend_bwd_occupancy(out)
+    if err != 0:
+        raise RuntimeError(
+            f"{BWD_KERNEL} occupancy query failed: cudaError_t {err}")
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "spill_bytes": out[2], "static_smem_bytes": out[3]}
 
 
 def _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, depth,
@@ -301,9 +322,12 @@ def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
 blend_global_backward.launches = 0
 
 
-def _warp_tree_sum(v):
-    """Sum [..., 256] over the last axis in K2's order: a shuffle-down tree
-    inside each warp of 32 pixels, then the 8 warp partials in order."""
+def _warp_tree_sum(v, shape=None):
+    """Sum [..., 256] (pixels in the tile's row-major order) over the last
+    axis in K2's order: a tree over each warp's 32 lanes that pairs lane l
+    with l + 16, then l + 8, ..., l + 1 (warps of ``shape`` pixels, K2's
+    ``WARP_SHAPE`` by default), then the 8 warp partials in order."""
+    v = v[..., thread_pixels(WARP_SHAPE if shape is None else shape)]
     v = v.reshape(*v.shape[:-1], TILE_PIXELS // 32, 32)
     for off in (16, 8, 4, 2, 1):
         v = v[..., :off] + v[..., off:2 * off]
@@ -318,11 +342,18 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
                                 rgb, color, final_t, n_contrib, grad_color,
                                 grad_final_t, *, grid_x: int, grid_y: int,
                                 width: int, height: int,
-                                count_evaluations: bool = False):
+                                count_evaluations: bool = False,
+                                warp_counts: dict | None = None,
+                                footprint_cull: bool = False):
     """Plain PyTorch version of kernel K2, same signature and outputs.
 
     With ``count_evaluations`` it also returns (evaluations, blends): the
     (pixel, pair) alphas the replay evaluates and the blends among them.
+    A dict ``warp_counts`` is filled with K2's warp counts
+    (``footprint.WarpCounter``), ``warp_pass_steps`` being the (warp, pair)
+    steps at which some lane blends: the steps that reduce the nine sums.
+    With ``footprint_cull`` a warp skips the pairs its footprint test
+    culls, as K2 does; the outputs stay the same bits.
     """
     dev = xy.device
     T_tiles = grid_x * grid_y
@@ -345,6 +376,9 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
     done = ~inside
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     evaluations = blends = 0
+    if warp_counts is not None or footprint_cull:
+        warps = WarpCounter(point_list, starts, ends, xy, conic_opacity,
+                            grid_x, WARP_SHAPE)
     for k in range(max_count):
         live = k < counts  # [T]
         pos = torch.where(live, starts.to(torch.int64) + k, 0)
@@ -353,11 +387,13 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
         dx = xy[gid, 0][:, None] - pix_x
         dy = xy[gid, 1][:, None] - pix_y
         a, b, cc, o = (co[:, i : i + 1] for i in range(4))
+        active = live[:, None] & ~done
+        if footprint_cull:
+            active = active & warps.kept(pos)
         power = 0.5 * (a * dx * dx + cc * dy * dy) + b * dx * dy
         alpha_raw = o * torch.exp(-power)
         alpha = torch.clamp(alpha_raw, max=ALPHA_MAX)
         test_t = T * (1.0 - alpha)
-        active = live[:, None] & ~done
         ok = active & (power >= 0.0) & (alpha >= ALPHA_THRESHOLD)
         stop = ok & (test_t < T_THRESHOLD)
         blend = ok & ~stop
@@ -386,6 +422,11 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
         if count_evaluations:
             evaluations += int(active.sum())
             blends += int(blend.sum())
+        if warp_counts is not None:
+            warps.step(pos, active, blend)
+    if warp_counts is not None:
+        warps.close()
+        warp_counts.update(warps.counts)
     if count_evaluations:
         return d_pair, evaluations, blends
     return d_pair

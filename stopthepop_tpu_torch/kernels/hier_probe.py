@@ -1,17 +1,20 @@
 """Time other builds of a family of kernels against the checkout's, on one card.
 
     python3 -m stopthepop_tpu_torch.kernels.hier_probe NAME=DIR [NAME=DIR ...]
-        [--family hier|kbuffer|full] [--out FILE]
+        [--family hier|kbuffer|full|global] [--out FILE]
 
 A family is the kernels of one sort mode whose sources a redesign touches:
 
 * ``hier`` (the default): K5 and K6. Each DIR holds a ``hier_blend_fwd.cu``,
   a ``hier_blend_bwd.cu`` and the headers they include (``hier_common.cuh``,
   ``route_common.cuh``), with the C interfaces of the checkout's.
-* ``kbuffer``: K4, from ``kbuffer_blend_bwd.cu`` and the headers it
-  includes; its input is the plain K3's output at k = 4.
+* ``kbuffer``: K3 and K4 at k = 4, from ``kbuffer_blend_fwd.cu``,
+  ``kbuffer_blend_bwd.cu`` and the headers they include; K4's input is the
+  plain K3's output.
 * ``full``: K7, from ``full_blend_fwd.cu``; its list length (``kList``, or
   ``K`` of the register window before it) is read from the source.
+* ``global``: K2, from ``global_blend_bwd.cu`` and the headers it
+  includes; its input is the plain K1's output.
 
 A DIR holds an earlier version of the sources (e.g. unpacked with ``git
 show``) or a step of a redesign. The checkout's own ``csrc/`` joins as
@@ -19,17 +22,21 @@ show``) or a step of a redesign. The checkout's own ``csrc/`` joins as
 processes at once), then run on the bench frame of ``chip_smoke.py``
 (1920x1080, 500K Gaussians from seed 0; queues (64, 8, 4) for ``hier``):
 
-* each kernel's outputs against its plain version: K5's and K7's bitwise,
-  K4's and K6's d_pair as the largest error over each column's largest
-  value, a bitwise flag and a flag that two launches give the same bits;
-  for K7 also the passes ("rounds") a tile takes at the variant's list
-  length, from the plain version's counts;
+* each kernel's outputs against its plain version: K3's, K5's and K7's
+  bitwise, K2's, K4's and K6's d_pair as the largest error over each
+  column's largest value, a bitwise flag and a flag that two launches give
+  the same bits; for K7 also the passes ("rounds") a tile takes at the
+  variant's list length, from the plain version's counts; for ``kbuffer``
+  and ``global`` also a flag that the outputs have the bits of the first
+  variant's (the parent's sources, where given first), and first of all a
+  line of the plain version's counts under each warp shape of
+  ``kernels/footprint.py``;
 * times, CUDA events over 20 launches after 2, taken in turns: every
   variant in the given order, then in the reverse order (A B .. Z Z .. B A),
   and each variant's two times averaged;
-* registers and spill stores (ptxas; K5/K6 at (8, 4), K4 at MAX_K = 4), and
-  where the source exports its occupancy query, blocks an SM and shared
-  bytes a block.
+* registers and spill stores (ptxas; K5/K6 at (8, 4), K3/K4 at MAX_K = 4),
+  and where the source exports its occupancy query, blocks an SM and
+  shared bytes a block.
 
 Prints one JSON line a variant, the card's name and power limit, and writes
 the lines to FILE when given. Exits 1 if a variant disagrees with the plain
@@ -50,7 +57,9 @@ from pathlib import Path
 import torch
 
 from . import build
+from . import footprint
 from . import full_blend as fb
+from . import global_blend as gb
 from . import hier_blend as hb
 from . import kbuffer_blend as kb
 
@@ -60,9 +69,11 @@ WIDTH, HEIGHT, GAUSSIANS = 1920, 1080, 500_000
 ITERS = 20
 # The instantiation whose registers a family reports.
 _ENTRY = {"hier": r"\S*Li8ELi4E\S*", "kbuffer": r"\S*ILi4EE\S*",
-          "full": r"\S*full_blend_fwd_kernel\S*"}
+          "full": r"\S*full_blend_fwd_kernel\S*",
+          "global": r"\S*global_blend_bwd_kernel\S*"}
 _SOURCES = {"hier": ("hier_blend_fwd", "hier_blend_bwd"),
-            "kbuffer": ("kbuffer_blend_bwd",), "full": ("full_blend_fwd",)}
+            "kbuffer": ("kbuffer_blend_fwd", "kbuffer_blend_bwd"),
+            "full": ("full_blend_fwd",), "global": ("global_blend_bwd",)}
 _LIST = re.compile(r"constexpr int (?:kList|K) = (\d+);")
 
 
@@ -100,7 +111,7 @@ def _build(family, variants):
 
 def _bench_frame(dev):
     """The bench frame's K5 inputs (K3's with the culling thresholds at
-    index 7) and keywords."""
+    index 7), keywords and depths (K1's last input)."""
     from ..models.gaussians import init_random
     from ..render.duplicate import build_pairs
     from ..render.pipeline import tile_grid
@@ -127,7 +138,7 @@ def _bench_frame(dev):
             prep.opacity_power_threshold.contiguous(),
             cam.inv_viewprojmatrix.contiguous(), cam.campos.contiguous())
     kw = dict(grid_x=gx, grid_y=gy, width=WIDTH, height=HEIGHT)
-    return args, kw
+    return args, kw, prep.depth.contiguous()
 
 
 def _ms(fn):
@@ -162,7 +173,7 @@ class _Hier:
     module, timed = hb, ("k5", "k6")
 
     def __init__(self, dev):
-        args, kw = _bench_frame(dev)
+        args, kw, _ = _bench_frame(dev)
         self.args, self.kw = args, {**kw, "queue_sizes": QUEUES,
                                     "hier_4x4_culling": False}
         with torch.no_grad():
@@ -197,42 +208,130 @@ class _Hier:
                 and row["k6_bitwise_repeat"])
 
 
-class _KBuffer:
-    """K4 at k = 4 on the plain K3's output."""
-    module, timed = kb, ("k4",)
+def _footprint_counts(module, plain):
+    """{shape: the plain version's counts} under each warp shape of
+    ``kernels/footprint.py``; ``plain()`` runs the plain version with
+    ``count_evaluations`` and returns its counts."""
+    saved = module.WARP_SHAPE
+    out = {}
+    try:
+        for shape in footprint.SHAPES:
+            module.WARP_SHAPE = shape
+            with torch.no_grad():
+                out[f"{shape[0]}x{shape[1]}"] = plain()
+    finally:
+        module.WARP_SHAPE = saved
+    return out
+
+
+class _SameAsFirst:
+    """Whether a variant's outputs have the bits of the first variant's."""
+    first = None
+
+    def same_as_first(self, outputs):
+        outputs = [o.clone() for o in outputs]
+        if self.first is None:
+            self.first = outputs
+        return all(torch.equal(a, b) for a, b in zip(outputs, self.first))
+
+
+class _KBuffer(_SameAsFirst):
+    """K3 and K4 at k = 4; K4 on the plain K3's output."""
+    module, timed = kb, ("k3", "k4")
 
     def __init__(self, dev):
-        args, kw = _bench_frame(dev)
+        args, kw, _ = _bench_frame(dev)
         self.args = args[:7] + args[8:]
         self.kw = {**kw, "k": KB_K}
         with torch.no_grad():
-            fwd = kb.blend_kbuffer_forward_plain(*self.args, **self.kw)
-            self.bwd_args = (*self.args, *fwd[:3], *_cotangents(dev))
+            self.ref = kb.blend_kbuffer_forward_plain(*self.args, **self.kw)
+            self.bwd_args = (*self.args, *self.ref[:3], *_cotangents(dev))
             self.ref_d = kb.blend_kbuffer_backward_plain(*self.bwd_args,
                                                          **self.kw)
+        self.counts = _footprint_counts(kb, lambda: kb.blend_kbuffer_forward_plain(
+            *self.args, **self.kw, count_evaluations=True)[4])
 
     def bind(self, libs):
+        kb._bind = lambda f=kb.bind(libs["kbuffer_blend_fwd"]): f
         kb._bind_bwd = (lambda f=kb.bind(libs["kbuffer_blend_bwd"],
                                          backward=True): f)
 
     def run(self):
-        return {"k4": lambda: kb.blend_kbuffer_backward(*self.bwd_args,
+        return {"k3": lambda: kb.blend_kbuffer_forward(*self.args, **self.kw),
+                "k4": lambda: kb.blend_kbuffer_backward(*self.bwd_args,
                                                         **self.kw)}
 
     def check(self, libs, regs, source):
+        got = kb.blend_kbuffer_forward(*self.args, **self.kw)
         d = kb.blend_kbuffer_backward(*self.bwd_args, **self.kw)
         again = kb.blend_kbuffer_backward(*self.bwd_args, **self.kw)
         torch.cuda.synchronize()
-        lib = libs["kbuffer_blend_bwd"]
-        occ = (kb.occupancy_bwd(KB_K, lib)
-               if hasattr(lib, "stp_kbuffer_blend_bwd_occupancy") else None)
-        return {"registers_spill_stores_max_k_4": regs["kbuffer_blend_bwd"],
-                "occupancy_max_k_4": occ,
+        occ = {}
+        for stem, query in (("kbuffer_blend_fwd", kb.occupancy_fwd),
+                            ("kbuffer_blend_bwd", kb.occupancy_bwd)):
+            lib = libs[stem]
+            occ[stem] = (query(KB_K, lib)
+                         if hasattr(lib, f"stp_{stem}_occupancy") else None)
+        return {"registers_spill_stores_max_k_4": {
+                    "k3": regs["kbuffer_blend_fwd"],
+                    "k4": regs["kbuffer_blend_bwd"]},
+                "occupancy_max_k_4": {"k3": occ["kbuffer_blend_fwd"],
+                                      "k4": occ["kbuffer_blend_bwd"]},
+                "k3_bitwise": all(torch.equal(g, r)
+                                  for g, r in zip(got, self.ref)),
+                "k3_n_contrib_mismatches": int((got[2] != self.ref[2]).sum()),
+                "k3_max_abs_err_color": float((got[0] - self.ref[0]).abs().max()),
+                "k3_k4_bitwise_first": self.same_as_first([*got, d]),
                 **_grad_checks("k4", d, again, self.ref_d)}
 
     @staticmethod
     def ok(row):
-        return row["k4_bitwise_plain"] and row["k4_bitwise_repeat"]
+        return (row["k3_bitwise"] and row["k4_bitwise_plain"]
+                and row["k4_bitwise_repeat"])
+
+
+class _Global(_SameAsFirst):
+    """K2 on the plain K1's output."""
+    module, timed = gb, ("k2",)
+
+    def __init__(self, dev):
+        args, self.kw, depth = _bench_frame(dev)
+        prep_args = args[:6]
+        with torch.no_grad():
+            fwd = gb.blend_global_forward_plain(*prep_args, depth, **self.kw)
+            self.bwd_args = (*prep_args, *fwd[:3], *_cotangents(dev))
+            self.ref_d = gb.blend_global_backward_plain(*self.bwd_args,
+                                                        **self.kw)
+        self.counts = _footprint_counts(gb, self._plain_counts)
+
+    def _plain_counts(self):
+        warps = {}
+        _, evaluations, blends = gb.blend_global_backward_plain(
+            *self.bwd_args, **self.kw, count_evaluations=True,
+            warp_counts=warps)
+        return {"evaluations": evaluations, "blends": blends, **warps}
+
+    def bind(self, libs):
+        gb._bind_bwd = lambda f=gb.bind_bwd(libs["global_blend_bwd"]): f
+
+    def run(self):
+        return {"k2": lambda: gb.blend_global_backward(*self.bwd_args,
+                                                       **self.kw)}
+
+    def check(self, libs, regs, source):
+        d = gb.blend_global_backward(*self.bwd_args, **self.kw)
+        again = gb.blend_global_backward(*self.bwd_args, **self.kw)
+        torch.cuda.synchronize()
+        lib = libs["global_blend_bwd"]
+        occ = (gb.occupancy_bwd(lib)
+               if hasattr(lib, "stp_global_blend_bwd_occupancy") else None)
+        return {"registers_spill_stores": regs["global_blend_bwd"],
+                "occupancy": occ, "k2_bitwise_first": self.same_as_first([d]),
+                **_grad_checks("k2", d, again, self.ref_d)}
+
+    @staticmethod
+    def ok(row):
+        return row["k2_max_rel_err"] <= 1e-4 and row["k2_bitwise_repeat"]
 
 
 class _Full:
@@ -240,7 +339,7 @@ class _Full:
     module, timed = fb, ("k7",)
 
     def __init__(self, dev):
-        args, self.kw = _bench_frame(dev)
+        args, self.kw, _ = _bench_frame(dev)
         self.args = args[:7] + args[8:]
         with torch.no_grad():
             self.ref = fb.blend_full_forward_plain(*self.args, **self.kw)
@@ -286,7 +385,8 @@ class _Full:
         return row["k7_bitwise"]
 
 
-FAMILIES = {"hier": _Hier, "kbuffer": _KBuffer, "full": _Full}
+FAMILIES = {"hier": _Hier, "kbuffer": _KBuffer, "full": _Full,
+            "global": _Global}
 
 
 def main(argv=None) -> int:
@@ -309,6 +409,10 @@ def main(argv=None) -> int:
     saved = {n: getattr(mod, n) for n in ("_bind", "_bind_bwd")
              if hasattr(mod, n)}
     rows = {}
+    lines = []
+    if getattr(fam, "counts", None) is not None:
+        lines.append(json.dumps({"plain_counts": fam.counts, "card": card}))
+        print(lines[-1], flush=True)
     times = {n: {k: [] for k in fam.timed} for n in variants}
     order = list(variants) + list(reversed(variants))
     try:
@@ -324,7 +428,6 @@ def main(argv=None) -> int:
     finally:
         for n, f in saved.items():
             setattr(mod, n, f)
-    lines = []
     for name in variants:
         for key, t in times[name].items():
             rows[name].update({f"{key}_ms": t, f"{key}_ms_mean": sum(t) / 2})

@@ -49,6 +49,7 @@ from ..constants import ALPHA_MAX, ALPHA_THRESHOLD, T_THRESHOLD, TILE_PIXELS
 from ..ops.stopthepop import depth_along_ray
 from ..ops.transforms import compute_view_ray
 from . import build
+from .footprint import WarpCounter
 from .global_blend import (
     GRAD_COLS,
     _check_backward_inputs,
@@ -67,6 +68,8 @@ BWD_REPLACES = "stopthepop_tpu/kernels/kbuffer_blend.py:1071"
 # The window sizes the kernels are instantiated for (the reference's set,
 # forward.cu:406-426); a run with window k uses the smallest one >= k.
 WINDOW_SIZES = (1, 2, 4, 8, 12, 16, 20, 24)
+# The pixels a warp of K3 covers: kWarpW, kWarpH of csrc/kbuffer_blend_fwd.cu.
+WARP_SHAPE = (8, 4)
 WARPS = TILE_PIXELS // 32
 # K4's scratch row of a pair: its xy and conic (8 floats) and one row of
 # gradient sums for each warp of its tile (8 x 9 floats), 320 bytes.
@@ -116,12 +119,21 @@ def occupancy_bwd(max_k: int, lib=None) -> dict:
     reaches on the current device: resident blocks per SM, registers and
     local (spill) bytes a thread, static shared bytes a block (it takes no
     dynamic shared memory)."""
-    lib = build.load(BWD_KERNEL) if lib is None else lib
+    return _occupancy(BWD_KERNEL, max_k, lib)
+
+
+def occupancy_fwd(max_k: int, lib=None) -> dict:
+    """The same for instantiation ``max_k`` of K3."""
+    return _occupancy(KERNEL, max_k, lib)
+
+
+def _occupancy(kernel, max_k, lib):
+    lib = build.load(kernel) if lib is None else lib
     out = (ctypes.c_int * 4)()
-    err = lib.stp_kbuffer_blend_bwd_occupancy(max_k, out)
+    err = getattr(lib, f"stp_{kernel}_occupancy")(max_k, out)
     if err != 0:
         raise RuntimeError(
-            f"{BWD_KERNEL} occupancy query failed: cudaError_t {err}")
+            f"{kernel} occupancy query failed: cudaError_t {err}")
     return {"blocks_per_sm": out[0], "registers": out[1],
             "spill_bytes": out[2], "static_smem_bytes": out[3],
             "dynamic_smem_bytes": 0}
@@ -255,14 +267,21 @@ def _view_rays(grid_x, grid_y, width, height, inverse_vp, campos, dev):
 def blend_kbuffer_forward_plain(point_list, starts, ends, xy, conic_opacity,
                                 rgb, cov3d_inv9, inverse_vp, campos, *, k: int,
                                 grid_x: int, grid_y: int, width: int,
-                                height: int, count_evaluations: bool = False):
+                                height: int, count_evaluations: bool = False,
+                                footprint_cull: bool = False):
     """Plain PyTorch version of kernel K3, same signature and outputs.
+
+    With ``footprint_cull`` a warp skips the pairs its footprint test
+    culls, as K3 does; the outputs stay the same bits.
 
     With ``count_evaluations`` it also returns a dict of what the kernel
     does on these inputs, over the pixels of the whole tile grid:
     ``evaluations`` (pair alphas evaluated), ``depths`` (ray depths
     evaluated: pairs that pass the alpha tests), ``inserts`` and
-    ``commits``.
+    ``commits``, and K3's warp counts (``footprint.WarpCounter``), with
+    ``warp_pass_steps`` the (warp, pair) steps at which some lane passes
+    the alpha tests and ``chunk_max_passes`` the rounds of K3's second
+    phase.
     """
     k = check_window(k)
     dev = xy.device
@@ -283,6 +302,9 @@ def blend_kbuffer_forward_plain(point_list, starts, ends, xy, conic_opacity,
     done = ~pack_image(torch.ones((height, width), dtype=torch.bool,
                                   device=dev), grid_x, grid_y)
     n = {"evaluations": 0, "depths": 0, "inserts": 0, "commits": 0}
+    if count_evaluations or footprint_cull:
+        warps = WarpCounter(point_list, starts, ends, xy, conic_opacity,
+                            grid_x, WARP_SHAPE)
 
     def pop(win, fill, T, C, D, nc, done, popm):
         a0 = win["a"][0]
@@ -305,7 +327,10 @@ def blend_kbuffer_forward_plain(point_list, starts, ends, xy, conic_opacity,
         live, gid, power, alpha, depth = _pair_alpha_depth(
             point_list, starts, counts, j, xy, conic_opacity, cov3d_inv9,
             pix_x, pix_y, vd)
+        pos = torch.where(live, starts.to(torch.int64) + j, 0)
         active = live[:, None] & ~done
+        if footprint_cull:
+            active = active & warps.kept(pos)
         ok = active & (power >= 0.0) & (alpha >= ALPHA_THRESHOLD)
         v = ok & (depth >= 0.0)
         win, fill, T, C, D, nc, done = pop(win, fill, T, C, D, nc, done,
@@ -320,13 +345,15 @@ def blend_kbuffer_forward_plain(point_list, starts, ends, xy, conic_opacity,
             n["evaluations"] += int(active.sum())
             n["depths"] += int(ok.sum())
             n["inserts"] += int(ins.sum())
+            warps.step(pos, active, ok)
     for _ in range(k):
         win, fill, T, C, D, nc, done = pop(win, fill, T, C, D, nc, done,
                                           (fill > 0) & ~done)
     out = tuple(unpack_image(x, grid_x, grid_y, width, height).contiguous()
                 for x in (C, T, nc, D))
     if count_evaluations:
-        return out + (n,)
+        warps.close()
+        return out + ({**n, **warps.counts},)
     return out
 
 
