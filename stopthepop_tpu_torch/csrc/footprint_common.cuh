@@ -1,6 +1,7 @@
 // Per-warp footprint culling of staged pairs, shared by the tile blends that
 // stage a batch of pairs and let every pixel of the tile evaluate each of
-// them: K2 (global_blend_bwd.cu) and K3 (kbuffer_blend_fwd.cu).
+// them: K1 (global_blend_fwd.cu), K2 (global_blend_bwd.cu) and K3
+// (kbuffer_blend_fwd.cu).
 //
 // A block of 256 threads covers a 16x16 tile; warp w covers a WW x WH
 // rectangle of it (16x2: two rows; 8x4: a block of 8 columns and 4 rows),

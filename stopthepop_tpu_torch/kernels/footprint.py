@@ -1,5 +1,5 @@
 """Per-warp footprint culling of staged pairs: the plain mirror of
-``csrc/footprint_common.cuh``, which kernels K2 and K3 use.
+``csrc/footprint_common.cuh``, which kernels K1, K2 and K3 use.
 
 A 16x16 tile's 256 pixels are 8 warps of 32; warp w covers a ``shape`` =
 (WW, WH) rectangle of the tile, (16, 2) or (8, 4), lanes row-major inside

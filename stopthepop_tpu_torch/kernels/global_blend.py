@@ -8,7 +8,10 @@ staged in shared memory, a sequential early-exit blend per pixel. K2
 (``csrc/global_blend_bwd.cu``) replaces ``blend_global_backward``: the same
 shape, one front-to-back replay per tile that uses the saved forward output,
 per-pair gradients summed over the tile's pixels in a fixed order into each
-pair's own slot. Their source notes say what bounds them on an H100.
+pair's own slot. In both, each warp covers a ``WARP_SHAPE`` block of pixels
+and skips the staged pairs whose footprint cannot reach it
+(``kernels/footprint.py``), which changes no output bit. Their source notes
+say what bounds them on an H100.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors, and nothing else: on a CUDA tensor it launches the kernel or
@@ -53,17 +56,22 @@ BWD_SOURCE = "stopthepop_tpu_torch/csrc/global_blend_bwd.cu"
 BWD_REPLACES = "stopthepop_tpu/kernels/global_blend.py:485"
 # Columns of K2's per-pair gradient rows.
 GRAD_COLS = ("x", "y", "a", "b", "c", "opacity", "r", "g", "b_rgb")
-# The pixels a warp of K2 covers: kWarpW, kWarpH of csrc/global_blend_bwd.cu.
+# The pixels a warp of K1 and of K2 covers: kWarpW, kWarpH of
+# csrc/global_blend_fwd.cu and csrc/global_blend_bwd.cu.
 WARP_SHAPE = (8, 4)
 
 
-@functools.lru_cache(maxsize=None)
-def _bind():
-    lib = build.load(KERNEL)
+def bind(lib):
+    """K1's C entry point in a loaded library, typed."""
     fn = lib.stp_global_blend_fwd
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bind():
+    return bind(build.load(KERNEL))
 
 
 def bind_bwd(lib):
@@ -80,18 +88,27 @@ def _bind_bwd():
     return bind_bwd(build.load(BWD_KERNEL))
 
 
-def occupancy_bwd(lib=None) -> dict:
-    """What K2 (the checkout's build, or ``lib``) reaches on the current
-    device: resident blocks per SM, registers and local (spill) bytes a
-    thread, static shared bytes a block."""
-    lib = build.load(BWD_KERNEL) if lib is None else lib
+def _occupancy(kernel, lib):
+    lib = build.load(kernel) if lib is None else lib
     out = (ctypes.c_int * 4)()
-    err = lib.stp_global_blend_bwd_occupancy(out)
+    err = getattr(lib, f"stp_{kernel}_occupancy")(out)
     if err != 0:
         raise RuntimeError(
-            f"{BWD_KERNEL} occupancy query failed: cudaError_t {err}")
+            f"{kernel} occupancy query failed: cudaError_t {err}")
     return {"blocks_per_sm": out[0], "registers": out[1],
             "spill_bytes": out[2], "static_smem_bytes": out[3]}
+
+
+def occupancy_fwd(lib=None) -> dict:
+    """What K1 (the checkout's build, or ``lib``) reaches on the current
+    device: resident blocks per SM, registers and local (spill) bytes a
+    thread, static shared bytes a block."""
+    return _occupancy(KERNEL, lib)
+
+
+def occupancy_bwd(lib=None) -> dict:
+    """The same for K2."""
+    return _occupancy(BWD_KERNEL, lib)
 
 
 def _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, depth,
@@ -220,12 +237,19 @@ def unpack_image(tiles, grid_x: int, grid_y: int, width: int, height: int):
 def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
                                rgb, depth, *, grid_x: int, grid_y: int,
                                width: int, height: int,
-                               count_evaluations: bool = False):
+                               count_evaluations: bool = False,
+                               warp_counts: dict | None = None,
+                               footprint_cull: bool = False):
     """Plain PyTorch version of kernel K1, same signature and outputs.
 
-    With ``count_evaluations`` it also returns (evaluations, blends): how
-    many (pixel, pair) alphas the kernel evaluates on these inputs and how
-    many of those it blends, over the pixels of the whole tile grid.
+    Pixels outside the image start done, as in K1. With
+    ``count_evaluations`` it also returns (evaluations, blends): how many
+    (pixel, pair) alphas the kernel evaluates on these inputs and how many
+    of those it blends, over the pixels of the whole tile grid. A dict
+    ``warp_counts`` is filled with K1's warp counts
+    (``footprint.WarpCounter``). With ``footprint_cull`` a warp skips the
+    pairs its footprint test culls, as K1 does; the outputs stay the same
+    bits.
     """
     dev = xy.device
     T_tiles = grid_x * grid_y
@@ -235,9 +259,13 @@ def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
     T = torch.ones((T_tiles, TILE_PIXELS), dtype=torch.float32, device=dev)
     C = torch.zeros((4, T_tiles, TILE_PIXELS), dtype=torch.float32, device=dev)
     n_contrib = torch.zeros((T_tiles, TILE_PIXELS), dtype=torch.int32, device=dev)
-    done = torch.zeros((T_tiles, TILE_PIXELS), dtype=torch.bool, device=dev)
+    done = ~pack_image(torch.ones((height, width), dtype=torch.bool,
+                                  device=dev), grid_x, grid_y)
     feats = torch.cat([rgb, depth[:, None]], dim=1).T  # [4, P]
     evaluations = blends = 0
+    if warp_counts is not None or footprint_cull:
+        warps = WarpCounter(point_list, starts, ends, xy, conic_opacity,
+                            grid_x, WARP_SHAPE)
     for k in range(max_count):
         live = k < counts  # [T]
         pos = torch.where(live, starts.to(torch.int64) + k, 0)
@@ -250,6 +278,8 @@ def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
         alpha = torch.clamp(o * torch.exp(-power), max=ALPHA_MAX)
         test_t = T * (1.0 - alpha)
         active = live[:, None] & ~done
+        if footprint_cull:
+            active = active & warps.kept(pos)
         ok = active & (power >= 0.0) & (alpha >= ALPHA_THRESHOLD)
         stop = ok & (test_t < T_THRESHOLD)
         blend = ok & ~stop
@@ -261,6 +291,11 @@ def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
         if count_evaluations:
             evaluations += int(active.sum())
             blends += int(blend.sum())
+        if warp_counts is not None:
+            warps.step(pos, active, blend)
+    if warp_counts is not None:
+        warps.close()
+        warp_counts.update(warps.counts)
     color = unpack_image(C[:3], grid_x, grid_y, width, height)
     final_t = unpack_image(T, grid_x, grid_y, width, height)
     n_img = unpack_image(n_contrib, grid_x, grid_y, width, height)

@@ -13,8 +13,9 @@ A family is the kernels of one sort mode whose sources a redesign touches:
   plain K3's output.
 * ``full``: K7, from ``full_blend_fwd.cu``; its list length (``kList``, or
   ``K`` of the register window before it) is read from the source.
-* ``global``: K2, from ``global_blend_bwd.cu`` and the headers it
-  includes; its input is the plain K1's output.
+* ``global``: K1 and K2, from ``global_blend_fwd.cu``,
+  ``global_blend_bwd.cu`` and the headers they include; K2's input is the
+  plain K1's output.
 
 A DIR holds an earlier version of the sources (e.g. unpacked with ``git
 show``) or a step of a redesign. The checkout's own ``csrc/`` joins as
@@ -22,8 +23,8 @@ show``) or a step of a redesign. The checkout's own ``csrc/`` joins as
 processes at once), then run on the bench frame of ``chip_smoke.py``
 (1920x1080, 500K Gaussians from seed 0; queues (64, 8, 4) for ``hier``):
 
-* each kernel's outputs against its plain version: K3's, K5's and K7's
-  bitwise, K2's, K4's and K6's d_pair as the largest error over each
+* each kernel's outputs against its plain version: K1's, K3's, K5's and
+  K7's bitwise, K2's, K4's and K6's d_pair as the largest error over each
   column's largest value, a bitwise flag and a flag that two launches give
   the same bits; for K7 also the passes ("rounds") a tile takes at the
   variant's list length, from the plain version's counts; for ``kbuffer``
@@ -70,10 +71,11 @@ ITERS = 20
 # The instantiation whose registers a family reports.
 _ENTRY = {"hier": r"\S*Li8ELi4E\S*", "kbuffer": r"\S*ILi4EE\S*",
           "full": r"\S*full_blend_fwd_kernel\S*",
-          "global": r"\S*global_blend_bwd_kernel\S*"}
+          "global": r"\S*global_blend_(?:fwd|bwd)_kernel\S*"}
 _SOURCES = {"hier": ("hier_blend_fwd", "hier_blend_bwd"),
             "kbuffer": ("kbuffer_blend_fwd", "kbuffer_blend_bwd"),
-            "full": ("full_blend_fwd",), "global": ("global_blend_bwd",)}
+            "full": ("full_blend_fwd",),
+            "global": ("global_blend_fwd", "global_blend_bwd")}
 _LIST = re.compile(r"constexpr int (?:kList|K) = (\d+);")
 
 
@@ -226,13 +228,14 @@ def _footprint_counts(module, plain):
 
 class _SameAsFirst:
     """Whether a variant's outputs have the bits of the first variant's."""
-    first = None
 
-    def same_as_first(self, outputs):
+    def same_as_first(self, outputs, key=""):
+        """``key`` tells apart the outputs of the family's kernels."""
         outputs = [o.clone() for o in outputs]
-        if self.first is None:
-            self.first = outputs
-        return all(torch.equal(a, b) for a, b in zip(outputs, self.first))
+        if not hasattr(self, "first"):
+            self.first = {}
+        first = self.first.setdefault(key, outputs)
+        return all(torch.equal(a, b) for a, b in zip(outputs, first))
 
 
 class _KBuffer(_SameAsFirst):
@@ -291,47 +294,65 @@ class _KBuffer(_SameAsFirst):
 
 
 class _Global(_SameAsFirst):
-    """K2 on the plain K1's output."""
-    module, timed = gb, ("k2",)
+    """K1, and K2 on the plain K1's output."""
+    module, timed = gb, ("k1", "k2")
 
     def __init__(self, dev):
         args, self.kw, depth = _bench_frame(dev)
-        prep_args = args[:6]
+        self.args = (*args[:6], depth)
         with torch.no_grad():
-            fwd = gb.blend_global_forward_plain(*prep_args, depth, **self.kw)
-            self.bwd_args = (*prep_args, *fwd[:3], *_cotangents(dev))
+            self.ref = gb.blend_global_forward_plain(*self.args, **self.kw)
+            self.bwd_args = (*args[:6], *self.ref[:3], *_cotangents(dev))
             self.ref_d = gb.blend_global_backward_plain(*self.bwd_args,
                                                         **self.kw)
         self.counts = _footprint_counts(gb, self._plain_counts)
 
     def _plain_counts(self):
-        warps = {}
-        _, evaluations, blends = gb.blend_global_backward_plain(
+        fwd, bwd = {}, {}
+        *_, evaluations, blends = gb.blend_global_forward_plain(
+            *self.args, **self.kw, count_evaluations=True, warp_counts=fwd)
+        _, bwd_evaluations, bwd_blends = gb.blend_global_backward_plain(
             *self.bwd_args, **self.kw, count_evaluations=True,
-            warp_counts=warps)
-        return {"evaluations": evaluations, "blends": blends, **warps}
+            warp_counts=bwd)
+        return {"k1": {"evaluations": evaluations, "blends": blends, **fwd},
+                "k2": {"evaluations": bwd_evaluations, "blends": bwd_blends,
+                       **bwd}}
 
     def bind(self, libs):
+        gb._bind = lambda f=gb.bind(libs["global_blend_fwd"]): f
         gb._bind_bwd = lambda f=gb.bind_bwd(libs["global_blend_bwd"]): f
 
     def run(self):
-        return {"k2": lambda: gb.blend_global_backward(*self.bwd_args,
+        return {"k1": lambda: gb.blend_global_forward(*self.args, **self.kw),
+                "k2": lambda: gb.blend_global_backward(*self.bwd_args,
                                                        **self.kw)}
 
     def check(self, libs, regs, source):
+        got = gb.blend_global_forward(*self.args, **self.kw)
         d = gb.blend_global_backward(*self.bwd_args, **self.kw)
         again = gb.blend_global_backward(*self.bwd_args, **self.kw)
         torch.cuda.synchronize()
-        lib = libs["global_blend_bwd"]
-        occ = (gb.occupancy_bwd(lib)
-               if hasattr(lib, "stp_global_blend_bwd_occupancy") else None)
-        return {"registers_spill_stores": regs["global_blend_bwd"],
-                "occupancy": occ, "k2_bitwise_first": self.same_as_first([d]),
+        occ = {}
+        for key, stem, query in (("k1", "global_blend_fwd", gb.occupancy_fwd),
+                                 ("k2", "global_blend_bwd", gb.occupancy_bwd)):
+            lib = libs[stem]
+            occ[key] = (query(lib) if hasattr(lib, f"stp_{stem}_occupancy")
+                        else None)
+        return {"registers_spill_stores": {"k1": regs["global_blend_fwd"],
+                                           "k2": regs["global_blend_bwd"]},
+                "occupancy": occ,
+                "k1_bitwise": all(torch.equal(g, r)
+                                  for g, r in zip(got, self.ref)),
+                "k1_n_contrib_mismatches": int((got[2] != self.ref[2]).sum()),
+                "k1_max_abs_err_color": float((got[0] - self.ref[0]).abs().max()),
+                "k1_bitwise_first": self.same_as_first(got, "k1"),
+                "k2_bitwise_first": self.same_as_first([d], "k2"),
                 **_grad_checks("k2", d, again, self.ref_d)}
 
     @staticmethod
     def ok(row):
-        return row["k2_max_rel_err"] <= 1e-4 and row["k2_bitwise_repeat"]
+        return (row["k1_bitwise"] and row["k2_max_rel_err"] <= 1e-4
+                and row["k2_bitwise_repeat"])
 
 
 class _Full:

@@ -9,6 +9,7 @@ packages.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -132,3 +133,22 @@ def clone_trap_scene(device=None) -> Scene:
         torch.as_tensor(np.concatenate([a, b]).astype(np.float32), device=dev)
         for a, b in zip(faint, opaque)
     ))
+
+
+def one_thread_under_xdist() -> None:
+    """Run torch's CPU operators on one thread inside a pytest-xdist worker.
+
+    Each worker would otherwise start as many intra-op threads as the host
+    has cores, and several workers on one host then oversubscribe it many
+    times over. The test files of the port call this when they are
+    imported; outside xdist (``PYTEST_XDIST_WORKER`` unset) it does
+    nothing. The inter-op pool is capped too, unless it has already been
+    sized or started, which torch allows only once.
+    """
+    if os.environ.get("PYTEST_XDIST_WORKER") is None:
+        return
+    torch.set_num_threads(1)
+    try:
+        torch.set_num_interop_threads(1)
+    except RuntimeError:
+        pass

@@ -37,7 +37,13 @@ from stopthepop_tpu_torch.kernels.global_blend import (
 from stopthepop_tpu_torch.render.duplicate import build_pairs
 from stopthepop_tpu_torch.render.pipeline import render_tiled, tile_grid
 from stopthepop_tpu_torch.render.preprocess import PreprocessOutput, preprocess
-from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+    random_scene,
+)
+
+one_thread_under_xdist()
 
 ROWS = ("mean2d", "conic_opacity", "rgb")
 

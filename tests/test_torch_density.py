@@ -59,6 +59,9 @@ from stopthepop_tpu_torch.utils.synthetic import (
     structured_scene,
     write_nerf_synthetic,
 )
+from stopthepop_tpu_torch.utils.testing import one_thread_under_xdist
+
+one_thread_under_xdist()
 
 EXTENT = 1.3
 

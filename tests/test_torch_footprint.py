@@ -1,4 +1,4 @@
-"""The per-warp footprint test of kernels K2 and K3 (the plain mirror
+"""The per-warp footprint test of kernels K1, K2 and K3 (the plain mirror
 ``kernels/footprint.py`` of ``csrc/footprint_common.cuh``) on the CPU.
 
 - The test never drops a (warp, pair) at which the per-pixel alpha test of
@@ -8,8 +8,11 @@
   just inside ln(255 o), thin and rotated ellipses, non-positive-definite
   conics and opacities below 1/255, for both warp shapes (16x2, 8x4).
   Exact: no tolerance.
-- The plain K2 and K3, skipping the pairs the test culls as the kernels do,
-  give the same bits as without the cull, and K2's summation order follows
+- The plain K1, K2 and K3, skipping the pairs the test culls as the kernels
+  do, give the same bits as without the cull (K1 on a scene with partial
+  tiles and on one with segments of 2,000+ pairs that saturate pixels), no
+  step at which a pixel of K1 stops is culled, K1's off-image pixels, which
+  start done, change no output, and K2's summation order follows
   its warp shape (``_warp_tree_sum``; tests/test_torch_blend_bwd.py holds
   the plain K2 in its 8x4 lane order against the JAX package's VJP).
 - The Python constants name the kernels' own (``kWarpW``, ``kWarpH`` in
@@ -23,14 +26,25 @@ import numpy as np
 import pytest
 import torch
 
-from stopthepop_tpu_torch.constants import ALPHA_MAX, ALPHA_THRESHOLD, TILE_X
+from stopthepop_tpu_torch.constants import (
+    ALPHA_MAX,
+    ALPHA_THRESHOLD,
+    T_THRESHOLD,
+    TILE_X,
+)
 from stopthepop_tpu_torch.kernels import footprint as fp
 from stopthepop_tpu_torch.kernels import global_blend as gb
 from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
 from stopthepop_tpu_torch.render.duplicate import build_pairs
 from stopthepop_tpu_torch.render.pipeline import tile_grid
 from stopthepop_tpu_torch.render.preprocess import preprocess
-from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+    random_scene,
+)
+
+one_thread_under_xdist()
 
 N = 4000
 DRAWS = ("random", "near_threshold", "thin_rotated", "non_pd", "low_opacity")
@@ -100,9 +114,9 @@ def _draw(kind, seed):
     return f(xy), f(co), f(origin)
 
 
-def _passes(xy, co, origin):
-    """[N, 256] per-pixel alpha test, pixels row-major in the tile, as the
-    tile blends compute it."""
+def _alpha(xy, co, origin):
+    """(power, alpha) [N, 256], pixels row-major in the tile, as the tile
+    blends compute them."""
     j = torch.arange(256)
     px = origin[:, 0:1] + (j % TILE_X).to(torch.float32)
     py = origin[:, 1:2] + (j // TILE_X).to(torch.float32)
@@ -110,7 +124,12 @@ def _passes(xy, co, origin):
     dy = xy[:, 1:2] - py
     a, b, c, o = (co[:, i:i + 1] for i in range(4))
     power = 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
-    alpha = torch.clamp(o * torch.exp(-power), max=ALPHA_MAX)
+    return power, torch.clamp(o * torch.exp(-power), max=ALPHA_MAX)
+
+
+def _passes(xy, co, origin):
+    """[N, 256] per-pixel alpha test, pixels row-major in the tile."""
+    power, alpha = _alpha(xy, co, origin)
     return (power >= 0.0) & (alpha >= ALPHA_THRESHOLD)
 
 
@@ -134,8 +153,9 @@ def test_footprint_keeps_every_warp_where_a_pixel_passes(kind, shape):
         assert int(have.sum()) < 0.6 * have.numel()
 
 
-def _scene(w=70, h=45, n=300, seed=0, scale_range=(0.05, 0.4)):
-    scene = random_scene(seed, n, scale_range=scale_range, device="cpu")
+def _scene(w=70, h=45, n=300, seed=0, scale_range=(0.05, 0.4), extent=1.5):
+    scene = random_scene(seed, n, extent=extent, scale_range=scale_range,
+                         device="cpu")
     cam = make_camera(w, h, device="cpu")
     prep = preprocess(
         scene.means3d, scene.opacities, scales=scene.scales,
@@ -157,11 +177,95 @@ def _cotangents(w, h, seed=7):
             torch.tensor(rng.standard_normal((h, w)), dtype=torch.float32))
 
 
+# K1's scenes: 70x45 (partial tiles at the right and bottom edges) and the
+# deep 32x32 scene of chip_smoke.py (4 segments of 2,000+ pairs: many batches
+# of 256 staged pairs, and pixels that saturate).
+K1_SCENES = {"70x45": {},
+             "deep_32x32": dict(w=32, h=32, n=4000, seed=22, extent=0.5,
+                                scale_range=(0.01, 0.12))}
+
+
 @pytest.fixture(params=fp.SHAPES, ids=["16x2", "8x4"])
 def warp_shape(request, monkeypatch):
     monkeypatch.setattr(gb, "WARP_SHAPE", request.param)
     monkeypatch.setattr(kb, "WARP_SHAPE", request.param)
     return request.param
+
+
+@pytest.mark.parametrize("scene", K1_SCENES)
+def test_plain_k1_is_bitwise_unchanged_by_the_cull(warp_shape, scene):
+    _, prep, args, kw = _scene(**K1_SCENES[scene])
+    k1 = (*args, prep.depth.contiguous())
+    n = {}
+    *ref, evaluations, _ = gb.blend_global_forward_plain(
+        *k1, **kw, count_evaluations=True, warp_counts=n)
+    got = gb.blend_global_forward_plain(*k1, **kw, footprint_cull=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert 0 < n["warp_pairs_kept"] < n["warp_pairs"]
+    assert 0 < n["evaluations_kept"] < evaluations
+    if scene == "deep_32x32":
+        assert int((args[2] - args[1]).min()) > 2 * 256
+
+
+def _stop_steps(args, final_t, n_contrib, kw):
+    """Per tile, [256] the segment position at which each pixel of K1
+    stopped (-1 where it did not): the first pair after its last blended
+    one that passes the alpha test (its T then stays, so the pair takes T
+    below 1e-4); checked against T."""
+    point_list, starts, ends, xy, co, _ = args
+    gx, gy = kw["grid_x"], kw["grid_y"]
+    nc = gb.pack_image(n_contrib, gx, gy)
+    ft = gb.pack_image(final_t, gx, gy)
+    inside = gb.pack_image(torch.ones_like(final_t, dtype=torch.bool), gx, gy)
+    out = []
+    for tile in range(gx * gy):
+        s, e = int(starts[tile]), int(ends[tile])
+        gid = point_list[s:e].to(torch.int64)
+        origin = torch.tensor([[(tile % gx) * TILE_X, (tile // gx) * TILE_X]],
+                              dtype=torch.float32).expand(e - s, 2)
+        power, alpha = _alpha(xy[gid], co[gid], origin)
+        after = ((power >= 0.0) & (alpha >= ALPHA_THRESHOLD)
+                 & (torch.arange(e - s)[:, None] >= nc[tile]) & inside[tile])
+        first = torch.where(after.any(dim=0), after.int().argmax(dim=0), -1)
+        hit = first >= 0
+        a = alpha[first.clamp(min=0), torch.arange(256)]
+        assert bool((ft[tile] * (1.0 - a) < T_THRESHOLD)[hit].all())
+        out.append(first)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("scene", K1_SCENES)
+def test_plain_k1_never_culls_a_step_at_which_a_pixel_stops(warp_shape, scene):
+    # K1 sets done only after a pair passes the alpha test, and the
+    # footprint test keeps every warp where a pixel passes: so a pixel's stop
+    # step is always kept, and the cull cannot move where a pixel stops.
+    _, prep, args, kw = _scene(**K1_SCENES[scene])
+    _, final_t, n_contrib, _ = gb.blend_global_forward_plain(
+        *args, prep.depth.contiguous(), **kw)
+    stops = _stop_steps(args, final_t, n_contrib, kw)          # [T, 256]
+    masks = fp.segment_masks(*args[:5], kw["grid_x"], warp_shape)
+    warp_of = torch.empty(256, dtype=torch.int64)
+    warp_of[fp.thread_pixels(warp_shape)] = torch.arange(256) // 32
+    hit = stops >= 0
+    slot = args[1].to(torch.int64)[:, None] + stops.clamp(min=0)
+    kept = ((masks[slot] >> warp_of) & 1) != 0
+    assert int(hit.sum()) > 0
+    assert bool(kept[hit].all())
+
+
+def test_plain_k1_off_image_pixels_change_no_output():
+    # The 70x45 image over its whole 80x48 tile grid: there no pixel is off
+    # the image and every pixel blends; cropped, the same bits.
+    _, prep, args, kw = _scene()
+    k1 = (*args, prep.depth.contiguous())
+    got = gb.blend_global_forward_plain(*k1, **kw)
+    grid = dict(kw, width=TILE_X * kw["grid_x"], height=TILE_X * kw["grid_y"])
+    whole = gb.blend_global_forward_plain(*k1, **grid)
+    for a, b in zip(got, whole):
+        assert torch.equal(a, b[..., :kw["height"], :kw["width"]])
+    n_whole = whole[2]
+    assert bool((n_whole[kw["height"]:] > 0).any())
+    assert bool((n_whole[:, kw["width"]:] > 0).any())
 
 
 def test_plain_k2_is_bitwise_unchanged_by_the_cull(warp_shape):
@@ -211,9 +315,10 @@ def _source_shape(name):
                  for c in ("kWarpW", "kWarpH"))
 
 
-@pytest.mark.parametrize("module,source", [(gb, "global_blend_bwd"),
+@pytest.mark.parametrize("module,source", [(gb, "global_blend_fwd"),
+                                           (gb, "global_blend_bwd"),
                                            (kb, "kbuffer_blend_fwd")],
-                         ids=["K2", "K3"])
+                         ids=["K1", "K2", "K3"])
 def test_python_constants_name_the_kernels(module, source):
     assert module.WARP_SHAPE == _source_shape(source)
     assert module.WARP_SHAPE in fp.SHAPES

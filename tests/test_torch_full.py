@@ -57,8 +57,11 @@ from stopthepop_tpu_torch.train import cli as train_cli
 from stopthepop_tpu_torch.utils.testing import (
     clone_trap_scene,
     make_camera,
+    one_thread_under_xdist,
     random_scene,
 )
+
+one_thread_under_xdist()
 
 BG = np.array([0.15, 0.05, 0.3], np.float32)
 

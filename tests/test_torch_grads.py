@@ -30,7 +30,13 @@ import stopthepop_tpu_torch as stt
 from stopthepop_tpu_torch.ops.covariance import compute_cov3d
 from stopthepop_tpu_torch.render.pipeline import render_tiled
 from stopthepop_tpu_torch.render.preprocess import preprocess
-from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+    random_scene,
+)
+
+one_thread_under_xdist()
 
 BG = np.array([0.3, 0.1, 0.2], np.float32)
 NAMES = ("means3d", "scales", "rotations", "opacities", "colors")

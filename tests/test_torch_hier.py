@@ -50,7 +50,14 @@ from stopthepop_tpu_torch.render.pipeline import render_tiled_hier, tile_grid
 from stopthepop_tpu_torch.render.preprocess import preprocess
 from stopthepop_tpu_torch.train import cli as train_cli
 from stopthepop_tpu_torch.utils.synthetic import structured_scene, write_nerf_synthetic
-from stopthepop_tpu_torch.utils.testing import Scene, make_camera, random_scene
+from stopthepop_tpu_torch.utils.testing import (
+    Scene,
+    make_camera,
+    one_thread_under_xdist,
+    random_scene,
+)
+
+one_thread_under_xdist()
 
 BG = np.array([0.15, 0.05, 0.3], np.float32)
 ATOL = 1e-5

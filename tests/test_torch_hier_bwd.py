@@ -53,7 +53,11 @@ from stopthepop_tpu_torch.ops.covariance import compute_cov3d
 from stopthepop_tpu_torch.render.duplicate import build_pairs
 from stopthepop_tpu_torch.render.pipeline import tile_grid
 from stopthepop_tpu_torch.render.preprocess import preprocess
-from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+    random_scene,
+)
 
 from test_torch_hier import (
     BG,
@@ -65,6 +69,8 @@ from test_torch_hier import (
     _tail_emission,
     _trap_scene,
 )
+
+one_thread_under_xdist()
 
 
 def _cotangents(w, h, seed=1):

@@ -31,7 +31,12 @@ from stopthepop_tpu_torch.train.trainer import (
     make_train_step,
 )
 from stopthepop_tpu_torch.utils.synthetic import structured_scene, write_nerf_synthetic
-from stopthepop_tpu_torch.utils.testing import make_camera
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+)
+
+one_thread_under_xdist()
 
 QUEUES = (8, 4, 2)
 

@@ -28,7 +28,13 @@ from stopthepop_tpu_torch.ops.stopthepop import depth_along_ray, per_tile_depth
 from stopthepop_tpu_torch.ops.transforms import compute_view_ray, pix2world
 from stopthepop_tpu_torch.render.pipeline import render_tiled_kbuffer
 from stopthepop_tpu_torch.render.preprocess import preprocess
-from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+    random_scene,
+)
+
+one_thread_under_xdist()
 
 BG = np.array([0.15, 0.05, 0.3], np.float32)
 

@@ -55,7 +55,13 @@ from stopthepop_tpu_torch.train.trainer import (
     make_train_step,
 )
 from stopthepop_tpu_torch.utils.synthetic import structured_scene, write_nerf_synthetic
-from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+    random_scene,
+)
+
+one_thread_under_xdist()
 
 BG = np.array([0.3, 0.1, 0.2], np.float32)
 

@@ -28,7 +28,12 @@ from stopthepop_tpu_torch.ops import sh as tsh
 from stopthepop_tpu_torch.ops import sort as tsort
 from stopthepop_tpu_torch.ops import stopthepop as tstp
 from stopthepop_tpu_torch.ops import transforms as ttr
-from stopthepop_tpu_torch.utils.testing import make_camera
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+)
+
+one_thread_under_xdist()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 P = 200

@@ -27,7 +27,13 @@ from stopthepop_tpu_torch.render.duplicate import (
 )
 from stopthepop_tpu_torch.render.pipeline import tile_grid
 from stopthepop_tpu_torch.render.preprocess import preprocess
-from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+    random_scene,
+)
+
+one_thread_under_xdist()
 
 
 def _preps(w, h, order, cull, seed=11, n=250):

@@ -17,7 +17,13 @@ from stopthepop_tpu.render.preprocess import preprocess as jax_preprocess
 from stopthepop_tpu_torch.config import GlobalSortOrder
 from stopthepop_tpu_torch.ops.covariance import compute_cov3d
 from stopthepop_tpu_torch.render.preprocess import PreprocessOutput, get_rect, preprocess
-from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+    random_scene,
+)
+
+one_thread_under_xdist()
 
 EXACT = ("valid", "clamped", "radii", "rect_min", "rect_max", "tiles_touched")
 

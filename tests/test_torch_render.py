@@ -40,7 +40,13 @@ from stopthepop_tpu_torch.models.gaussians import (
     to_numpy_params,
 )
 from stopthepop_tpu_torch.render import cli
-from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+    random_scene,
+)
+
+one_thread_under_xdist()
 
 PORT = Path(stt.__file__).resolve().parent
 BG = np.array([0.1, 0.2, 0.3], np.float32)

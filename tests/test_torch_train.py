@@ -39,7 +39,12 @@ from stopthepop_tpu_torch.train.trainer import (
     render_model,
     set_position_lr,
 )
-from stopthepop_tpu_torch.utils.testing import make_camera
+from stopthepop_tpu_torch.utils.testing import (
+    make_camera,
+    one_thread_under_xdist,
+)
+
+one_thread_under_xdist()
 
 SIZE = 32
 
