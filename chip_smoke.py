@@ -110,7 +110,33 @@ Phases, one JSON line each; any failure exits non-zero:
      KBUFFER k = 4; HIER 64/8/4 and 16/8/4 with PTD_MAX), each against the
      K7 FULL render of the same frame: PSNR, mean and max absolute
      difference of the images clipped to [0, 1]; one line a case.
- 18. the kernels line: each ported kernel with its launches on its main
+ 18. train_batched: train/trainer.py::make_batched_train_step on the bench
+     model, 4 orbit cameras at 1080p with seeded random targets, GLOBAL:
+     its gradients equal the mean of 4 single-camera gradients (1e-5 of
+     each tensor's largest value), then 3 timed steps with K1 and K2
+     launched 4 times a step and no other kernel; the loss finite and
+     falling; ms per step and per camera against phase 5's step; peak
+     memory.
+ 19. colmap: a COLMAP capture written with the port's writers (16 PNG
+     renders of the bench model at 1237x822, a points3D of 100K of its
+     means); train/cli.py::main on it for 100 iterations in its default
+     mode, HIER (K5, K6): eval PSNR rises, the PLY loads; render/cli.py
+     renders its 16 views in PPX_KBUFFER (K3).
+ 20. debug_viz: Depth, Transmittance, GaussianCountPerPixel and
+     GaussianCountPerTile at 1080p/500K through GaussianRasterizer in
+     GLOBAL, PPX_KBUFFER, HIER and PPX_FULL (K1, K3, K5, K7 once a render):
+     each field is the render's own full_output quantity to the bit and the
+     image its colormap; render_depth=True through render_frames; both
+     sort-error modes on the 70x45 and the deep 32x32 scenes against the
+     same maps on the CPU (1e-5), and the k-buffer and HIER oracles'
+     sort-error means there.
+ 21. timed: render/pipeline.py::render_tiled_timed with StageTimer(interval
+     2), 4 frames at 1080p/500K: the image bitwise render_tiled's, the four
+     stage times per interval; utils/profiling.py::trace of one frame names
+     K1's kernel.
+ 22. snapshot: a debug=True render with bad inputs raises and writes a
+     snapshot_fw equal to the inputs; a good one is bitwise the plain render.
+ 23. the kernels line: each ported kernel with its launches on its main
      path (the training steps of phase 5 for K1/K2, of phase 10 for K3/K4
      and of phase 14 for K6, the HIER frames of phase 12 for K5, the FULL
      frames of phase 16 for K7), its error against the plain version, its
@@ -200,6 +226,13 @@ TRAIN_STEPS = 5
 # The training CLI's run: a NeRF-synthetic dataset of CLI_VIEWS renders of
 # a CLI_SCENE-Gaussian procedural scene at CLI_SIZE x CLI_SIZE.
 CLI_ITERS, CLI_VIEWS, CLI_SIZE, CLI_SCENE, CLI_INIT = 300, 8, 200, 20_000, 2_000
+# The batched training step: BATCH orbit cameras a step, BATCH_STEPS timed.
+BATCH, BATCH_STEPS = 4, 3
+# The COLMAP capture: COLMAP_VIEWS views at the size of MipNeRF-360
+# bicycle's images_4, a points3D of COLMAP_POINTS, COLMAP_ITERS iterations.
+COLMAP_VIEWS, COLMAP_W, COLMAP_H = 16, 1237, 822
+COLMAP_POINTS, COLMAP_ITERS = 100_000, 100
+TIMED_FRAMES = 4
 
 
 def emit(obj):
@@ -551,30 +584,21 @@ def compare_full(name, args, kw, *, count_evaluations=False):
     return stats
 
 
-def full_auto_rule(scene, cam, dev):
+def full_auto_rule(scene, cam):
     """PER_PIXEL_FULL through ``GaussianRasterizer`` with full_mode="auto"
     on a small scene on the card: under no_grad it launches K7 once; asked
     for gradients it takes the dense oracle (no K7 launch), whose image and
     final_T equal K7's within ATOL (n_contrib on under 2% of the pixels,
     tests/test_torch_full.py's allowance) and whose gradients are finite.
     Returns stats."""
-    from stopthepop_tpu_torch.config import (
-        ExtendedSettings,
-        GaussianRasterizationSettings,
-        SortMode,
-    )
+    from stopthepop_tpu_torch.config import ExtendedSettings, SortMode
     from stopthepop_tpu_torch.kernels import full_blend as fb
     from stopthepop_tpu_torch.render.rasterize import GaussianRasterizer
 
     ext = ExtendedSettings()
     ext.sort_settings.sort_mode = SortMode.PPX_FULL
-    raster = GaussianRasterizer(GaussianRasterizationSettings(
-        image_height=cam.height, image_width=cam.width, tanfovx=cam.tanfovx,
-        tanfovy=cam.tanfovy, bg=torch.zeros(3, device=dev),
-        scale_modifier=1.0, viewmatrix=cam.viewmatrix,
-        projmatrix=cam.projmatrix, inv_viewprojmatrix=cam.inv_viewprojmatrix,
-        sh_degree=3, campos=cam.campos, prefiltered=False, settings=ext),
-        full_output=True)
+    raster = GaussianRasterizer(
+        raster_settings(cam, ext, cam.width, cam.height), full_output=True)
 
     def render(means):
         return raster(means, None, scene["opacities"], shs=scene["shs"],
@@ -809,6 +833,436 @@ def profile_steps(step, n: int, unprofiled_ms: float):
                  "launches_per_step": e.count / n} for e in kernels[:15]]}
 
 
+def bench_model(dev):
+    """The bench scene: 500K Gaussians from seed 0, log-scales minus 2.3
+    (trained-scene-like footprints, bench.py:109-111)."""
+    from stopthepop_tpu_torch.models.gaussians import init_random
+
+    model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3,
+                        device=dev)
+    with torch.no_grad():
+        model.scales_log -= 2.3
+    return model
+
+
+def raster_settings(cam, ext, width, height, **kw):
+    """GaussianRasterizationSettings of a testing Camera."""
+    from stopthepop_tpu_torch.config import GaussianRasterizationSettings
+
+    return GaussianRasterizationSettings(
+        image_height=height, image_width=width, tanfovx=cam.tanfovx,
+        tanfovy=cam.tanfovy, bg=torch.zeros(3, device=cam.campos.device),
+        scale_modifier=1.0, viewmatrix=cam.viewmatrix,
+        projmatrix=cam.projmatrix, inv_viewprojmatrix=cam.inv_viewprojmatrix,
+        sh_degree=3, campos=cam.campos, prefiltered=False, settings=ext, **kw)
+
+
+def culled_settings(mode=None):
+    """ExtendedSettings with rect and tight-opacity culling, in ``mode``."""
+    from stopthepop_tpu_torch.config import ExtendedSettings
+
+    ext = ExtendedSettings()
+    if mode is not None:
+        ext.sort_settings.sort_mode = mode
+    ext.culling_settings.rect_bounding = True
+    ext.culling_settings.tight_opacity_bounding = True
+    return ext
+
+
+def model_grads(model):
+    from stopthepop_tpu_torch.models.gaussians import PARAM_NAMES
+
+    return {k: getattr(model, k).grad.detach().clone() for k in PARAM_NAMES}
+
+
+def batched_train_phase(static, dev, single_step_ms):
+    """train_batched: the bench model, BATCH orbit cameras at 1080p with
+    seeded random targets through train/trainer.py::make_batched_train_step
+    in GLOBAL. First its gradients against the mean of BATCH single-camera
+    gradients at the same weights (within 1e-5 of each tensor's largest
+    value); that step is the warm-up. Then BATCH_STEPS timed steps with the
+    launch counts set to 0 just before and read just after: K1 and K2
+    launched BATCH times a step and no other kernel, the loss finite and
+    falling; the step's ms, its ms per camera against the single-camera
+    ``train`` step, and peak memory from a reset counter."""
+    from stopthepop_tpu_torch.io.cameras import CameraArrays, orbit_camera, to_camera_arrays
+    from stopthepop_tpu_torch.models.gaussians import PARAM_NAMES
+    from stopthepop_tpu_torch.train import trainer
+
+    model = bench_model(dev)
+    views = [to_camera_arrays(orbit_camera(2 * math.pi * i / BATCH,
+                                           math.radians(60.0), WIDTH, HEIGHT),
+                              dev) for i in range(BATCH)]
+    cams = CameraArrays(*(torch.stack([getattr(v, f) for v in views])
+                          for f in CameraArrays._fields))
+    targets = torch.rand((BATCH, 3, HEIGHT, WIDTH), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    state = trainer.init_train_state(model, trainer.make_3dgs_optimizer(model))
+    single = {k: torch.zeros_like(getattr(model, k)) for k in PARAM_NAMES}
+    for b in range(BATCH):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _, _ = trainer.step_forward(state, views[b], targets[b],
+                                          static=static)
+        loss.backward()
+        for k, g in model_grads(model).items():
+            single[k] += g / BATCH
+    stats = trainer.init_densify_stats(model.num_gaussians, dev)
+    step_fn = trainer.make_batched_train_step(static=static)
+    state, stats, _ = step_fn(state, cams, targets, stats)  # warm-up
+    grad_err = {}
+    for k, g in model_grads(model).items():
+        scale = float(single[k].abs().max())
+        grad_err[k] = float((g - single[k]).abs().max()) / max(scale, 1e-30)
+        check(scale > 0 and grad_err[k] <= 1e-5, "train_batched",
+              f"{k}: batched gradient is not the mean of {BATCH} single-camera "
+              f"gradients ({grad_err[k]} of the largest)")
+    del single
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(BATCH_STEPS):
+        t0 = time.perf_counter()
+        state, stats, aux = step_fn(state, cams, targets, stats)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(aux["loss"]))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          "train_batched", f"loss not finite or not falling: {losses}")
+    check(all(n == (BATCH * BATCH_STEPS if k in ("k1", "k2") else 0)
+              for k, n in launches.items()), "train_batched",
+          f"launches {launches} in {BATCH_STEPS} steps of {BATCH} cameras")
+    check(int(stats.denom.max()) == BATCH * (BATCH_STEPS + 1), "train_batched",
+          f"denom max {int(stats.denom.max())}")
+    ms = sum(step_ms) / BATCH_STEPS
+    return {"cameras": BATCH, "steps": BATCH_STEPS, "width": WIDTH,
+            "height": HEIGHT, "gaussians": NUM_GAUSSIANS, "losses": losses,
+            "ms_per_step": ms, "step_ms": step_ms,
+            "ms_per_camera": ms / BATCH,
+            "single_camera_train_ms_per_step": single_step_ms,
+            "pairs_per_camera": aux["num_rendered"],
+            "grad_err_vs_single_mean": grad_err, "launches": launches,
+            "peak_mem_gib": peak}
+
+
+def colmap_phase(out_dir, dev):
+    """colmap: a COLMAP capture of the bench model written with the port's
+    writers (utils/synthetic.py::write_colmap_capture): COLMAP_VIEWS PNG
+    renders at COLMAP_W x COLMAP_H (MipNeRF-360 bicycle's images_4) and a
+    points3D of COLMAP_POINTS of its means with their colours. Then
+    train/cli.py::main on it for COLMAP_ITERS iterations in the CLI's
+    default mode, HIER (K5, K6): eval PSNR rises, the PLY loads; then
+    render/cli.py renders every view of the capture in PPX_KBUFFER (K3)."""
+    from stopthepop_tpu_torch.io.images import read_png
+    from stopthepop_tpu_torch.io.ply import load_gaussian_model
+    from stopthepop_tpu_torch.render import cli as render_cli
+    from stopthepop_tpu_torch.train import cli as train_cli
+    from stopthepop_tpu_torch.utils.synthetic import write_colmap_capture
+
+    data = out_dir / "colmap"
+    t0 = time.perf_counter()
+    write_colmap_capture(str(data), bench_model(dev), views=COLMAP_VIEWS,
+                         width=COLMAP_W, height=COLMAP_H, points=COLMAP_POINTS,
+                         device=dev)
+    write_s = time.perf_counter() - t0
+    ply = out_dir / "colmap.ply"
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # the CLI's progress lines
+        res = train_cli.main([
+            "--data", str(data), "--iters", str(COLMAP_ITERS),
+            "--eval-every", str(COLMAP_ITERS // 4), "--out", str(ply),
+            "--device", str(dev), "--seed", "0"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    evals = [res.eval_psnr[k] for k in sorted(res.eval_psnr)]
+    check(all(math.isfinite(v) for v in evals) and evals[-1] > evals[0],
+          "colmap", f"eval PSNR did not rise: {res.eval_psnr}")
+    check(train_launches["k6"] == COLMAP_ITERS
+          and train_launches["k5"] >= COLMAP_ITERS
+          and not any(n for k, n in train_launches.items()
+                      if k not in ("k5", "k6")), "colmap",
+          f"launches {train_launches} in {COLMAP_ITERS} HIER iterations")
+    trained = load_gaussian_model(str(ply), device=dev)
+    check(trained.num_gaussians == COLMAP_POINTS == res.state.model.num_gaussians,
+          "colmap", "the PLY does not hold the model trained from points3D")
+    frames = out_dir / "colmap_frames"
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        render_cli.main(["--ply", str(ply), "--data", str(data),
+                         "--frames", str(COLMAP_VIEWS), "--out", str(frames),
+                         "--sort-mode", "PPX_KBUFFER", "--device", str(dev)])
+    render_s = time.perf_counter() - t0
+    render_launches = read_launches()
+    check(render_launches["k3"] == COLMAP_VIEWS + 1  # and a warm-up frame
+          and not any(n for k, n in render_launches.items() if k != "k3"),
+          "colmap", f"render launches {render_launches}")
+    shapes = {read_png(str(frames / f"frame_{i:04d}.png")).shape
+              for i in range(COLMAP_VIEWS)}
+    check(shapes == {(COLMAP_H, COLMAP_W, 3)}, "colmap",
+          f"rendered frame shapes {shapes}")
+    return {"views": COLMAP_VIEWS, "width": COLMAP_W, "height": COLMAP_H,
+            "points3D": COLMAP_POINTS, "write_s": write_s,
+            "iters": COLMAP_ITERS, "eval_psnr": res.eval_psnr,
+            "train_s": train_s, "train_launches": train_launches,
+            "render_s": render_s, "render_launches": render_launches}
+
+
+def debug_viz_phase(model, bench_cam, cams, small_arrays, dev):
+    """debug_viz: Depth, Transmittance, GaussianCountPerPixel and
+    GaussianCountPerTile at 1080p/500K through GaussianRasterizer in GLOBAL,
+    PPX_KBUFFER, HIER and PPX_FULL, each render launching its blend kernel
+    (K1, K3, K5, K7) once: each field equals the same render's full_output
+    quantity (depth_acc / (1 - T), final_T, n_contrib, the pair counts) to
+    the bit, the image is its colormap and the statistics its own.
+    render_depth=True through render/cli.py::render_frames. Both
+    sort-error modes on the 70x45 and the deep 32x32 scenes, their maps
+    against the same function on the CPU (1e-5 of the larger of 1 and the
+    map's largest value); the k-buffer (k = 4) and HIER (64, 8, 4) oracles'
+    sort-error maps there, their means per mode."""
+    from stopthepop_tpu_torch.config import DebugVisualization as DV
+    from stopthepop_tpu_torch.config import SortMode
+    from stopthepop_tpu_torch.render import naive
+    from stopthepop_tpu_torch.render.cli import render_frames
+    from stopthepop_tpu_torch.render.debug_viz import (
+        DebugVisualizationData,
+        apply_colormap,
+        debug_field,
+        field_stats,
+        normalize_field,
+        sort_error_maps,
+        tile_count_map,
+    )
+    from stopthepop_tpu_torch.render.rasterize import GaussianRasterizer
+    from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+
+    kernel_of = {SortMode.GLOBAL: "k1", SortMode.PPX_KBUFFER: "k3",
+                 SortMode.HIER: "k5", SortMode.PPX_FULL: "k7"}
+    a = model_arrays(model)
+    with torch.inference_mode():
+        _, pairs, _ = prepare(a, bench_cam, WIDTH, HEIGHT)
+        counts = pairs.ends - pairs.starts
+        del pairs
+    fields = {}
+    for mode, kernel in kernel_of.items():
+        rs = raster_settings(bench_cam, culled_settings(mode), WIDTH, HEIGHT)
+        for viz in (DV.Depth, DV.Transmittance, DV.GaussianCountPerPixel,
+                    DV.GaussianCountPerTile):
+            data = DebugVisualizationData(debug_pixel=(WIDTH // 2, HEIGHT // 2))
+            reset_launches()
+            with torch.inference_mode():
+                out = GaussianRasterizer(
+                    rs, full_output=True, debug_visualization=viz,
+                    debug_data=data)(a["means3d"], None, a["opacities"],
+                                     shs=a["shs"], scales=a["scales"],
+                                     rotations=a["rotations"])
+                torch.cuda.synchronize()
+                launches = read_launches()
+                case = f"{mode.name} {viz.name}"
+                check(launches[kernel] == 1 and sum(launches.values()) == 1,
+                      "debug_viz", f"{case}: launches {launches}")
+                field, table = debug_field(
+                    viz, final_t=out.final_t, n_contrib=out.n_contrib,
+                    depth_acc=out.depth_acc, pair_counts=counts, width=WIDTH,
+                    height=HEIGHT)
+                expect = {
+                    DV.Depth: lambda: out.depth_acc / (1.0 - out.final_t).clamp(min=1e-6),
+                    DV.Transmittance: lambda: out.final_t,
+                    DV.GaussianCountPerPixel: lambda: out.n_contrib.float(),
+                    DV.GaussianCountPerTile: lambda: tile_count_map(
+                        counts, WIDTH, HEIGHT),
+                }[viz]()
+                lo, hi, mean, std = (float(v) for v in field_stats(field))
+                check(torch.equal(field, expect) and bool(torch.isfinite(field).all())
+                      and torch.equal(out.color, apply_colormap(
+                          normalize_field(field), table))
+                      and (data.minimum, data.maximum, data.mean, data.std)
+                      == (lo, hi, mean, std)
+                      and out.num_rendered == int(counts.sum()), "debug_viz",
+                      f"{case}: the image is not the colormap of the render's "
+                      "own field")
+            fields[case] = {"min": lo, "max": hi, "mean": mean, "std": std}
+    reset_launches()
+    depth_out = render_frames(model, cams[:1], culled_settings(), dev,
+                              render_depth=True)[0]
+    launches = read_launches()
+    expect = depth_out.depth_acc / (1.0 - depth_out.final_t).clamp(min=1e-6)
+    from stopthepop_tpu_torch.render.colormaps import TURBO_TABLE
+
+    check(launches["k1"] == 1 and torch.equal(
+        depth_out.color, apply_colormap(normalize_field(expect), TURBO_TABLE)),
+        "debug_viz", f"render_depth through render_frames: launches {launches}")
+
+    # The sort-error maps on the small scenes, on the card and on the CPU.
+    deep = random_scene(22, 4000, extent=0.5, device="cpu")
+    scenes = (
+        ("70x45 random scene, 300 Gaussians", small_arrays, (70, 45)),
+        (f"{HIER_DEEP_SIZE}x{HIER_DEEP_SIZE} deep scene, 4000 Gaussians",
+         {"means3d": deep.means3d, "opacities": deep.opacities,
+          "scales": deep.scales, "rotations": deep.rotations, "shs": deep.shs},
+         (HIER_DEEP_SIZE, HIER_DEEP_SIZE)))
+    sort_error = []
+    for case, arrays, (w, h) in scenes:
+        on = {k: v.to(dev) for k, v in arrays.items()}
+        off = {k: v.cpu() for k, v in arrays.items()}
+        cam, cpu_cam = make_camera(w, h, device=dev), make_camera(w, h, device="cpu")
+        row = {"case": case}
+        with torch.inference_mode():
+            prep, _, _ = prepare(on, cam, w, h)
+            cpu_prep, _, _ = prepare(off, cpu_cam, w, h)
+            maps = sort_error_maps(prep, w, h, cam.campos, cam.inv_viewprojmatrix)
+            ref = sort_error_maps(cpu_prep, w, h, cpu_cam.campos,
+                                  cpu_cam.inv_viewprojmatrix)
+            for name, m, r, viz in zip(("opacity", "distance"), maps, ref,
+                                       (DV.SortErrorOpacity, DV.SortErrorDistance)):
+                err = float((m.cpu() - r).abs().max())
+                tol = 1e-5 * max(1.0, float(r.abs().max()))
+                check(err <= tol and bool(torch.isfinite(m).all()), "debug_viz",
+                      f"{case}: GLOBAL {name} map off the CPU's by {err}")
+                data = DebugVisualizationData()
+                img = GaussianRasterizer(
+                    raster_settings(cam, culled_settings(), w, h),
+                    debug_visualization=viz, debug_data=data)(
+                        on["means3d"], None, on["opacities"], shs=on["shs"],
+                        scales=on["scales"], rotations=on["rotations"])[0]
+                check(bool(torch.isfinite(img).all())
+                      and data.maximum == float(m.max()), "debug_viz",
+                      f"{case}: the {viz.name} render is not its map")
+                row[f"global_{name}_max_abs_err_vs_cpu"] = err
+                row[f"global_{name}_mean"] = float(m.mean())
+            kb = naive.render_kbuffer_naive(
+                prep, torch.zeros(3, device=dev), w, h, cam.campos,
+                cam.inv_viewprojmatrix, k=KB_K, sort_error=True)
+            hier = naive.render_hierarchical_naive(
+                prep, torch.zeros(3, device=dev), w, h, cam.campos,
+                cam.inv_viewprojmatrix, queue_sizes=HIER_QUEUES,
+                sort_error=True)
+            for mode, out in (("kbuffer", kb), ("hier", hier)):
+                check(all(bool(torch.isfinite(x).all()) for x in out),
+                      "debug_viz", f"{case}: {mode} oracle not finite")
+                row[f"{mode}_opacity_mean"] = float(out[3].mean())
+                row[f"{mode}_distance_mean"] = float(out[4].mean())
+        sort_error.append(row)
+    return {"fields": fields, "sort_error": sort_error}
+
+
+def timed_phase(model, bench_cam, out_dir, dev):
+    """timed: render/pipeline.py::render_tiled_timed with
+    StageTimer(interval=2) for TIMED_FRAMES frames at 1080p/500K (K1 once a
+    frame): the image bitwise render_tiled's, the four stage times of the
+    last interval; then utils/profiling.py::trace of one more frame names
+    K1's kernel in its file."""
+    from stopthepop_tpu_torch.kernels import global_blend
+    from stopthepop_tpu_torch.render.pipeline import render_tiled, render_tiled_timed
+    from stopthepop_tpu_torch.render.preprocess import preprocess
+    from stopthepop_tpu_torch.utils.profiling import STAGES, StageTimer, trace
+
+    a = model_arrays(model)
+    bg = torch.zeros(3, device=dev)
+
+    def prep_fn():
+        return preprocess(
+            a["means3d"], a["opacities"], scales=a["scales"],
+            rotations=a["rotations"], shs=a["shs"],
+            viewmatrix=bench_cam.viewmatrix, projmatrix=bench_cam.projmatrix,
+            campos=bench_cam.campos, tanfovx=bench_cam.tanfovx,
+            tanfovy=bench_cam.tanfovy, image_width=WIDTH, image_height=HEIGHT,
+            sh_degree=3, rect_bounding=True, tight_opacity_bounding=True)
+
+    kw = dict(image_width=WIDTH, image_height=HEIGHT)
+    timer = StageTimer(interval=2)
+    reports = []
+    with torch.inference_mode():
+        reset_launches()
+        for i in range(TIMED_FRAMES):
+            timed = render_tiled_timed(prep_fn, timer, bg, **kw)
+            if (i + 1) % timer.interval == 0:
+                reports.append(timer.timings_text)
+        launches = read_launches()
+        untimed = render_tiled(prep_fn(), bg, **kw)
+        same = all(torch.equal(x, y) for x, y in zip(
+            timed[:3] + timed[4:], untimed[:3] + untimed[4:]))
+        check(same, "timed", "the timed render differs from render_tiled")
+        check(launches["k1"] == TIMED_FRAMES
+              and sum(launches.values()) == TIMED_FRAMES, "timed",
+              f"launches {launches} in {TIMED_FRAMES} frames")
+        with trace(str(out_dir / "trace")):
+            render_tiled_timed(prep_fn, StageTimer(enabled=False), bg, **kw)
+    with open(out_dir / "trace" / "trace.json") as f:
+        text = f.read()
+    check(f"{global_blend.KERNEL}_kernel" in text, "timed",
+          "the trace does not name K1's kernel")
+    stage_ms = [{ln.split(":")[0]: float(ln.split()[1])
+                 for ln in rep.splitlines()} for rep in reports]
+    check(len(stage_ms) == TIMED_FRAMES // 2
+          and all(list(st) == list(STAGES) for st in stage_ms), "timed",
+          f"timings text {reports}")
+    return {"frames": TIMED_FRAMES, "interval": 2, "width": WIDTH,
+            "height": HEIGHT, "gaussians": NUM_GAUSSIANS,
+            "stage_ms_by_interval": stage_ms, "launches": launches,
+            "trace_names_k1": True, "bitwise_equal_render_tiled": same}
+
+
+def snapshot_phase(model, bench_cam):
+    """snapshot, in a temporary STP_SNAPSHOT_DIR: a debug=True render of
+    the bench model with one opacity too many raises on the card and
+    writes a snapshot_fw whose host copies equal the inputs; a good
+    debug=True render is bitwise the plain render."""
+    import os
+    import tempfile
+
+    from stopthepop_tpu_torch.render.rasterize import GaussianRasterizer
+    from stopthepop_tpu_torch.utils.snapshot import load_snapshot
+
+    a = model_arrays(model)
+    rs = raster_settings(bench_cam, culled_settings(), WIDTH, HEIGHT)
+    inputs = dict(shs=a["shs"], scales=a["scales"], rotations=a["rotations"])
+    bad = torch.cat([a["opacities"], a["opacities"][:1]])
+    old = os.environ.get("STP_SNAPSHOT_DIR")
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["STP_SNAPSHOT_DIR"] = d
+        try:
+            with torch.inference_mode():
+                try:
+                    with contextlib.redirect_stdout(sys.stderr):
+                        GaussianRasterizer(rs._replace(debug=True))(
+                            a["means3d"], None, bad, **inputs)
+                    raised = None
+                except RuntimeError as e:
+                    raised = str(e).splitlines()[0][:200]
+                check(raised is not None, "snapshot", "the bad render did not raise")
+                snap = load_snapshot(os.path.join(d, "snapshot_fw.npz"))
+                equal = all(
+                    (snap[k] == v.cpu().numpy()).all() for k, v in (
+                        ("means3D", a["means3d"]), ("opacities", bad),
+                        ("sh", a["shs"]), ("scales", a["scales"]),
+                        ("rotations", a["rotations"]),
+                        ("viewmatrix", bench_cam.viewmatrix)))
+                check(equal, "snapshot", "snapshot_fw differs from the inputs")
+                plain = GaussianRasterizer(rs, full_output=True)(
+                    a["means3d"], None, a["opacities"], **inputs)
+                debug = GaussianRasterizer(rs._replace(debug=True),
+                                           full_output=True)(
+                    a["means3d"], None, a["opacities"], **inputs)
+                same = all(torch.equal(x, y) for x, y in zip(plain[:5],
+                                                             debug[:5]))
+                check(same and not os.path.exists(
+                    os.path.join(d, "snapshot_bw.npz")), "snapshot",
+                    "the debug render differs from the plain render")
+                files = sorted(os.listdir(d))
+        finally:
+            if old is None:
+                del os.environ["STP_SNAPSHOT_DIR"]
+            else:
+                os.environ["STP_SNAPSHOT_DIR"] = old
+    return {"error": raised, "snapshot_files": files,
+            "snapshot_equals_inputs": equal, "debug_render_bitwise_plain": same}
+
+
 def _wrappers():
     from stopthepop_tpu_torch.kernels import (
         full_blend,
@@ -878,7 +1332,6 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from stopthepop_tpu_torch.config import ExtendedSettings
     from stopthepop_tpu_torch.io.cameras import orbit_camera
     from stopthepop_tpu_torch.io.ply import load_gaussian_model, save_gaussian_model
     from stopthepop_tpu_torch.kernels import build, global_blend
@@ -887,7 +1340,7 @@ def main(argv=None) -> int:
         BlendHier,
         BlendKBuffer,
     )
-    from stopthepop_tpu_torch.models.gaussians import init_random, to_numpy_params
+    from stopthepop_tpu_torch.models.gaussians import to_numpy_params
     from stopthepop_tpu_torch.render.cli import render_model
     from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
 
@@ -923,9 +1376,7 @@ def main(argv=None) -> int:
     deep_stats = compare_kernel(deep_case, blend_args(prep, pairs), dkw)
     emit({"phase": "kernel", "ok": True, "case": deep_case,
           "pairs": pairs.num_rendered, **deep_stats})
-    model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3, device=dev)
-    with torch.no_grad():
-        model.scales_log -= 2.3  # trained-scene-like footprints (bench.py:109-111)
+    model = bench_model(dev)
     with torch.inference_mode():
         bench_cam = make_camera(WIDTH, HEIGHT, campos=(0.0, 0.0, -4.0), device=dev)
         prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
@@ -969,9 +1420,7 @@ def main(argv=None) -> int:
     del saved
     cams = [orbit_camera(2 * math.pi * i / FRAMES, math.radians(60.0), WIDTH, HEIGHT)
             for i in range(FRAMES)]
-    settings = ExtendedSettings()
-    settings.culling_settings.rect_bounding = True
-    settings.culling_settings.tight_opacity_bounding = True
+    settings = culled_settings()
     fields, _ = serve_phase(
         "main", loaded, cams, settings, "k1",
         lambda prep, pairs, cam: blend_args(prep, pairs),
@@ -1152,9 +1601,7 @@ def main(argv=None) -> int:
             emit({"phase": "kernel_kb", "ok": True, "case": deep_case,
                   "pairs": pairs.num_rendered, **st})
         del prep, pairs, dargs
-    model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3, device=dev)
-    with torch.no_grad():
-        model.scales_log -= 2.3
+    model = bench_model(dev)
     with torch.inference_mode():
         prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
         kb_bench_args = kb_args(prep, pairs, bench_cam)
@@ -1187,11 +1634,8 @@ def main(argv=None) -> int:
     # 8. main_kb: the serving path in PPX_KBUFFER -------------------------------
     from stopthepop_tpu_torch.config import SortMode
 
-    kb_settings = ExtendedSettings()
-    kb_settings.sort_settings.sort_mode = SortMode.PPX_KBUFFER
+    kb_settings = culled_settings(SortMode.PPX_KBUFFER)
     kb_settings.sort_settings.queue_sizes.per_pixel = KB_K
-    kb_settings.culling_settings.rect_bounding = True
-    kb_settings.culling_settings.tight_opacity_bounding = True
     fields, _ = serve_phase(
         "main_kb", model, cams, kb_settings, "k3", kb_args,
         functools.partial(kb.blend_kbuffer_forward, k=KB_K, **kw), dev)
@@ -1289,9 +1733,7 @@ def main(argv=None) -> int:
         hier_small_stats.append(st)
         emit({"phase": "kernel_hier", "ok": True, "case": deep_case,
               "pairs": pairs.num_rendered, **st})
-    model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3, device=dev)
-    with torch.no_grad():
-        model.scales_log -= 2.3
+    model = bench_model(dev)
     with torch.inference_mode():
         prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
         hier_bench_args = hier_args(prep, pairs, bench_cam)
@@ -1321,10 +1763,7 @@ def main(argv=None) -> int:
     del prep, pairs, hier_bench_args
 
     # 12. main_hier: the serving path in HIER -----------------------------------
-    hier_settings = ExtendedSettings()
-    hier_settings.sort_settings.sort_mode = SortMode.HIER
-    hier_settings.culling_settings.rect_bounding = True
-    hier_settings.culling_settings.tight_opacity_bounding = True
+    hier_settings = culled_settings(SortMode.HIER)
     check(tuple(getattr(hier_settings.sort_settings.queue_sizes, f) for f in
                 ("tile_4x4", "tile_2x2", "per_pixel")) == HIER_QUEUES,
           "main_hier", "the default queue sizes changed")
@@ -1430,10 +1869,8 @@ def main(argv=None) -> int:
         del prep, pairs
     emit({"phase": "kernel_full", "ok": True,
           "case": "auto rule through GaussianRasterizer, " + small_scenes[0][0],
-          **full_auto_rule(small_scenes[0][1], small_cam, dev)})
-    model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3, device=dev)
-    with torch.no_grad():
-        model.scales_log -= 2.3
+          **full_auto_rule(small_scenes[0][1], small_cam)})
+    model = bench_model(dev)
     with torch.inference_mode():
         prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
         full_bench_args = kb_args(prep, pairs, bench_cam)
@@ -1458,10 +1895,7 @@ def main(argv=None) -> int:
     del prep, pairs, full_bench_args
 
     # 16. main_full: the serving path in PPX_FULL --------------------------------
-    full_settings = ExtendedSettings()
-    full_settings.sort_settings.sort_mode = SortMode.PPX_FULL
-    full_settings.culling_settings.rect_bounding = True
-    full_settings.culling_settings.tight_opacity_bounding = True
+    full_settings = culled_settings(SortMode.PPX_FULL)
     fields, serve_full = serve_phase(
         "main_full", model, cams, full_settings, "k7", kb_args,
         functools.partial(fb.blend_full_forward, **kw), dev)
@@ -1473,11 +1907,8 @@ def main(argv=None) -> int:
     from stopthepop_tpu_torch.render.cli import render_frames
 
     def quality_settings(mode, order, k=None, hq=None):
-        s = ExtendedSettings()
-        s.sort_settings.sort_mode = mode
+        s = culled_settings(mode)
         s.sort_settings.sort_order = order
-        s.culling_settings.rect_bounding = True
-        s.culling_settings.tight_opacity_bounding = True
         q = s.sort_settings.queue_sizes
         if k is not None:
             q.per_pixel = k
@@ -1506,7 +1937,24 @@ def main(argv=None) -> int:
               **psnr_stats(img, full_img), "card": card})
     del full_img, model
 
-    # 18. kernels -----------------------------------------------------------------
+    # 18-22. the tools: each phase with its wall time -----------------------------
+    def emit_phase(phase, run):
+        t0 = time.perf_counter()
+        fields = run()
+        emit({"phase": phase, "ok": True, **fields,
+              "seconds": time.perf_counter() - t0, "card": card})
+
+    emit_phase("train_batched", lambda: batched_train_phase(
+        static, dev, train_fields["ms_per_step"]))
+    emit_phase("colmap", lambda: colmap_phase(out_dir, dev))
+    model = bench_model(dev)
+    emit_phase("debug_viz", lambda: debug_viz_phase(model, bench_cam, cams,
+                                                    small, dev))
+    emit_phase("timed", lambda: timed_phase(model, bench_cam, out_dir, dev))
+    emit_phase("snapshot", lambda: snapshot_phase(model, bench_cam))
+    del model
+
+    # 23. kernels -----------------------------------------------------------------
     emit({"kernels": [{
         "name": global_blend.KERNEL, "route": "cuda",
         "source": global_blend.SOURCE, "replaces": global_blend.REPLACES,

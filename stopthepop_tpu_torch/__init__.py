@@ -8,9 +8,21 @@ hand-written CUDA kernels for Hopper (``csrc/``: K1/K2 GLOBAL
 forward/backward, K3/K4 k-buffer forward/backward, K5/K6 hierarchical
 forward/backward, K7 the exact per-pixel sort, forward only; small
 PER_PIXEL_FULL scenes also through the dense differentiable oracle,
-``full_mode``).
+``full_mode``). Around the render: COLMAP and NeRF-synthetic captures
+(``io/colmap.py``, ``io/images.py``) for both CLIs, single- and
+multi-camera training steps (``train/trainer.py``), the dense oracles of
+every mode with the reference's sort-error maps (``render/naive.py``), the
+six debug visualization modes and ``render_depth``
+(``render/debug_viz.py``), ``debug=True`` failure snapshots
+(``utils/snapshot.py``) and the stage timer with its timed GLOBAL path and
+``torch.profiler`` traces (``utils/profiling.py``,
+``render/pipeline.py::render_tiled_timed``).
 Entry points run on the GPU unless the caller passes ``device="cpu"``; on
-CPU tensors every kernel wrapper runs its plain PyTorch version.
+CPU tensors every kernel wrapper runs its plain PyTorch version. On the
+CPU, ``python -m pytest tests/test_torch_*.py`` holds the port against the
+JAX package; on an H100, ``python3 chip_smoke.py`` builds the kernels and
+drives every path (phases ``train_batched``, ``colmap``, ``debug_viz``,
+``timed`` and ``snapshot`` for the ones above).
 
 Nothing here imports JAX or the ``stopthepop_tpu`` package.
 """

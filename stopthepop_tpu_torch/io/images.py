@@ -1,8 +1,10 @@
-"""8-bit PNG reading and writing (pure Python zlib + numpy).
+"""Image reading and 8-bit PNG writing (pure Python zlib + numpy).
 
 Port of ``stopthepop_tpu/io/images.py`` on its pure-Python path
-(``read_png``, ``read_png_batch``, ``to_float_rgb``, ``write_png``); the
-native codec and the Pillow path for other formats are not ported.
+(``read_png``, ``read_image``, ``read_png_batch``, ``to_float_rgb``,
+``write_png``): PNG is decoded here, other formats (the JPEG frames of
+COLMAP / MipNeRF-360 captures) through Pillow when it is installed. The
+JAX package's native codec is not ported.
 """
 
 from __future__ import annotations
@@ -80,12 +82,33 @@ def read_png(path: str) -> np.ndarray:
     return out.astype(np.uint8).reshape(h, w, c)
 
 
+def read_image(path: str) -> np.ndarray:
+    """Read any supported image into [H, W, C] uint8.
+
+    PNG goes through ``read_png``; other formats decode via Pillow, and
+    raise IOError without it.
+    """
+    if path.lower().endswith(".png"):
+        return read_png(path)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise IOError(f"{path}: non-PNG images need Pillow") from e
+    with Image.open(path) as im:
+        if im.mode not in ("L", "RGB", "RGBA"):
+            im = im.convert("RGB")
+        arr = np.asarray(im, np.uint8)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    return arr
+
+
 def read_png_batch(paths: List[str], n_threads: int = 8) -> List[np.ndarray]:
-    """Decode many PNGs (zlib releases the GIL while it inflates)."""
+    """Decode many images (zlib releases the GIL while it inflates)."""
     if len(paths) <= 1:
-        return [read_png(p) for p in paths]
+        return [read_image(p) for p in paths]
     with ThreadPoolExecutor(max_workers=n_threads) as ex:
-        return list(ex.map(read_png, paths))
+        return list(ex.map(read_image, paths))
 
 
 def to_float_rgb(img: np.ndarray, bg: Optional[np.ndarray] = None) -> np.ndarray:

@@ -29,15 +29,34 @@ package.
 ``BlendHier`` has the seam and steps again with K5 and K6. Besides
 ``cov3d_inv9`` and the camera, ``opacity_power_threshold`` (the 4x4 culling
 test) gets no gradient: it only decides which entries are valid.
+
+Each Function takes a last, optional ``snapshot``: the (host arrays,
+settings) of a ``debug=True`` render. Its backward then copies the
+cotangents to the host before the kernel launches, and a backward that
+raises writes them with the arrays to snapshot_bw.npz
+(``utils/snapshot.py``) before re-raising.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.snapshot import host_copies, snapshot_on_failure
 from .global_blend import blend_global_backward, blend_global_forward
 from .hier_blend import blend_hier_backward, blend_hier_forward
 from .kbuffer_blend import blend_kbuffer_backward, blend_kbuffer_forward
+
+
+def _backward(ctx, grad_color, grad_final_t, run):
+    """``run()``, under ``snapshot_on_failure("bw", ...)`` when the
+    forward was given a snapshot."""
+    if ctx.snapshot is None:
+        return run()
+    arrays, meta = ctx.snapshot
+    arrays = {**arrays, **host_copies({"grad_color": grad_color,
+                                       "grad_final_t": grad_final_t})}
+    with snapshot_on_failure("bw", arrays, meta, device=grad_color.device):
+        return run()
 
 
 def reduce_pair_grads(d_pair, orig_slot, gauss_offsets):
@@ -54,7 +73,7 @@ class BlendGlobal(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xy, conic_opacity, rgb, depth, pairs, grid_x, grid_y,
-                width, height):
+                width, height, snapshot=None):
         kw = dict(grid_x=grid_x, grid_y=grid_y, width=width, height=height)
         color, final_t, n_contrib, depth_acc = blend_global_forward(
             pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
@@ -63,6 +82,7 @@ class BlendGlobal(torch.autograd.Function):
                               n_contrib)
         ctx.pairs = pairs
         ctx.kw = kw
+        ctx.snapshot = snapshot
         ctx.mark_non_differentiable(n_contrib, depth_acc)
         return color, final_t, n_contrib, depth_acc
 
@@ -71,13 +91,13 @@ class BlendGlobal(torch.autograd.Function):
         xy, conic_opacity, rgb, color, final_t, n_contrib = ctx.saved_tensors
         pairs = ctx.pairs
         # Autograd hands zeros for an unused output (materialize_grads).
-        d_pair = blend_global_backward(
-            pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
-            color, final_t, n_contrib, grad_color.contiguous(),
-            grad_final_t.contiguous(), **ctx.kw)
+        d_pair = _backward(
+            ctx, grad_color, grad_final_t, lambda: blend_global_backward(
+                pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
+                color, final_t, n_contrib, grad_color.contiguous(),
+                grad_final_t.contiguous(), **ctx.kw))
         d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
-        return (d[:, 0:2], d[:, 2:6], d[:, 6:9], None, None, None, None, None,
-                None)
+        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 7
 
 
 class BlendKBuffer(torch.autograd.Function):
@@ -87,7 +107,7 @@ class BlendKBuffer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xy, conic_opacity, rgb, cov3d_inv9, inverse_vp, campos,
-                pairs, k, grid_x, grid_y, width, height):
+                pairs, k, grid_x, grid_y, width, height, snapshot=None):
         kw = dict(k=k, grid_x=grid_x, grid_y=grid_y, width=width,
                   height=height)
         color, final_t, n_contrib, depth_acc = blend_kbuffer_forward(
@@ -97,6 +117,7 @@ class BlendKBuffer(torch.autograd.Function):
                               campos, color, final_t, n_contrib)
         ctx.pairs = pairs
         ctx.kw = kw
+        ctx.snapshot = snapshot
         ctx.mark_non_differentiable(n_contrib, depth_acc)
         return color, final_t, n_contrib, depth_acc
 
@@ -105,12 +126,13 @@ class BlendKBuffer(torch.autograd.Function):
         (xy, conic_opacity, rgb, cov3d_inv9, inverse_vp, campos, color,
          final_t, n_contrib) = ctx.saved_tensors
         pairs = ctx.pairs
-        d_pair = blend_kbuffer_backward(
-            pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
-            cov3d_inv9, inverse_vp, campos, color, final_t, n_contrib,
-            grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw)
+        d_pair = _backward(
+            ctx, grad_color, grad_final_t, lambda: blend_kbuffer_backward(
+                pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
+                cov3d_inv9, inverse_vp, campos, color, final_t, n_contrib,
+                grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw))
         d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
-        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 9
+        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 10
 
 
 class BlendHier(torch.autograd.Function):
@@ -122,7 +144,8 @@ class BlendHier(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xy, conic_opacity, rgb, cov3d_inv9,
                 opacity_power_threshold, inverse_vp, campos, pairs,
-                queue_sizes, hier_4x4_culling, grid_x, grid_y, width, height):
+                queue_sizes, hier_4x4_culling, grid_x, grid_y, width, height,
+                snapshot=None):
         kw = dict(queue_sizes=queue_sizes, hier_4x4_culling=hier_4x4_culling,
                   grid_x=grid_x, grid_y=grid_y, width=width, height=height)
         color, final_t, n_contrib, depth_acc = blend_hier_forward(
@@ -133,14 +156,16 @@ class BlendHier(torch.autograd.Function):
                               color, final_t, n_contrib)
         ctx.pairs = pairs
         ctx.kw = kw
+        ctx.snapshot = snapshot
         ctx.mark_non_differentiable(n_contrib, depth_acc)
         return color, final_t, n_contrib, depth_acc
 
     @staticmethod
     def backward(ctx, grad_color, grad_final_t, _grad_n, _grad_depth):
         pairs = ctx.pairs
-        d_pair = blend_hier_backward(
-            pairs.gauss_id, pairs.starts, pairs.ends, *ctx.saved_tensors,
-            grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw)
+        d_pair = _backward(
+            ctx, grad_color, grad_final_t, lambda: blend_hier_backward(
+                pairs.gauss_id, pairs.starts, pairs.ends, *ctx.saved_tensors,
+                grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw))
         d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
-        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 11
+        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 12

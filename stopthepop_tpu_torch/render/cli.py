@@ -1,7 +1,9 @@
 """Offline rendering CLI: PLY model -> image sequence (+ FPS report).
 
 Port of ``stopthepop_tpu/render/cli.py``: load a trained 3DGS model, render
-an orbit (or a NeRF-synthetic dataset's cameras) in the GLOBAL sort mode
+an orbit (or the cameras of a NeRF-synthetic dataset or, where ``--data``
+holds ``sparse/``, of a COLMAP capture, sorted by image name) in the GLOBAL
+sort mode
 (kernel K1), with ``--sort-mode PPX_KBUFFER`` the k-buffer mode (kernel K3,
 window 4), with ``--sort-mode HIER`` the hierarchical mode (kernel K5,
 queues tile_4x4 64, tile_2x2 8, per_pixel 4) or with ``--sort-mode PPX_FULL``
@@ -35,6 +37,7 @@ from ..io.cameras import (
     orbit_camera,
     to_camera_arrays,
 )
+from ..io.colmap import load_colmap
 from ..io.images import write_png
 from ..io.ply import load_gaussian_model
 from ..models.gaussians import GaussianModel
@@ -80,10 +83,12 @@ def render_frames(
     *,
     bg=(0.0, 0.0, 0.0),
     sh_degree: Optional[int] = None,
+    render_depth: bool = False,
 ) -> List[RenderOutput]:
     """Render ``model`` from every camera; one RenderOutput per frame.
 
-    The model must already lie on ``device`` (default: the GPU).
+    The model must already lie on ``device`` (default: the GPU). With
+    ``render_depth`` each colour is the Depth debug visualization.
     """
     dev = resolve_device(device)
     if model.means3d.device.type != dev.type:
@@ -99,6 +104,7 @@ def render_frames(
         viewmatrix=None, projmatrix=None, inv_viewprojmatrix=None,
         sh_degree=model.sh_degree if sh_degree is None else sh_degree,
         campos=None, prefiltered=False, settings=settings,
+        render_depth=render_depth,
     )
     with torch.inference_mode():
         return [
@@ -120,8 +126,8 @@ def main(argv=None):
     ap.add_argument("--radius", type=float, default=4.0)
     ap.add_argument("--cam-height", type=float, default=0.5)
     ap.add_argument("--data", default=None,
-                    help="render this NeRF-synthetic dataset's test/train "
-                         "cameras instead of an orbit")
+                    help="render this dataset's test/train cameras instead "
+                         "of an orbit (NeRF-synthetic or COLMAP dir)")
     ap.add_argument("--sort-mode", default="GLOBAL",
                     choices=[m.name for m in SortMode],
                     help="GLOBAL, PPX_KBUFFER, HIER (default queues) or "
@@ -141,14 +147,13 @@ def main(argv=None):
 
     if args.data:
         if os.path.isdir(os.path.join(args.data, "sparse")):
-            raise NotImplementedError(
-                "COLMAP datasets are not ported yet (io/colmap.py comes with "
-                "ROADMAP.md Queue 1 item 7)."
-            )
-        path = os.path.join(args.data, "transforms_test.json")
-        if not os.path.exists(path):
-            path = os.path.join(args.data, "transforms_train.json")
-        cams = load_nerf_synthetic(path)[: args.frames]
+            cams, _ = load_colmap(args.data)
+        else:
+            path = os.path.join(args.data, "transforms_test.json")
+            if not os.path.exists(path):
+                path = os.path.join(args.data, "transforms_train.json")
+            cams = load_nerf_synthetic(path)
+        cams = cams[: args.frames]
         width, height = cams[0].width, cams[0].height
     else:
         fovx = math.radians(args.fovx_deg)

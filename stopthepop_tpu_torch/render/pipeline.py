@@ -2,8 +2,9 @@
 
 Port of ``stopthepop_tpu/render/pipeline.py::render_tiled`` (GLOBAL sort mode),
 ``render_tiled_kbuffer`` (PER_PIXEL_KBUFFER, 16x16 binning),
-``render_tiled_hier`` (HIERARCHICAL, 16x16 binning) and ``render_tiled_full``
-(PER_PIXEL_FULL, 16x16 binning, forward only), the analog of
+``render_tiled_hier`` (HIERARCHICAL, 16x16 binning), ``render_tiled_full``
+(PER_PIXEL_FULL, 16x16 binning, forward only) and ``render_tiled_timed``
+(GLOBAL, each stage timed on its own), the analog of
 Rasterizer::forward, rasterizer_impl.cu:221-413:
 
   stage          reference                         here
@@ -39,7 +40,7 @@ from ..kernels.full_blend import blend_full_forward
 from ..kernels.global_blend import blend_global_forward
 from ..kernels.hier_blend import blend_hier_forward
 from ..kernels.kbuffer_blend import blend_kbuffer_forward
-from .duplicate import build_pairs
+from .duplicate import build_pairs, expand_pairs, sort_expanded
 from .preprocess import PreprocessOutput
 
 
@@ -66,12 +67,15 @@ def render_tiled(
     tile_based_culling: bool = False,
     campos=None,
     inverse_vp=None,
+    snapshot=None,
 ):
     """GLOBAL-mode tiled render.
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W], pairs,
     depth_acc [H, W]), as the JAX package's ``render_tiled`` does. The
-    per-tile-depth orders need ``campos`` and ``inverse_vp``.
+    per-tile-depth orders need ``campos`` and ``inverse_vp``. ``snapshot``,
+    the (host arrays, settings) of a ``debug=True`` render, goes to the
+    blend Function, whose backward dumps it on failure.
     """
     grid_x, grid_y = tile_grid(image_width, image_height)
     pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
@@ -85,7 +89,8 @@ def render_tiled(
               height=image_height)
     if _needs_grad(rows):
         color, final_t, n_contrib, depth_acc = BlendGlobal.apply(
-            *rows, depth, pairs, grid_x, grid_y, image_width, image_height)
+            *rows, depth, pairs, grid_x, grid_y, image_width, image_height,
+            snapshot)
     else:
         color, final_t, n_contrib, depth_acc = blend_global_forward(
             pairs.gauss_id, pairs.starts, pairs.ends, *rows, depth, **kw)
@@ -106,6 +111,7 @@ def render_tiled_kbuffer(
     k: int = 4,
     sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
     tile_based_culling: bool = False,
+    snapshot=None,
 ):
     """PER_PIXEL_KBUFFER tiled render (16x16 binning tiles): every pixel
     resorts its tile's stream through a window of ``k`` entries by exact
@@ -113,7 +119,7 @@ def render_tiled_kbuffer(
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits),
     pairs, depth_acc [H, W]), as the JAX package's ``render_tiled_kbuffer``
-    does.
+    does. ``snapshot`` as in ``render_tiled``.
     """
     grid_x, grid_y = tile_grid(image_width, image_height)
     pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
@@ -126,7 +132,8 @@ def render_tiled_kbuffer(
            inverse_vp.detach().contiguous(), campos.detach().contiguous())
     if _needs_grad(rows):
         color, final_t, n_contrib, depth_acc = BlendKBuffer.apply(
-            *rows, *cam, pairs, k, grid_x, grid_y, image_width, image_height)
+            *rows, *cam, pairs, k, grid_x, grid_y, image_width, image_height,
+            snapshot)
     else:
         color, final_t, n_contrib, depth_acc = blend_kbuffer_forward(
             pairs.gauss_id, pairs.starts, pairs.ends, *rows, *cam, k=k,
@@ -148,6 +155,7 @@ def render_tiled_hier(
     sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
     tile_based_culling: bool = False,
     hier_4x4_culling: bool = False,
+    snapshot=None,
 ):
     """HIERARCHICAL tiled render (16x16 binning tiles): every tile's stream
     cascades through the tail (4x4 sub-tile), mid (2x2 quad) and head (pixel)
@@ -156,7 +164,7 @@ def render_tiled_hier(
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits with
     alpha > 0), pairs, depth_acc [H, W]), as the JAX package's
-    ``render_tiled_hier`` does.
+    ``render_tiled_hier`` does. ``snapshot`` as in ``render_tiled``.
     """
     grid_x, grid_y = tile_grid(image_width, image_height)
     pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
@@ -174,7 +182,7 @@ def render_tiled_hier(
     if _needs_grad(rows):
         color, final_t, n_contrib, depth_acc = BlendHier.apply(
             *rows, *cam, pairs, queues, hier_4x4_culling, grid_x, grid_y,
-            image_width, image_height)
+            image_width, image_height, snapshot)
     else:
         color, final_t, n_contrib, depth_acc = blend_hier_forward(
             pairs.gauss_id, pairs.starts, pairs.ends, *rows, *cam,
@@ -218,4 +226,51 @@ def render_tiled_full(
         inverse_vp.detach().contiguous(), campos.detach().contiguous(),
         grid_x=grid_x, grid_y=grid_y, width=image_width, height=image_height)
     color = color + final_t[None, :, :] * bg.detach()[:, None, None]
+    return color, final_t, n_contrib, pairs, depth_acc
+
+
+def render_tiled_timed(
+    prep_fn,
+    timer,
+    bg,
+    *,
+    image_width: int,
+    image_height: int,
+    sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
+    tile_based_culling: bool = False,
+    campos=None,
+    inverse_vp=None,
+):
+    """GLOBAL render with per-stage timing (the reference Timer's stages
+    Preprocess / Duplicate / Sort / Render, rasterizer_impl.cu:248), as the
+    JAX package's ``render_tiled_timed``: each stage runs on its own through
+    ``timer.time`` (utils/profiling.StageTimer), which synchronizes the
+    device around it; the Render stage is kernel K1 (its plain version on
+    CPU tensors) and the background composite. The same function as
+    ``render_tiled`` without gradients.
+
+    ``prep_fn`` is a zero-argument callable producing the PreprocessOutput.
+    Returns what ``render_tiled`` returns.
+    """
+    grid_x, grid_y = tile_grid(image_width, image_height)
+    prep = timer.time("Preprocess", prep_fn)
+    expanded = timer.time(
+        "Duplicate", expand_pairs, prep, grid_x=grid_x,
+        sort_order=sort_order, tile_based_culling=tile_based_culling,
+        campos=campos, inverse_vp=inverse_vp, image_width=image_width,
+        image_height=image_height)
+    pairs = timer.time("Sort", sort_expanded, *expanded,
+                       num_tiles=grid_x * grid_y,
+                       num_gaussians=prep.tiles_touched.shape[0])
+
+    def render():
+        color, final_t, n_contrib, depth_acc = blend_global_forward(
+            pairs.gauss_id, pairs.starts, pairs.ends, *_rows(prep),
+            prep.depth.detach().contiguous(), grid_x=grid_x, grid_y=grid_y,
+            width=image_width, height=image_height)
+        color = color + final_t[None, :, :] * bg[:, None, None]
+        return color, final_t, n_contrib, depth_acc
+
+    color, final_t, n_contrib, depth_acc = timer.time("Render", render)
+    timer.frame()
     return color, final_t, n_contrib, pairs, depth_acc

@@ -18,25 +18,36 @@ path gives zero gradients; here that path raises instead). ``means2D`` is the
 densification dummy: its value does not change the render, and its gradient
 is the pixel-space mean gradient scaled by (0.5 W, 0.5 H), as in the JAX
 package. There is no pair capacity: the pair count is read back once per
-frame, as in the reference.
+frame, as in the reference. The debug paths are ported too: the six debug
+visualization modes and ``render_depth`` (render/debug_viz.py), and the
+``debug=True`` failure snapshots (utils/snapshot.py).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import GaussianRasterizationSettings, GlobalSortOrder, SortMode
+from ..config import (
+    DebugVisualization,
+    GaussianRasterizationSettings,
+    GlobalSortOrder,
+    SortMode,
+)
 from ..kernels.hier_blend import check_hier_queues
 from ..kernels.kbuffer_blend import check_window
 from ..ops.transforms import mark_visible
+from ..utils.snapshot import host_copies, snapshot_on_failure
+from .debug_viz import DebugVisualizationData, apply_debug_visualization
+from .duplicate import rect_histogram
 from .naive import render_full_sort_naive
 from .pipeline import (
     render_tiled,
     render_tiled_full,
     render_tiled_hier,
     render_tiled_kbuffer,
+    tile_grid,
 )
 from .preprocess import preprocess
 
@@ -101,12 +112,6 @@ def _check_supported(rs: GaussianRasterizationSettings):
         raise ValueError(
             f"{mode.name} with {order.name} needs inv_viewprojmatrix in the "
             "raster settings (per-ray depths)")
-    if rs.render_depth or rs.debug:
-        raise NotImplementedError(
-            "render_depth (the Depth debug visualization) and debug "
-            "snapshots are not "
-            "ported yet: ROADMAP.md Queue 1 item 11."
-        )
     return mode, order, queues
 
 
@@ -123,6 +128,8 @@ def rasterize_gaussians(
     *,
     full_output: bool = False,
     full_mode: str = "auto",
+    debug_visualization: DebugVisualization = DebugVisualization.Disabled,
+    debug_data: Optional[DebugVisualizationData] = None,
 ):
     """Render. Returns (color, radii) like the reference, or RenderOutput.
 
@@ -131,9 +138,59 @@ def rasterize_gaussians(
     only like the reference (its FULL backward throws, backward.cu:733-736),
     so asking it for gradients raises; "auto", see ``full_backend``: K7 on
     the GPU when no gradient is asked for, else naive while P·W·H <= 2**26.
+
+    ``debug_visualization`` replaces the colour by the mode's colormapped
+    scalar field (render/debug_viz.py), its statistics going into
+    ``debug_data``; ``render_depth=True`` in the settings maps to the Depth
+    mode, as in the reference (rasterize_points.cu:104-107). With
+    ``debug=True`` the inputs are copied to the host first, and a forward
+    or blend backward that raises writes them to snapshot_fw.npz /
+    snapshot_bw.npz under ``$STP_SNAPSHOT_DIR`` before re-raising (the
+    reference's debug contract, __init__.py:96-103, 149-156).
     """
     if full_mode not in FULL_MODES:
         raise ValueError(f"full_mode must be one of {FULL_MODES}, got {full_mode!r}")
+    args = (means3D, means2D, sh, colors_precomp, opacities, scales,
+            rotations, cov3Ds_precomp, raster_settings)
+    kw = dict(full_output=full_output, full_mode=full_mode,
+              debug_visualization=debug_visualization, debug_data=debug_data)
+    rs = raster_settings
+    if not rs.debug:
+        return _rasterize_impl(*args, **kw)
+    arrays = host_copies({
+        "means3D": means3D, "means2D": means2D, "sh": sh,
+        "colors_precomp": colors_precomp, "opacities": opacities,
+        "scales": scales, "rotations": rotations,
+        "cov3Ds_precomp": cov3Ds_precomp, "bg": rs.bg,
+        "viewmatrix": rs.viewmatrix, "projmatrix": rs.projmatrix,
+        "inv_viewprojmatrix": rs.inv_viewprojmatrix, "campos": rs.campos,
+    })
+    meta = {"settings": rs.settings.to_dict(),
+            **{f: getattr(rs, f) for f in (
+                "image_height", "image_width", "tanfovx", "tanfovy",
+                "scale_modifier", "sh_degree", "prefiltered",
+                "render_depth")}}
+    with snapshot_on_failure("fw", arrays, meta, device=means3D.device):
+        return _rasterize_impl(*args, **kw, snapshot=(arrays, meta))
+
+
+def _rasterize_impl(
+    means3D,
+    means2D,
+    sh,
+    colors_precomp,
+    opacities,
+    scales,
+    rotations,
+    cov3Ds_precomp,
+    raster_settings: GaussianRasterizationSettings,
+    *,
+    full_output: bool,
+    full_mode: str,
+    debug_visualization: DebugVisualization,
+    debug_data: Optional[DebugVisualizationData],
+    snapshot=None,
+):
     rs = raster_settings
 
     def none_if_empty(x):
@@ -196,7 +253,7 @@ def rasterize_gaussians(
     kw = dict(image_width=W, image_height=H, sort_order=sort_order,
               tile_based_culling=ext.culling_settings.tile_based_culling,
               campos=campos, inverse_vp=inverse_vp)
-    num_rendered = None
+    num_rendered, pairs = None, None
     if sort_mode == SortMode.PPX_FULL:
         inputs = (means3D, means2D, sh, colors_precomp, opacities, scales,
                   rotations, cov3Ds_precomp)
@@ -220,15 +277,29 @@ def rasterize_gaussians(
                 prep, bg, **kw)
     elif sort_mode == SortMode.PPX_KBUFFER:
         color, final_t, n_contrib, pairs, depth_acc = render_tiled_kbuffer(
-            prep, bg, k=queues, **kw)
+            prep, bg, k=queues, snapshot=snapshot, **kw)
     elif sort_mode == SortMode.HIER:
         color, final_t, n_contrib, pairs, depth_acc = render_tiled_hier(
             prep, bg, queue_sizes=queues,
             hier_4x4_culling=ext.culling_settings.hierarchical_4x4_culling,
-            **kw)
+            snapshot=snapshot, **kw)
     else:
         color, final_t, n_contrib, pairs, depth_acc = render_tiled(
-            prep, bg, **kw)
+            prep, bg, snapshot=snapshot, **kw)
+
+    viz_mode = DebugVisualization(debug_visualization)
+    if rs.render_depth and viz_mode == DebugVisualization.Disabled:
+        viz_mode = DebugVisualization.Depth
+    if viz_mode != DebugVisualization.Disabled:
+        # The dense FULL oracle builds no pair list: its per-tile counts
+        # are those its rects imply.
+        pair_counts = (pairs.ends - pairs.starts if pairs is not None
+                       else rect_histogram(prep, *tile_grid(W, H)))
+        color = apply_debug_visualization(
+            viz_mode, final_t=final_t, n_contrib=n_contrib,
+            depth_acc=depth_acc, pair_counts=pair_counts, prep=prep,
+            campos=campos, inverse_vp=inverse_vp, width=W, height=H,
+            data=debug_data)
     if full_output:
         return RenderOutput(
             color, prep.radii, final_t, n_contrib, depth_acc,

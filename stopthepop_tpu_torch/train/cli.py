@@ -1,8 +1,11 @@
-"""End-to-end 3DGS training CLI on NeRF-synthetic datasets (torch).
+"""End-to-end 3DGS training CLI on NeRF-synthetic and COLMAP captures (torch).
 
 Usage:
     python -m stopthepop_tpu_torch.train.cli --data /path/to/nerf_synthetic/lego \\
         --iters 7000 --capacity 262144 --out lego.ply
+    # a COLMAP capture (MipNeRF-360 layout: sparse/0, images[_N]):
+    python -m stopthepop_tpu_torch.train.cli --data /path/to/360/bicycle \\
+        --downscale 4 --iters 7000 --out bicycle.ply
 
 Port of ``stopthepop_tpu/train/cli.py``: dataset loading, the
 densify / prune / opacity-reset schedule, per-group learning rates, periodic
@@ -15,8 +18,11 @@ K1 and K2) or with ``--sort-mode PPX_KBUFFER`` the k-buffer pipeline
 uses rect, tight-opacity and tile-based culling, as the JAX CLI does. The JAX
 CLI's TPU flags (pair capacity, segment cap, binning tile, bf16 carriers,
 rank key, interpret mode) have no counterpart: the pair count is dynamic
-here. COLMAP captures are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP.md item. ``--sort-mode PPX_FULL`` is refused when the
+here. A ``--data`` directory with a ``sparse/`` subdirectory is a COLMAP
+capture: every 8th view (sorted by name) is held out for evaluation, the
+model starts from its ``points3D`` cloud and the scene extent is 1.1 times
+the largest distance of a camera centre from their centroid, as in the JAX
+CLI. ``--sort-mode PPX_FULL`` is refused when the
 arguments are parsed: the exact-sort mode renders forward only, as the
 reference's (render it with render/cli.py).
 """
@@ -33,6 +39,7 @@ import torch
 
 from ..config import ExtendedSettings, GaussianRasterizationSettings, SortMode
 from ..io.cameras import load_nerf_synthetic, to_camera_arrays
+from ..io.colmap import load_colmap
 from ..io.images import read_png_batch, to_float_rgb
 from ..io.ply import save_gaussian_model
 from ..models.gaussians import from_points
@@ -93,6 +100,32 @@ def is_colmap_scene(data_dir: str) -> bool:
     return os.path.isdir(os.path.join(data_dir, "sparse"))
 
 
+def load_colmap_dataset(data_dir: str, split: str, downscale: int,
+                        bg: np.ndarray, limit: int = 0, llffhold: int = 8):
+    """Load a COLMAP capture (MipNeRF-360 layout) with the standard 3DGS
+    every-``llffhold``-th test split. Returns (cams, targets, points,
+    scene_extent) — extent per getNerfppNorm: 1.1x the max camera distance
+    from the camera centroid."""
+    cams, points = load_colmap(data_dir, downscale=downscale)
+    centers = np.stack([c.campos for c in cams])
+    extent = 1.1 * float(
+        np.max(np.linalg.norm(centers - centers.mean(0), axis=1))
+    )
+    test = [c for i, c in enumerate(cams) if llffhold and i % llffhold == 0]
+    train = [c for i, c in enumerate(cams)
+             if not llffhold or i % llffhold != 0]
+    sel = test if split == "test" else train
+    if limit:
+        sel = sel[:limit]
+    # MipNeRF-360 ships pre-scaled images_N dirs (load_colmap picked one);
+    # otherwise area-downscale the full-res frames here.
+    prescaled = downscale > 1 and os.path.isdir(
+        os.path.join(data_dir, f"images_{downscale}")
+    )
+    out_cams, targets = _load_targets(sel, 1 if prescaled else downscale, bg)
+    return out_cams, targets, points, extent
+
+
 def make_static_settings(cam, bg, sh_degree: int, sort_mode: SortMode,
                          device) -> GaussianRasterizationSettings:
     settings = ExtendedSettings()
@@ -121,7 +154,8 @@ def init_model(rng: np.random.Generator, n_points: int, extent: float,
 def main(argv=None) -> TrainResult:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--data", required=True,
-                    help="NeRF-synthetic scene dir (has transforms_*.json)")
+                    help="NeRF-synthetic scene dir (has transforms_*.json) "
+                         "or COLMAP capture (has sparse/)")
     ap.add_argument("--iters", type=int, default=7000)
     ap.add_argument("--capacity", type=int, default=1 << 17,
                     help="most Gaussians densification may grow to")
@@ -163,29 +197,39 @@ def main(argv=None) -> TrainResult:
             "renders forward only, as the reference's PER_PIXEL_FULL "
             "(backward.cu:733-736 throws). Train in HIER, GLOBAL or "
             "PPX_KBUFFER and render PPX_FULL with render/cli.py.")
-    if is_colmap_scene(args.data):
-        raise NotImplementedError(
-            "COLMAP datasets are not ported yet (io/colmap.py comes with "
-            "ROADMAP.md Queue 1 item 7)."
-        )
 
     bg = np.ones(3, np.float32) if args.white_bg else np.zeros(3, np.float32)
     print(f"loading {args.data} ...", flush=True)
     rng = np.random.default_rng(args.seed)
-    cams, targets = load_dataset(args.data, "train", args.downscale, bg,
-                                 limit=args.train_frames)
-    try:
-        eval_cams, eval_targets = load_dataset(
+    init_points = None
+    if is_colmap_scene(args.data):
+        cams, targets, points, extent = load_colmap_dataset(
+            args.data, "train", args.downscale, bg, limit=args.train_frames)
+        eval_cams, eval_targets, _, _ = load_colmap_dataset(
             args.data, "test", args.downscale, bg, limit=args.eval_frames)
-    except FileNotFoundError:
-        eval_cams, eval_targets = (cams[: args.eval_frames],
-                                   targets[: args.eval_frames])
+        args.scene_extent = extent
+        init_points = points
+    else:
+        cams, targets = load_dataset(args.data, "train", args.downscale, bg,
+                                     limit=args.train_frames)
+        try:
+            eval_cams, eval_targets = load_dataset(
+                args.data, "test", args.downscale, bg, limit=args.eval_frames)
+        except FileNotFoundError:
+            eval_cams, eval_targets = (cams[: args.eval_frames],
+                                       targets[: args.eval_frames])
     h, w = cams[0].height, cams[0].width
     print(f"{len(cams)} train / {len(eval_cams)} eval frames @ {w}x{h}, "
           f"{device}", flush=True)
 
-    model = init_model(rng, args.init_points, args.scene_extent,
-                       args.sh_degree, device)
+    if init_points is not None:
+        model = from_points(init_points.xyz, init_points.rgb,
+                            sh_degree=args.sh_degree, device=device)
+        print(f"init from {init_points.xyz.shape[0]} COLMAP points, "
+              f"scene extent {args.scene_extent:.2f}", flush=True)
+    else:
+        model = init_model(rng, args.init_points, args.scene_extent,
+                           args.sh_degree, device)
     static = make_static_settings(cams[0], bg, args.sh_degree, sort_mode,
                                   device)
     optimizer = make_3dgs_optimizer(model, spatial_lr_scale=args.scene_extent,

@@ -8,8 +8,8 @@ the NDC-scaled screen-space mean gradient).
 The JAX step is a pure function of (state, cam, target, stats); here the
 model's parameters and the optimizer's moments are updated in place, and the
 step returns a new ``TrainState`` (the same model and optimizer, the step
-count plus one) and new ``DensifyStats``. The batched step
-(``make_batched_train_step``) is not ported yet (ROADMAP.md Queue 1 item 7).
+count plus one) and new ``DensifyStats``. ``make_batched_train_step`` takes
+one step on the mean loss over a batch of cameras.
 """
 
 from __future__ import annotations
@@ -139,18 +139,26 @@ def init_train_state(model: GaussianModel, optimizer) -> TrainState:
     return TrainState(model, optimizer, 0)
 
 
+def means2d_leaf(model: GaussianModel) -> torch.Tensor:
+    """The means2D dummy [P, 2]: a zero leaf whose gradient the
+    densification statistics read."""
+    return torch.zeros((model.num_gaussians, 2), dtype=torch.float32,
+                       device=model.means3d.device, requires_grad=True)
+
+
 def step_forward(state: TrainState, cam: CameraArrays, target, *,
                  static: GaussianRasterizationSettings,
-                 lambda_dssim: float = 0.2, sh_ramp_every: int = 0):
+                 lambda_dssim: float = 0.2, sh_ramp_every: int = 0,
+                 means2d_dummy=None):
     """The step's forward stage: render (kernel K1, K3 in PPX_KBUFFER, K5 in
     HIER) and L1 + D-SSIM.
 
-    Returns (loss, RenderOutput, means2d_dummy): the dummy is the leaf whose
-    gradient the densification statistics read."""
+    Returns (loss, RenderOutput, means2d_dummy): the dummy (a new
+    ``means2d_leaf`` unless one is given) is the leaf whose gradient the
+    densification statistics read."""
     model = state.model
-    means2d_dummy = torch.zeros((model.num_gaussians, 2), dtype=torch.float32,
-                                device=model.means3d.device,
-                                requires_grad=True)
+    if means2d_dummy is None:
+        means2d_dummy = means2d_leaf(model)
     if sh_ramp_every:
         active = min(state.step // sh_ramp_every, int(static.sh_degree))
         mask = active_sh_mask(active, model.sh_rest.shape[1],
@@ -216,6 +224,60 @@ def make_train_step(
         state = step_update(state)
         stats = update_densify_stats(stats, out, means2d_dummy)
         aux = {"loss": loss.detach(), "num_rendered": out.num_rendered}
+        return state, stats, aux
+
+    return train_step
+
+
+def make_batched_train_step(
+    *,
+    static: GaussianRasterizationSettings,
+    lambda_dssim: float = 0.2,
+):
+    """Like make_train_step, but over a BATCH of cameras per step.
+
+    Returns (state, cams, targets, stats) -> (state, stats, aux): ``cams``
+    is a CameraArrays whose tensors carry a leading batch axis B, and
+    ``targets`` is [B, 3, H, W]. The loss is the mean over cameras, so the
+    gradients are the mean of the per-camera gradients. The cameras are
+    rendered one after the other, and each one's ``(loss_b / B).backward()``
+    adds its share to the gradients before the next is rendered: the same
+    gradients as one backward of the mean, with one frame's activations in
+    memory at a time. All B renders share one means2D dummy, so its
+    gradient is the batch-mean gradient, as JAX's shared ``m2d`` under
+    ``vmap``. Densify stats accumulate per-camera visibility and that
+    gradient scaled back by B, like B single-camera steps. No progressive
+    SH schedule, as in the JAX batched step. ``aux`` holds the mean loss (a
+    0-d tensor) and each camera's pair count.
+    """
+
+    def train_step(state: TrainState, cams: CameraArrays, targets, stats):
+        B = targets.shape[0]
+        means2d_dummy = means2d_leaf(state.model)
+        state.optimizer.zero_grad(set_to_none=True)
+        losses, radii, num_rendered = [], [], []
+        for b in range(B):
+            cam = CameraArrays(*(x[b] for x in cams))
+            loss, out, _ = step_forward(
+                state, cam, targets[b], static=static,
+                lambda_dssim=lambda_dssim, means2d_dummy=means2d_dummy)
+            (loss / B).backward()
+            losses.append(loss.detach())
+            radii.append(out.radii)
+            num_rendered.append(out.num_rendered)
+        state = step_update(state)
+
+        n_vis = (torch.stack(radii) > 0).sum(dim=0)
+        g2d_norm = torch.linalg.norm(means2d_dummy.grad, dim=-1)
+        stats = DensifyStats(
+            grad2d_accum=stats.grad2d_accum
+            + torch.where(n_vis > 0, g2d_norm * B, 0.0),
+            denom=stats.denom + n_vis.to(torch.int32),
+            max_radii=torch.maximum(stats.max_radii,
+                                    torch.stack(radii).amax(dim=0)),
+        )
+        aux = {"loss": torch.stack(losses).mean(),
+               "num_rendered": num_rendered}
         return state, stats, aux
 
     return train_step

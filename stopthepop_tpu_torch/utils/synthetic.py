@@ -5,7 +5,8 @@ port's model. The repository ships no captured datasets (lego, garden), so
 the trainer's full loop — densification chasing high-frequency detail,
 pruning, opacity resets — runs against a procedural ground truth: surfaces
 (floor, cube, sphere) covered with flat anisotropic splats carrying
-checkered / striped colours, rendered to a NeRF-synthetic-format dataset.
+checkered / striped colours, rendered to a NeRF-synthetic-format dataset
+(``write_nerf_synthetic``) or a COLMAP capture (``write_colmap_capture``).
 
 The scene stays inside extent ~1.3, so orbit cameras at radius ~4 frame it
 like the Blender scenes the loader targets. The same seed gives the same
@@ -171,3 +172,49 @@ def write_nerf_synthetic(root: str, model: GaussianModel, *, views: int,
     meta = {"camera_angle_x": fov, "w": size, "h": size, "frames": frames}
     with open(os.path.join(root, "transforms_train.json"), "w") as f:
         json.dump(meta, f)
+
+
+def write_colmap_capture(root: str, model: GaussianModel, *, views: int,
+                         width: int, height: int, points: int, seed: int = 0,
+                         device=None, fov: float = math.radians(50.0)) -> None:
+    """Render ``model`` from ``views`` orbit cameras at ``width`` x
+    ``height`` into ``root`` as a COLMAP capture in the MipNeRF-360 layout
+    (``images/frame_<i>.png`` and ``sparse/0/{cameras,images,points3D}.bin``
+    with one PINHOLE camera), the layout ``train/cli.py`` and
+    ``render/cli.py`` read. ``points3D`` holds ``points`` of the model's
+    means, drawn with ``seed``, coloured by their SH DC term."""
+    from ..config import ExtendedSettings
+    from ..io import colmap
+    from ..io.cameras import fov2focal, orbit_camera
+    from ..io.images import write_png
+    from ..render.cli import render_frames
+
+    sparse = os.path.join(root, "sparse", "0")
+    images_dir = os.path.join(root, "images")
+    os.makedirs(sparse, exist_ok=True)
+    os.makedirs(images_dir, exist_ok=True)
+    focal = fov2focal(fov, width)
+    cam = colmap.ColmapCamera(1, "PINHOLE", width, height,
+                              np.array([focal, focal, width / 2, height / 2]))
+    images = []
+    for i in range(views):
+        view = orbit_camera(2 * math.pi * i / views, fov, width, height)
+        out = render_frames(model, [view], ExtendedSettings(), device)[0]
+        img = out.color.clamp(0, 1).cpu().numpy().transpose(1, 2, 0)
+        name = f"frame_{i:03d}.png"
+        write_png(os.path.join(images_dir, name),
+                  (img * 255 + 0.5).astype(np.uint8))
+        w2c = view.viewmatrix.T.astype(np.float64)
+        images.append(colmap.ColmapImage(
+            i + 1, colmap.rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], 1, name))
+    rng = np.random.default_rng(seed)
+    pick = np.sort(rng.choice(model.num_gaussians, points, replace=False))
+    dc = model.sh_dc.detach()[:, 0].cpu().numpy()[pick]
+    colmap.write_cameras_binary(os.path.join(sparse, "cameras.bin"), {1: cam})
+    colmap.write_images_binary(os.path.join(sparse, "images.bin"), images)
+    colmap.write_points3d_binary(
+        os.path.join(sparse, "points3D.bin"), colmap.ColmapPoints(
+            xyz=model.means3d.detach().cpu().numpy()[pick],
+            rgb=np.clip(0.5 + 0.28209479177387814 * dc, 0.0, 1.0).astype(
+                np.float32),
+            error=np.zeros(points, np.float32)))

@@ -15,7 +15,8 @@
   ``to_float_rgb`` against the JAX package's pure-Python path;
 - the training CLI for 30 iterations in GLOBAL on a tiny synthetic
   dataset, with densification and an opacity reset firing; its PLY loads in
-  the JAX package; two iterations at its default, HIER.
+  the JAX package; two iterations at its default, HIER; one on a COLMAP
+  capture.
 """
 
 import math
@@ -57,6 +58,7 @@ from stopthepop_tpu_torch.train.trainer import (
 )
 from stopthepop_tpu_torch.utils.synthetic import (
     structured_scene,
+    write_colmap_capture,
     write_nerf_synthetic,
 )
 from stopthepop_tpu_torch.utils.testing import one_thread_under_xdist
@@ -261,9 +263,16 @@ def test_train_cli_raises_for_unported_paths(tmp_path):
                     "--densify-from", "100", "--device", "cpu"])
     assert res.state.step == 2 and np.isfinite(res.eval_psnr[2])
     assert res.state.model.means3d.grad.abs().max() > 0
-    (tmp_path / "sparse").mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["--data", str(tmp_path), "--device", "cpu"])
+    # So is a COLMAP capture (a sparse/ directory): the model starts from
+    # its point cloud.
+    capture = tmp_path / "capture"
+    gt, _ = structured_scene(300, seed=2, device="cpu")
+    write_colmap_capture(str(capture), gt, views=3, width=24, height=16,
+                         points=80, device="cpu")
+    res = cli.main(["--data", str(capture), "--iters", "1",
+                    "--eval-every", "1", "--device", "cpu"])
+    assert res.state.model.num_gaussians == 80
+    assert np.isfinite(res.eval_psnr[1])
 
 
 @pytest.mark.parametrize("knn", [True, False], ids=["knn", "spacing"])

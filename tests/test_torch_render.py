@@ -4,8 +4,9 @@
 against the JAX package's, with the JAX model's weights carried across by
 ``from_numpy_params``: color and final_T within atol 1e-4 (see
 test_torch_blend.py for why), radii exactly, n_contrib on >= 99.9% of the
-pixels. Also: PLY interchange, validation errors, the NotImplementedErrors of what is
-not ported yet, and that the port never loads JAX.
+pixels. Also: PLY interchange, validation errors, that the paths ported
+since the first slice run where they once raised NotImplementedError, and
+that the port never loads JAX.
 """
 
 import ast
@@ -304,9 +305,19 @@ def test_forward_only_slice_raises_not_implemented():
     assert torch.isfinite(color).all()
     assert (color != torch.as_tensor(BG)[:, None, None]).any()
 
-    for s in (rs._replace(render_depth=True), rs._replace(debug=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-            stt.GaussianRasterizer(s)(scene.means3d, None, scene.opacities, **kw)
+    # So are render_depth (the Depth debug visualization: a turbo-coloured
+    # image in [0, 1], not the colour) and debug=True (failure snapshots: a
+    # render that succeeds is bitwise the plain one).
+    with torch.no_grad():
+        plain, _ = stt.GaussianRasterizer(rs)(scene.means3d, None,
+                                              scene.opacities, **kw)
+        depth, _ = stt.GaussianRasterizer(rs._replace(render_depth=True))(
+            scene.means3d, None, scene.opacities, **kw)
+        debug, _ = stt.GaussianRasterizer(rs._replace(debug=True))(
+            scene.means3d, None, scene.opacities, **kw)
+    assert torch.isfinite(depth).all() and not torch.equal(depth, plain)
+    assert float(depth.min()) >= 0.0 and float(depth.max()) <= 1.0
+    torch.testing.assert_close(debug, plain, rtol=0, atol=0)
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
