@@ -136,7 +136,26 @@ Phases, one JSON line each; any failure exits non-zero:
      K1's kernel.
  22. snapshot: a debug=True render with bad inputs raises and writes a
      snapshot_fw equal to the inputs; a good one is bitwise the plain render.
- 23. the kernels line: each ported kernel with its launches on its main
+ 23. parallel: the multi-device layer (stopthepop_tpu_torch/parallel/), one
+     process per card through parallel/hosts.py::launch (spawned, NCCL, a
+     file store); a rank that fails fails the phase. Each rank, on the bench
+     model: (a) one ("data", "gauss") step against the single-device step
+     with the same Adam (loss and updated parameters; bitwise with one
+     rank), then 3 timed steps; (b) make_spatial_render of the 4 orbit
+     frames in GLOBAL, PPX_KBUFFER (k = 4) and HIER (64, 8, 4) against the
+     single-device renders (1e-5 GLOBAL, 1e-4 resort modes) and one
+     spatial step in each of the three modes (loss within 2e-5, each
+     gradient within 1e-4 of its tensor's largest value); (c) the same
+     renders with make_ring_render and one ring GLOBAL step; the
+     collectives at the paths' shapes (CUDA events).
+     Rank 0 also holds the collective-free cores with 4 bands and 4 shards
+     on one card (render_band; ring_step and ring_blend in ring order),
+     stitched, against the full render in GLOBAL (1e-5) and HIER (1e-4).
+     Every path with the launch counts set to 0 just before it and read
+     just after (K1, K3 or K5 once a band and frame; the forward and
+     backward kernels once a step); ms a frame and a step, peak memory a
+     rank.
+ 24. the kernels line: each ported kernel with its launches on its main
      path (the training steps of phase 5 for K1/K2, of phase 10 for K3/K4
      and of phase 14 for K6, the HIER frames of phase 12 for K5, the FULL
      frames of phase 16 for K7), its error against the plain version, its
@@ -233,6 +252,10 @@ BATCH, BATCH_STEPS = 4, 3
 COLMAP_VIEWS, COLMAP_W, COLMAP_H = 16, 1237, 822
 COLMAP_POINTS, COLMAP_ITERS = 100_000, 100
 TIMED_FRAMES = 4
+# Phase parallel: bands and shards of the collective-free cores on one card
+# (check d), and the ring's per-step pair capacity (the bench frame has
+# ~1.28M pairs a frame, so no step overflows it).
+PAR_BANDS, RING_CAPACITY = 4, 4_000_000
 
 
 def emit(obj):
@@ -1263,6 +1286,282 @@ def snapshot_phase(model, bench_cam):
             "snapshot_equals_inputs": equal, "debug_render_bitwise_plain": same}
 
 
+def parallel_settings(cam, mode):
+    """Raster settings of the parallel phase for a camera with ``tanfovx``
+    and ``tanfovy``: the bench culling, Z_DEPTH, ``mode`` with the default
+    queues (the k-buffer window KB_K, the HIER queues HIER_QUEUES)."""
+    from stopthepop_tpu_torch.config import GaussianRasterizationSettings
+
+    return GaussianRasterizationSettings(
+        image_height=HEIGHT, image_width=WIDTH, tanfovx=cam.tanfovx,
+        tanfovy=cam.tanfovy, bg=torch.zeros(3), scale_modifier=1.0,
+        viewmatrix=None, projmatrix=None, inv_viewprojmatrix=None,
+        sh_degree=3, campos=None, prefiltered=False,
+        settings=culled_settings(mode))
+
+
+def max_err(a, b):
+    return float((a - b).abs().max())
+
+
+def image_check(what, img, ref, tol):
+    """{max_abs_err, pixels_differing, tolerance} of a render against its
+    single-device reference, which it must match within ``tol``."""
+    check(img.shape == ref.shape, "parallel", f"{what}: shape {tuple(img.shape)}")
+    diff = (img - ref).abs().amax(dim=0)
+    fields = {"max_abs_err": float(diff.max()),
+              "pixels_differing": int((diff > 0).sum()), "tolerance": tol}
+    check(fields["max_abs_err"] <= tol, "parallel", f"{what}: {fields}")
+    return fields
+
+
+def parallel_rank(rank, out_dir):
+    """One rank of phase ``parallel`` (started by ``hosts.launch``, one
+    process per card, NCCL): checks (a)-(d) on the bench scene; writes its
+    fields to ``out_dir/rank<rank>.json``. Every sharded path runs with the
+    launch counts set to 0 just before it and read just after."""
+    import torch.distributed as dist
+
+    from stopthepop_tpu_torch.config import SortMode
+    from stopthepop_tpu_torch.io.cameras import CameraArrays, orbit_camera, to_camera_arrays
+    from stopthepop_tpu_torch.models.gaussians import PARAM_NAMES, row_block
+    from stopthepop_tpu_torch.parallel import collectives, hosts, ring, spatial
+    from stopthepop_tpu_torch.parallel import train as ptrain
+    from stopthepop_tpu_torch.render.cli import render_model
+    from stopthepop_tpu_torch.train.loss import rgb_loss
+    from stopthepop_tpu_torch.train.trainer import make_optimizer
+    from stopthepop_tpu_torch.utils.testing import make_camera
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)  # this rank's card (hosts.initialize)
+    world = dist.get_world_size()
+    model = bench_model(dev)
+    bench = make_camera(WIDTH, HEIGHT, campos=(0.0, 0.0, -4.0), device=dev)
+    cam = CameraArrays(bench.viewmatrix, bench.projmatrix,
+                       bench.inv_viewprojmatrix, bench.campos)
+    orbit = [to_camera_arrays(orbit_camera(2 * math.pi * i / FRAMES,
+                                           math.radians(60.0), WIDTH, HEIGHT),
+                              dev) for i in range(FRAMES)]
+    orbit_tan = orbit_camera(0.0, math.radians(60.0), WIDTH, HEIGHT)
+    target = torch.rand((3, HEIGHT, WIDTH), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    # mode: (sort mode, forward kernel, backward kernel, image tolerance)
+    modes = {"GLOBAL": (SortMode.GLOBAL, "k1", "k2", ATOL),
+             "PPX_KBUFFER": (SortMode.PPX_KBUFFER, "k3", "k4", 1e-4),
+             "HIER": (SortMode.HIER, "k5", "k6", 1e-4)}
+    fields = {"rank": rank, "world_size": world}
+
+    def timed(fn):
+        """(fn()'s result, its ms, launches, peak GiB): the counts set to
+        0 just before, read just after."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t0) * 1e3, read_launches(),
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    def only(launches, want, what):
+        check(all(n == want.get(k, 0) for k, n in launches.items()),
+              "parallel", f"rank {rank} {what}: launches {launches}, want {want}")
+
+    def single_grads(static):
+        """The single-device loss and gradients at the bench camera."""
+        ref = row_block(model, 0, 1)
+        loss = rgb_loss(render_model(ref, cam, static=static)[0], target)
+        loss.backward()
+        return float(loss), {k: getattr(ref, k).grad for k in PARAM_NAMES}
+
+    def step_check(name, step, shard, static, kernels):
+        loss_ref, grads_ref = single_grads(static)
+        opt = make_optimizer(shard.parameters())
+        tgt = spatial.band_rows(target, spatial.plan_bands(WIDTH, HEIGHT, world),
+                                rank)
+        (_, _, loss), ms, launches, peak = timed(
+            lambda: step(shard, opt, cam, tgt))
+        only(launches, {k: 1 for k in kernels}, name)
+        rows = slice(rank * (NUM_GAUSSIANS // world),
+                     (rank + 1) * (NUM_GAUSSIANS // world))
+        err = {k: max_err(getattr(shard, k).grad, g[rows])
+               / max(float(g.abs().max()), 1e-30) for k, g in grads_ref.items()}
+        check(abs(float(loss) - loss_ref) <= 2e-5 * (1 + abs(loss_ref))
+              and max(err.values()) <= 1e-4, "parallel",
+              f"rank {rank} {name}: loss {float(loss)} vs {loss_ref}, "
+              f"gradient error {err}")
+        return {"ms_per_step": ms, "loss": float(loss), "loss_single": loss_ref,
+                "grad_err_of_max": err, "launches": launches,
+                "peak_mem_gib": peak}
+
+    # (a) the ("data", "gauss") step against the single-device step.
+    static = parallel_settings(bench, SortMode.GLOBAL)
+    mesh = ptrain.make_mesh()
+    step, n_batch = ptrain.make_sharded_train_step(mesh, static=static)
+    shard = ptrain.shard_model(mesh, model)
+    ref = row_block(model, 0, 1)
+    ref_opt = make_optimizer(ref.parameters())
+    loss_ref = rgb_loss(render_model(ref, cam, static=static)[0], target)
+    loss_ref.backward()
+    ref_opt.step()
+    opt = make_optimizer(shard.parameters())
+    (_, _, loss), ms, launches, peak = timed(lambda: step(shard, opt, cam, target))
+    only(launches, {"k1": 1, "k2": 1}, "data x gauss step")
+    g_rows = slice(mesh.get_local_rank("gauss") * shard.num_gaussians,
+                   (mesh.get_local_rank("gauss") + 1) * shard.num_gaussians)
+    param_err = {k: max_err(getattr(shard, k), getattr(ref, k)[g_rows])
+                 for k in PARAM_NAMES}
+    bitwise = (float(loss) == float(loss_ref)
+               and max(param_err.values()) == 0.0)
+    check(abs(float(loss) - float(loss_ref)) <= 1e-5 * abs(float(loss_ref))
+          and max(param_err.values()) <= 1e-5, "parallel",
+          f"rank {rank} data x gauss: loss {float(loss)} vs {float(loss_ref)}, "
+          f"parameters {param_err}")
+    steps_ms = []
+    for _ in range(3):
+        _, ms_i, _, _ = timed(lambda: step(shard, opt, cam, target))
+        steps_ms.append(ms_i)
+    fields["a_data_gauss"] = {
+        "mesh": list(mesh.shape), "n_batch": n_batch, "first_step_ms": ms,
+        "ms_per_step": steps_ms, "loss": float(loss),
+        "loss_single": float(loss_ref), "param_max_abs_err": param_err,
+        "bitwise": bitwise, "launches": launches, "peak_mem_gib": peak}
+    del ref, ref_opt, shard, opt
+
+    # (b) and (c): band-sharded and ring-streamed renders and steps.
+    for key, axis, make_render, make_step in (
+            ("b_spatial", "tiles",
+             lambda m, st: spatial.make_spatial_render(m, static=st),
+             lambda m, st: spatial.make_spatial_train_step(m, static=st)),
+            ("c_ring", "shards",
+             lambda m, st: ring.make_ring_render(
+                 m, static=st, per_step_capacity=RING_CAPACITY),
+             lambda m, st: ring.make_ring_train_step(
+                 m, static=st, per_step_capacity=RING_CAPACITY))):
+        mesh = hosts.global_mesh((axis,))
+        shard = spatial.shard_model(model, mesh, axis)
+        out = {}
+        for name, (mode, kernel, _, tol) in modes.items():
+            st = parallel_settings(orbit_tan, mode)
+            render, _ = make_render(mesh, st)
+            with torch.no_grad():
+                render(shard, orbit[0])  # warm-up
+                imgs, ms, launches, peak = timed(
+                    lambda: [render(shard, c) for c in orbit])
+                frames = []
+                for i, (img, c) in enumerate(zip(imgs, orbit)):
+                    if key == "c_ring":
+                        img, overflow = img
+                        check(not overflow, "parallel", f"ring {name}: overflow")
+                    frames.append(image_check(
+                        f"rank {rank} {key} {name} frame {i}", img,
+                        render_model(model, c, static=st)[0], tol))
+            only(launches, {kernel: FRAMES}, f"{key} {name} render")
+            out[name] = {"ms_per_frame": ms / FRAMES, "frames": frames,
+                         "launches": launches, "peak_mem_gib": peak}
+        # The band-sharded step in every mode (K2, K4, K6); the ring's in
+        # GLOBAL.
+        for name in (modes if key == "b_spatial" else ("GLOBAL",)):
+            mode, fwd, bwd, _ = modes[name]
+            st = parallel_settings(bench, mode)
+            out[f"{name}_step"] = step_check(
+                f"{key} {name} step", make_step(mesh, st),
+                spatial.shard_model(model, mesh, axis), st, (fwd, bwd))
+        fields[key] = out
+
+    # The collectives at the shapes these paths give them (CUDA events).
+    group = dist.group.WORLD
+    with torch.no_grad():
+        feat, ints = spatial._preprocess_features(
+            row_block(model, rank, world),
+            spatial._with_camera(static, cam, dev))
+        params = [getattr(model, k).detach() for k in PARAM_NAMES]
+        blocks = [p[:p.shape[0] // world].contiguous() for p in params]
+        perm = [(i, (i + 1) % world) for i in range(world)]
+        band = spatial.band_rows(target, spatial.plan_bands(WIDTH, HEIGHT, world),
+                                 rank)
+        fields["collectives_ms"] = {
+            "all_gather_features": cuda_ms(
+                lambda: (collectives.all_gather_plain(feat, group),
+                         collectives.all_gather_plain(ints, group)), 10),
+            "all_gather_parameters": cuda_ms(lambda: [
+                collectives.all_gather_plain(b, group) for b in blocks], 10),
+            "reduce_scatter_gradients": cuda_ms(lambda: [
+                collectives.reduce_scatter_plain(p, group) for p in params], 10),
+            "halo_exchange": cuda_ms(lambda: collectives.halo_exchange_plain(
+                band, spatial.HALO, group), 10),
+            "ppermute_features": cuda_ms(lambda: (
+                collectives.ppermute_plain(feat, perm, group),
+                collectives.ppermute_plain(ints, perm, group)), 10),
+        }
+        del feat, ints, params, blocks
+
+    # (d) n > 1 on one card: the collective-free cores, 4 bands, 4 shards.
+    if rank == 0:
+        cfg = spatial.plan_bands(WIDTH, HEIGHT, PAR_BANDS)
+        out = {}
+        for name in ("GLOBAL", "HIER"):
+            mode, kernel, _, tol = modes[name]
+            st = parallel_settings(bench, mode)
+            rs = spatial._with_camera(st, cam, dev)
+            with torch.no_grad():
+                ref_img = render_model(model, cam, static=st)[0]
+                tables = [spatial._preprocess_features(
+                    row_block(model, i, PAR_BANDS), rs) for i in range(PAR_BANDS)]
+                feat = torch.cat([t[0] for t in tables])
+                ints = torch.cat([t[1] for t in tables])
+
+                def spatial_core():
+                    return torch.cat([spatial.render_band(
+                        feat, ints, b, cfg, cam, st)[0]
+                        for b in range(PAR_BANDS)], dim=1)[:, :HEIGHT]
+
+                def ring_core():
+                    bands = []
+                    for b in range(PAR_BANDS):
+                        steps = [ring.ring_step(*tables[(b - s) % PAR_BANDS], b,
+                                                cfg, cam, st)
+                                 for s in range(PAR_BANDS)]
+                        bands.append(ring.ring_blend(steps, b, cfg, cam, st)[0])
+                    return torch.cat(bands, dim=1)[:, :HEIGHT]
+
+                for core, fn in (("render_band", spatial_core),
+                                 ("ring_step", ring_core)):
+                    img, ms, launches, peak = timed(fn)
+                    only(launches, {kernel: PAR_BANDS}, f"{core} {name}")
+                    out[f"{core}_{name}"] = {
+                        "bands": PAR_BANDS, "ms": ms,
+                        **image_check(f"{core} {name}, {PAR_BANDS} bands",
+                                      img, ref_img, tol),
+                        "launches": launches, "peak_mem_gib": peak}
+                del tables, feat, ints
+        fields["d_cores_one_card"] = out
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(fields, f)
+
+
+def parallel_phase(out_dir):
+    """parallel: one process per card (``parallel/hosts.py::launch``, NCCL,
+    a file store), each running ``parallel_rank``; a rank that fails makes
+    the phase fail. Returns every rank's fields."""
+    import shutil
+
+    from stopthepop_tpu_torch.parallel import hosts
+
+    res = out_dir / "parallel"
+    shutil.rmtree(res, ignore_errors=True)
+    res.mkdir(parents=True)
+    world = torch.cuda.device_count()
+    rc = hosts.launch(parallel_rank, world, device="cuda", args=(str(res),))
+    check(rc == 0, "parallel", f"a rank failed (launch returned {rc})")
+    ranks = []
+    for r in range(world):
+        with open(res / f"rank{r}.json") as f:
+            ranks.append(json.load(f))
+    return {"world_size": world, "ranks": ranks}
+
+
 def _wrappers():
     from stopthepop_tpu_torch.kernels import (
         full_blend,
@@ -1954,7 +2253,11 @@ def main(argv=None) -> int:
     emit_phase("snapshot", lambda: snapshot_phase(model, bench_cam))
     del model
 
-    # 23. kernels -----------------------------------------------------------------
+    # 23. parallel: the multi-device layer, one process per card ------------------
+    torch.cuda.empty_cache()
+    emit_phase("parallel", lambda: parallel_phase(out_dir))
+
+    # 24. kernels -----------------------------------------------------------------
     emit({"kernels": [{
         "name": global_blend.KERNEL, "route": "cuda",
         "source": global_blend.SOURCE, "replaces": global_blend.REPLACES,

@@ -16,13 +16,16 @@ six debug visualization modes and ``render_depth``
 (``render/debug_viz.py``), ``debug=True`` failure snapshots
 (``utils/snapshot.py``) and the stage timer with its timed GLOBAL path and
 ``torch.profiler`` traces (``utils/profiling.py``,
-``render/pipeline.py::render_tiled_timed``).
+``render/pipeline.py::render_tiled_timed``). Across GPUs, over
+torch.distributed (``parallel/``): the ("data", "gauss") train step,
+band-sharded rendering and training, the ring-streamed Gaussian shards and
+the process-group bring-up, one process per GPU.
 Entry points run on the GPU unless the caller passes ``device="cpu"``; on
 CPU tensors every kernel wrapper runs its plain PyTorch version. On the
 CPU, ``python -m pytest tests/test_torch_*.py`` holds the port against the
 JAX package; on an H100, ``python3 chip_smoke.py`` builds the kernels and
 drives every path (phases ``train_batched``, ``colmap``, ``debug_viz``,
-``timed`` and ``snapshot`` for the ones above).
+``timed``, ``snapshot`` and ``parallel`` for the ones above).
 
 Nothing here imports JAX or the ``stopthepop_tpu`` package.
 """

@@ -75,6 +75,17 @@ def to_numpy_params(model: GaussianModel) -> Dict[str, np.ndarray]:
     return {k: getattr(model, k).detach().cpu().numpy() for k in PARAM_NAMES}
 
 
+def row_block(model: GaussianModel, index: int, count: int) -> GaussianModel:
+    """Block ``index`` of ``count`` equal, contiguous row blocks of the
+    model (P % count == 0), as new leaf parameters: a Gaussian shard."""
+    P = model.num_gaussians
+    if P % count:
+        raise ValueError(f"{P} Gaussians do not split into {count} shards")
+    rows = slice(index * (P // count), (index + 1) * (P // count))
+    return GaussianModel(*(getattr(model, k).detach()[rows].clone()
+                           for k in PARAM_NAMES))
+
+
 def init_random(num_gaussians: int, seed: int = 0, extent: float = 1.5,
                 sh_degree: int = 3, device=None) -> GaussianModel:
     """Random model with the JAX package's distributions, drawn with numpy.

@@ -55,6 +55,12 @@ def init_densify_stats(num_gaussians: int, device=None) -> DensifyStats:
     )
 
 
+def make_optimizer(params, lr: float = 1e-3) -> torch.optim.Adam:
+    """Plain Adam over ``params``: the JAX package's ``make_optimizer``
+    (``optax.adam(lr, eps=1e-15)``), as the sharded steps use it."""
+    return torch.optim.Adam(params, lr=lr, eps=1e-15)
+
+
 def position_lr_schedule(
     lr_init: float = 1.6e-4,
     lr_final: float = 1.6e-6,

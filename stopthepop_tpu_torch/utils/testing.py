@@ -3,14 +3,19 @@
 Port of ``stopthepop_tpu/utils/testing.py``. Camera matrices follow the
 torch-3DGS convention (transposed world-to-view / world-to-clip). Scenes are
 drawn with numpy from a seed, so the same arrays can be handed to both
-packages.
+packages. ``run_ranks`` runs a test body in a group of CPU processes, for
+the multi-device layer (``parallel/``).
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import NamedTuple
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -152,3 +157,66 @@ def one_thread_under_xdist() -> None:
         torch.set_num_interop_threads(1)
     except RuntimeError:
         pass
+
+
+# The lines every rank of ``run_ranks`` runs first: one torch thread, the
+# repository on sys.path, and the process group over the file store.
+RANK_PREAMBLE = """
+import sys
+rank, world, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+sys.path.insert(0, sys.argv[4])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from stopthepop_tpu_torch.parallel import hosts
+hosts.initialize(f"file://{workdir}/store", world, rank, device="cpu")
+"""
+# And last: no rank leaves the group while another is still in it.
+RANK_POSTAMBLE = """
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+"""
+
+
+def run_ranks(body: str, world: int, workdir, timeout: float = 600,
+              env=None) -> List[dict]:
+    """Run ``RANK_PREAMBLE + body + RANK_POSTAMBLE`` in ``world`` CPU
+    processes that form one Gloo group through a file store in
+    ``workdir`` (no TCP port). The body sees ``rank``, ``world`` and
+    ``workdir`` and saves its results with
+    ``np.savez(f"{workdir}/rank{rank}.npz", ...)``. Returns each rank's
+    results in rank order. When a rank fails, or the run outlasts
+    ``timeout`` seconds, every rank is killed and this raises with their
+    output.
+    """
+    workdir = Path(workdir)
+    script = workdir / "rank_worker.py"
+    script.write_text(RANK_PREAMBLE + body + RANK_POSTAMBLE)
+    repo = str(Path(__file__).resolve().parents[2])
+    logs = [open(workdir / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(r), str(world), str(workdir), repo],
+        stdout=log, stderr=subprocess.STDOUT, env={**os.environ, **(env or {})})
+        for r, log in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.05)
+    finally:
+        for p, log in zip(procs, logs):
+            p.kill()
+            p.wait()
+            log.close()
+    if any(p.returncode for p in procs):
+        raise RuntimeError("a rank failed or timed out:\n" + "\n".join(
+            f"--- rank {r} (exit {p.returncode}) ---\n"
+            + (workdir / f"rank{r}.log").read_text()[-4000:]
+            for r, p in enumerate(procs)))
+    results = []
+    for r in range(world):
+        with np.load(workdir / f"rank{r}.npz") as f:
+            results.append({k: f[k] for k in f.files})
+    return results

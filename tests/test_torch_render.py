@@ -333,7 +333,12 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, stopthepop_tpu_torch, stopthepop_tpu_torch.render.cli, "
-            "stopthepop_tpu_torch.train.cli; "
+            "stopthepop_tpu_torch.train.cli, stopthepop_tpu_torch.parallel, "
+            "stopthepop_tpu_torch.parallel.collectives, "
+            "stopthepop_tpu_torch.parallel.hosts, "
+            "stopthepop_tpu_torch.parallel.train, "
+            "stopthepop_tpu_torch.parallel.spatial, "
+            "stopthepop_tpu_torch.parallel.ring; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m.split('.')[0] == 'stopthepop_tpu' for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True,
