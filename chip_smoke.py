@@ -8,6 +8,9 @@ Run from the root of the repository on a machine with one NVIDIA H100:
                                      # training steps in each mode (phases
                                      # train_profile, train_kb_profile,
                                      # train_hier_profile)
+    python3 chip_smoke.py --parallel-only  # the build and phase 23 alone,
+                                           # one rank per card (a host of
+                                           # several cards); no last line
 
 Phases, one JSON line each; any failure exits non-zero:
   1. build: compile every CUDA kernel of the port with nvcc (in parallel);
@@ -139,14 +142,20 @@ Phases, one JSON line each; any failure exits non-zero:
  23. parallel: the multi-device layer (stopthepop_tpu_torch/parallel/), one
      process per card through parallel/hosts.py::launch (spawned, NCCL, a
      file store); a rank that fails fails the phase. Each rank, on the bench
-     model: (a) one ("data", "gauss") step against the single-device step
-     with the same Adam (loss and updated parameters; bitwise with one
-     rank), then 3 timed steps; (b) make_spatial_render of the 4 orbit
+     model: (a) one ("data", "gauss") step, each rank with a target of its
+     own, against the single-device step with the same Adam on the mean
+     loss over every rank's target (loss within 1e-5, gradients within 1e-4
+     of each tensor's largest value, updated parameters within 1e-5 where
+     the mean gradient is not within rounding of 0; bitwise with one rank),
+     then 3 timed steps; (b) make_spatial_render of the 4 orbit
      frames in GLOBAL, PPX_KBUFFER (k = 4) and HIER (64, 8, 4) against the
      single-device renders (1e-5 GLOBAL, 1e-4 resort modes) and one
      spatial step in each of the three modes (loss within 2e-5, each
      gradient within 1e-4 of its tensor's largest value); (c) the same
-     renders with make_ring_render and one ring GLOBAL step; the
+     renders with make_ring_render and one ring GLOBAL step; the stages of
+     a band frame in each mode (preprocess, all-gather, pairs, render_band,
+     gather_bands) beside the single-device frame's, and render_band of an
+     empty band at the image's size and at the band's (CUDA events); the
      collectives at the paths' shapes (CUDA events).
      Rank 0 also holds the collective-free cores with 4 bands and 4 shards
      on one card (render_band; ring_step and ring_blend in ring order),
@@ -1301,7 +1310,7 @@ def parallel_settings(cam, mode):
 
 
 def max_err(a, b):
-    return float((a - b).abs().max())
+    return float((a - b).detach().abs().max())
 
 
 def image_check(what, img, ref, tol):
@@ -1313,6 +1322,77 @@ def image_check(what, img, ref, tol):
               "pixels_differing": int((diff > 0).sum()), "tolerance": tol}
     check(fields["max_abs_err"] <= tol, "parallel", f"{what}: {fields}")
     return fields
+
+
+def band_stages(shard, model, cam, st, rank, world):
+    """The stages of this rank's band frame (``spatial.band_render`` without
+    gradients, then ``gather_bands``), each timed alone with CUDA events
+    (mean of 10 calls; collectives on every rank together), beside the
+    single-device frame's preprocess and render of the same camera; and
+    ``render_band`` of the band with no Gaussian in it, at the image's size
+    (how the port renders a band) and at the band's size (a one-band image
+    of band_h rows), their difference the cost of the full-size tile grid
+    and outputs alone, forward and (with K2) backward in GLOBAL."""
+    import torch.distributed as dist
+
+    from stopthepop_tpu_torch.config import SortMode
+    from stopthepop_tpu_torch.parallel import collectives, spatial
+    from stopthepop_tpu_torch.render.duplicate import build_pairs
+
+    group = dist.group.WORLD
+    dev = shard.means3d.device
+    rs = spatial._with_camera(st, cam, dev)
+    cfg = spatial.plan_bands(WIDTH, HEIGHT, world)
+    one = spatial.plan_bands(WIDTH, HEIGHT, 1)
+    banded = spatial.plan_bands(WIDTH, cfg.band_h, 1)
+    ms = functools.partial(cuda_ms, iters=10)
+    with torch.no_grad():
+        feat, ints = spatial._preprocess_features(shard, rs)
+        feat_all = collectives.all_gather_plain(feat, group)
+        ints_all = collectives.all_gather_plain(ints, group)
+        empty = ints_all.clone()
+        empty[:, 4] = 0  # no row valid: no pair in any tile
+        feat1, ints1 = spatial._preprocess_features(model, rs)
+        color, _ = spatial.render_band(feat_all, ints_all, rank, cfg, cam, st)
+
+        def pairs(f, i, band, c):
+            return build_pairs(
+                spatial._band_prep(f, i, band, c), grid_x=c.grid_x,
+                grid_y=c.grid_y,
+                sort_order=st.settings.sort_settings.sort_order,
+                campos=rs.campos, inverse_vp=rs.inv_viewprojmatrix,
+                image_width=c.image_width, image_height=c.image_height)
+
+        out = {
+            "pairs_band": pairs(feat_all, ints_all, rank, cfg).num_rendered,
+            "pairs_image": pairs(feat1, ints1, 0, one).num_rendered,
+            "preprocess_shard": ms(
+                lambda: spatial._preprocess_features(shard, rs)),
+            "all_gather_features": ms(lambda: (
+                collectives.all_gather_plain(feat, group),
+                collectives.all_gather_plain(ints, group))),
+            "band_pairs": ms(lambda: pairs(feat_all, ints_all, rank, cfg)),
+            "render_band": ms(lambda: spatial.render_band(
+                feat_all, ints_all, rank, cfg, cam, st)),
+            "gather_bands": ms(lambda: spatial.gather_bands(color, cfg, group)),
+            "single_preprocess": ms(
+                lambda: spatial._preprocess_features(model, rs)),
+            "single_render": ms(lambda: spatial.render_band(
+                feat1, ints1, 0, one, cam, st)),
+            "no_pairs_image_size": ms(lambda: spatial.render_band(
+                feat_all, empty, rank, cfg, cam, st)),
+            "no_pairs_band_size": ms(lambda: spatial.render_band(
+                feat_all, empty, 0, banded, cam, st)),
+        }
+    out["full_size_cost"] = out["no_pairs_image_size"] - out["no_pairs_band_size"]
+    if st.settings.sort_settings.sort_mode == SortMode.GLOBAL:
+        def fwd_bwd(c, band):
+            f = feat_all.detach().requires_grad_(True)
+            spatial.render_band(f, empty, band, c, cam, st)[0].sum().backward()
+
+        out["no_pairs_fwd_bwd_image_size"] = ms(lambda: fwd_bwd(cfg, rank))
+        out["no_pairs_fwd_bwd_band_size"] = ms(lambda: fwd_bwd(banded, 0))
+    return out
 
 
 def parallel_rank(rank, out_dir):
@@ -1344,8 +1424,12 @@ def parallel_rank(rank, out_dir):
                                            math.radians(60.0), WIDTH, HEIGHT),
                               dev) for i in range(FRAMES)]
     orbit_tan = orbit_camera(0.0, math.radians(60.0), WIDTH, HEIGHT)
-    target = torch.rand((3, HEIGHT, WIDTH), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(1))
+    # Every rank's target of check (a); target, the first, is the image the
+    # band steps cut into bands.
+    targets = [torch.rand((3, HEIGHT, WIDTH), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1 + r))
+               for r in range(world)]
+    target = targets[0]
     # mode: (sort mode, forward kernel, backward kernel, image tolerance)
     modes = {"GLOBAL": (SortMode.GLOBAL, "k1", "k2", ATOL),
              "PPX_KBUFFER": (SortMode.PPX_KBUFFER, "k3", "k4", 1e-4),
@@ -1391,43 +1475,67 @@ def parallel_rank(rank, out_dir):
               and max(err.values()) <= 1e-4, "parallel",
               f"rank {rank} {name}: loss {float(loss)} vs {loss_ref}, "
               f"gradient error {err}")
-        return {"ms_per_step": ms, "loss": float(loss), "loss_single": loss_ref,
+        warm = [timed(lambda: step(shard, opt, cam, tgt))[1] for _ in range(2)]
+        return {"ms_per_step": ms, "ms_per_step_warm": warm,
+                "loss": float(loss), "loss_single": loss_ref,
                 "grad_err_of_max": err, "launches": launches,
                 "peak_mem_gib": peak}
 
-    # (a) the ("data", "gauss") step against the single-device step.
+    # (a) the ("data", "gauss") step against the single-device step on the
+    # mean loss of every rank's target: each rank renders the bench camera
+    # against a target of its own, so that the "gauss" reduce-scatter and
+    # the "data" all-reduce sum gradients that differ.
     static = parallel_settings(bench, SortMode.GLOBAL)
     mesh = ptrain.make_mesh()
     step, n_batch = ptrain.make_sharded_train_step(mesh, static=static)
     shard = ptrain.shard_model(mesh, model)
     ref = row_block(model, 0, 1)
     ref_opt = make_optimizer(ref.parameters())
-    loss_ref = rgb_loss(render_model(ref, cam, static=static)[0], target)
-    loss_ref.backward()
+    loss_ref = 0.0
+    for t in targets:
+        loss_t = rgb_loss(render_model(ref, cam, static=static)[0], t) / world
+        loss_t.backward()
+        loss_ref += float(loss_t.detach())
+    grads_ref = {k: getattr(ref, k).grad.clone() for k in PARAM_NAMES}
     ref_opt.step()
     opt = make_optimizer(shard.parameters())
-    (_, _, loss), ms, launches, peak = timed(lambda: step(shard, opt, cam, target))
+    (_, _, loss), ms, launches, peak = timed(
+        lambda: step(shard, opt, cam, targets[rank]))
     only(launches, {"k1": 1, "k2": 1}, "data x gauss step")
     g_rows = slice(mesh.get_local_rank("gauss") * shard.num_gaussians,
                    (mesh.get_local_rank("gauss") + 1) * shard.num_gaussians)
-    param_err = {k: max_err(getattr(shard, k), getattr(ref, k)[g_rows])
+    grad_err = {k: max_err(getattr(shard, k).grad, g[g_rows])
+                / max(float(g.abs().max()), 1e-30) for k, g in grads_ref.items()}
+    # Adam's first step moves a parameter by lr * g / (|g| + eps), about
+    # lr * sign(g): where the mean gradient lies within the rounding of its
+    # sum over the ranks its sign, and so the parameter, may differ by 2 lr.
+    # With one rank every parameter is held; with more, those whose mean
+    # gradient exceeds 1e-5 of its tensor's largest, far above that
+    # rounding (about 1e-7 of the terms for a sum of 4).
+    held = {k: (g[g_rows].abs() > (1e-5 * float(g.abs().max()) if world > 1
+                                    else -1.0)) for k, g in grads_ref.items()}
+    param_err = {k: max_err(getattr(shard, k)[held[k]],
+                            getattr(ref, k)[g_rows][held[k]])
                  for k in PARAM_NAMES}
-    bitwise = (float(loss) == float(loss_ref)
-               and max(param_err.values()) == 0.0)
-    check(abs(float(loss) - float(loss_ref)) <= 1e-5 * abs(float(loss_ref))
-          and max(param_err.values()) <= 1e-5, "parallel",
-          f"rank {rank} data x gauss: loss {float(loss)} vs {float(loss_ref)}, "
-          f"parameters {param_err}")
+    bitwise = (float(loss) == loss_ref and max(param_err.values()) == 0.0
+               and max(grad_err.values()) == 0.0)
+    check(abs(float(loss) - loss_ref) <= 1e-5 * abs(loss_ref)
+          and max(param_err.values()) <= 1e-5
+          and max(grad_err.values()) <= 1e-4, "parallel",
+          f"rank {rank} data x gauss: loss {float(loss)} vs {loss_ref}, "
+          f"parameters {param_err}, gradient error {grad_err}")
     steps_ms = []
     for _ in range(3):
-        _, ms_i, _, _ = timed(lambda: step(shard, opt, cam, target))
+        _, ms_i, _, _ = timed(lambda: step(shard, opt, cam, targets[rank]))
         steps_ms.append(ms_i)
     fields["a_data_gauss"] = {
         "mesh": list(mesh.shape), "n_batch": n_batch, "first_step_ms": ms,
-        "ms_per_step": steps_ms, "loss": float(loss),
-        "loss_single": float(loss_ref), "param_max_abs_err": param_err,
-        "bitwise": bitwise, "launches": launches, "peak_mem_gib": peak}
-    del ref, ref_opt, shard, opt
+        "ms_per_step": steps_ms, "loss": float(loss), "loss_single": loss_ref,
+        "param_max_abs_err": param_err,
+        "params_held": {k: int(m.sum()) for k, m in held.items()},
+        "grad_err_of_max": grad_err, "bitwise": bitwise,
+        "launches": launches, "peak_mem_gib": peak}
+    del ref, ref_opt, shard, opt, grads_ref, held
 
     # (b) and (c): band-sharded and ring-streamed renders and steps.
     for key, axis, make_render, make_step in (
@@ -1469,6 +1577,13 @@ def parallel_rank(rank, out_dir):
                 f"{key} {name} step", make_step(mesh, st),
                 spatial.shard_model(model, mesh, axis), st, (fwd, bwd))
         fields[key] = out
+
+    # Where a band frame's time goes, and what rendering a band at the
+    # image's size costs (CUDA events, mean of 10 calls, orbit frame 0).
+    fields["band_stages_ms"] = {
+        name: band_stages(row_block(model, rank, world), model, orbit[0],
+                          parallel_settings(orbit_tan, mode), rank, world)
+        for name, (mode, _, _, _) in modes.items()}
 
     # The collectives at the shapes these paths give them (CUDA events).
     group = dist.group.WORLD
@@ -1625,7 +1740,8 @@ def ptxas_summary(log: str):
 
 
 def main(argv=None) -> int:
-    want_profile = "--profile" in (sys.argv[1:] if argv is None else argv)
+    args = sys.argv[1:] if argv is None else argv
+    want_profile = "--profile" in args
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -1659,6 +1775,13 @@ def main(argv=None) -> int:
               for n, log in build.build_log.items()
           },
           "hier_occupancy": hier_occupancy()})
+    if "--parallel-only" in args:
+        t0 = time.perf_counter()
+        fields = parallel_phase(ROOT / "build" / "chip_smoke")
+        emit({"phase": "parallel", "ok": True, **fields,
+              "seconds": time.perf_counter() - t0, "card": card})
+        print(card)
+        return 0
 
     # 2. kernel against plain version -----------------------------------------
     scene = random_scene(0, 300, device=dev)

@@ -44,7 +44,8 @@ def initialize(
     With no ``init_method``, torchrun's environment (RANK and WORLD_SIZE,
     ``env://``) is read where it is set; without it this process is a
     one-rank world on an in-process store, as JAX runs single-process
-    without a coordinator. An explicit ``init_method`` that fails raises.
+    without a coordinator, and a ``world_size`` over 1 or a ``rank`` raises
+    ``ValueError``. An explicit ``init_method`` that fails raises.
     The backend is NCCL, and this process's card is
     ``torch.cuda.set_device(LOCAL_RANK)`` (rank modulo the card count
     without torchrun); Gloo only for ``device="cpu"``. Without a GPU and
@@ -57,6 +58,10 @@ def initialize(
     env = os.environ
     if init_method is None and "RANK" in env and "WORLD_SIZE" in env:
         init_method = "env://"
+    if init_method is None and ((world_size or 1) > 1 or rank is not None):
+        raise ValueError(
+            f"world_size={world_size}, rank={rank} without an init_method "
+            "or torchrun's RANK and WORLD_SIZE: no other rank could join")
     if dev.type == "cuda":
         local = env.get("LOCAL_RANK")
         torch.cuda.set_device(int(local) if local is not None

@@ -7,28 +7,21 @@ image is cut into bands and the Gaussians into shards, as in
 table (O(P) memory a rank) the shards travel around the ring, one
 ``ppermute`` a step, while each rank bins the pairs of its own band.
 
-Each of the n ring steps (``ring_step``, collective-free) takes the
-resident shard's feature tables and keeps
-
-  * the rows of the shard's Gaussians that touch the band, compacted (the
-    gradient columns mean2d, conic_opacity and rgb, and the depth, inverse
-    3D covariance and opacity power threshold, which carry none), and
-  * their pairs, expanded and keyed for the band, Gaussian-major,
-
-so a rank holds O(band pairs) rows besides its O(P/n) parameters, never
-O(P). After the last step (``ring_blend``, collective-free) the steps'
-rows are concatenated in shard order (at step s the band holds shard
-(band - s) mod n) and their pairs re-indexed into the concatenation; one
-stable (tile, key) sort (``render/duplicate.py::sort_expanded``) runs over
-that stream, Gaussian-major over the whole model as in the single-device
-render, so exact key ties fall as there (JAX sorts in step order, so its
-ties between shards fall otherwise; a 1080p frame of 500K Gaussians has
-such ties). ``BlendGlobal`` / ``BlendKBuffer`` / ``BlendHier`` then blend
-the band unchanged (K1, K3 or K5 forward; K2, K4 or K6 backward), in the
-image's pixel coordinates as ``parallel/spatial.py`` renders a band. In the
-backward the compaction gathers land on the resident shard's rows, unique
-indices, and the ppermutes' inverse carries the gradients back to the
-shard's owner.
+Each of the n ring steps (``ring_step``, collective-free) keeps the rows
+of the resident shard's feature tables whose Gaussians touch the band,
+compacted (the gradient columns mean2d, conic_opacity and rgb, and the
+depth, inverse 3D covariance and opacity power threshold, which carry
+none), and counts their pairs in the band; so a rank holds O(band pairs)
+rows besides its O(P/n) parameters, never O(P). After the last step
+(``ring_blend``, collective-free) the steps' rows are concatenated in shard
+order (at step s the band holds shard (band - s) mod n) and rendered as
+``parallel/spatial.py::render_band`` renders the gathered tables: one pair
+build, Gaussian-major over the whole model as in the single-device render,
+so exact key ties fall as there (JAX sorts in step order, so its ties
+between shards fall otherwise; a 1080p frame of 500K Gaussians has such
+ties), then K1, K3 or K5 forward and K2, K4 or K6 backward. In the backward
+the compaction gathers land on the resident shard's rows, unique indices,
+and the ppermutes' inverse carries the gradients back to the shard's owner.
 
 JAX's static ``per_step_capacity`` truncates a step's pairs to fit its
 buffers, a TPU device; the port's pair counts are dynamic and every pair is
@@ -49,18 +42,16 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..config import GaussianRasterizationSettings
 from ..io.cameras import CameraArrays
 from ..models.gaussians import GaussianModel
-from ..render.duplicate import expand_pairs, sort_expanded
 from .collectives import ppermute, ppermute_plain, psum_plain
 from .spatial import (
     SpatialConfig,
     _band_mode,
-    _band_prep,
     _band_tiles,
     _preprocess_features,
     _with_camera,
     gather_bands,
     plan_bands,
-    render_blend,
+    render_band,
     sharded_step,
     spatial_rgb_loss,
 )
@@ -69,9 +60,7 @@ from .spatial import (
 class RingStep(NamedTuple):
     feat: torch.Tensor     # [m, 20] the rows of the shard touching the band
     ints: torch.Tensor     # [m, 5]
-    tile_id: torch.Tensor  # [N] int32 image tile of each pair, Gaussian-major
-    depth: torch.Tensor    # [N] float32 sort key
-    gauss_id: torch.Tensor  # [N] int32 row in ``feat``
+    n_pairs: torch.Tensor  # 0-d: their pairs in the band
 
 
 def _ring_mode(rs: GaussianRasterizationSettings):
@@ -87,17 +76,12 @@ def ring_step(feat_r: torch.Tensor, ints_r: torch.Tensor, band: int,
               cfg: SpatialConfig, cam: CameraArrays,
               static: GaussianRasterizationSettings) -> RingStep:
     """One ring step, collective-free: the resident shard's rows that touch
-    ``band``, compacted, and their pairs for the band."""
-    rs = _with_camera(static, cam, feat_r.device)
-    _, order, _ = _ring_mode(rs)
-    keep = torch.nonzero(_band_tiles(ints_r, band, cfg)[3] > 0).squeeze(1)
-    feat, ints = feat_r.index_select(0, keep), ints_r.index_select(0, keep)
-    tile_id, depth, gid = expand_pairs(
-        _band_prep(feat, ints, band, cfg), grid_x=cfg.grid_x,
-        sort_order=order, campos=rs.campos,
-        inverse_vp=rs.inv_viewprojmatrix, image_width=cfg.image_width,
-        image_height=cfg.image_height)
-    return RingStep(feat, ints, tile_id, depth, gid)
+    ``band``, compacted, and their pair count."""
+    _ring_mode(_with_camera(static, cam, feat_r.device))
+    tiles = _band_tiles(ints_r, band, cfg)[3]
+    keep = torch.nonzero(tiles > 0).squeeze(1)
+    return RingStep(feat_r.index_select(0, keep), ints_r.index_select(0, keep),
+                    tiles.sum())
 
 
 def ring_blend(steps: Sequence[RingStep], band: int, cfg: SpatialConfig,
@@ -105,21 +89,11 @@ def ring_blend(steps: Sequence[RingStep], band: int, cfg: SpatialConfig,
     """The band's render from its ring steps, collective-free: (color
     [3, band_h, W], final_T [band_h, W]). ``steps[s]`` is step s of the
     ring, which holds shard (band - s) mod n."""
-    rs = _with_camera(static, cam, steps[0].feat.device)
-    mode, order, queues = _ring_mode(rs)
     n = len(steps)
     steps = [steps[(band - i) % n] for i in range(n)]  # in shard order
-    offsets = [0]
-    for s in steps:
-        offsets.append(offsets[-1] + s.feat.shape[0])
-    gid = torch.cat([s.gauss_id + off for s, off in zip(steps, offsets)])
-    pairs = sort_expanded(
-        torch.cat([s.tile_id for s in steps]),
-        torch.cat([s.depth for s in steps]), gid.to(torch.int32),
-        num_tiles=cfg.grid_x * cfg.grid_y, num_gaussians=offsets[-1])
-    prep = _band_prep(torch.cat([s.feat for s in steps]),
-                      torch.cat([s.ints for s in steps]), band, cfg)
-    return render_blend(prep, band, cfg, rs, mode, order, queues, pairs)
+    return render_band(torch.cat([s.feat for s in steps]),
+                       torch.cat([s.ints for s in steps]), band, cfg, cam,
+                       static)
 
 
 def ring_band_render(
@@ -146,9 +120,8 @@ def ring_band_render(
         if s + 1 < n:
             feat_r = ppermute(feat_r, perm, group)
             ints_r = ppermute_plain(ints_r, perm, group)
-    most = max(int(st.tile_id.shape[0]) for st in steps)
-    overflow = psum_plain(torch.tensor(
-        int(most > per_step_capacity), device=feat_r.device), group)
+    most = torch.stack([st.n_pairs for st in steps]).max()
+    overflow = psum_plain((most > per_step_capacity).to(torch.int64), group)
     color, final_t = ring_blend(steps, band, cfg, cam, rs)
     return color, final_t, bool(overflow > 0)
 

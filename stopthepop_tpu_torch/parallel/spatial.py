@@ -198,18 +198,22 @@ def _band_mode(rs: GaussianRasterizationSettings, what: str):
     return mode, order, queues
 
 
-def render_blend(prep: PreprocessOutput, band: int, cfg: SpatialConfig,
-                 rs: GaussianRasterizationSettings, mode, order, queues,
-                 pairs=None):
-    """The band's render through render/pipeline.py, at the image's size:
-    (color [3, band_h, W], final_T [band_h, W]), the band's rows of the
-    image, zeros past its height; ``pairs`` as in ``render_tiled``."""
+def render_band(feat_all: torch.Tensor, ints_all: torch.Tensor, band: int,
+                cfg: SpatialConfig, cam: CameraArrays,
+                static: GaussianRasterizationSettings):
+    """The collective-free core of ``band_render``: band ``band``'s
+    (color [3, band_h, W], final_T [band_h, W]) from the gathered feature
+    tables of every shard, in shard order. The band renders through
+    render/pipeline.py at the image's size, and its rows are cut out (zeros
+    past the image's height)."""
+    rs = _with_camera(static, cam, feat_all.device)
+    mode, order, queues = _band_mode(rs, "band-sharded rendering")
+    prep = _band_prep(feat_all, ints_all, band, cfg)
     ext = rs.settings
     common = dict(image_width=cfg.image_width, image_height=cfg.image_height,
                   sort_order=order,
                   tile_based_culling=ext.culling_settings.tile_based_culling,
-                  campos=rs.campos, inverse_vp=rs.inv_viewprojmatrix,
-                  pairs=pairs)
+                  campos=rs.campos, inverse_vp=rs.inv_viewprojmatrix)
     if mode == SortMode.PPX_KBUFFER:
         out = render_tiled_kbuffer(prep, rs.bg, k=queues, **common)
     elif mode == SortMode.HIER:
@@ -220,18 +224,6 @@ def render_blend(prep: PreprocessOutput, band: int, cfg: SpatialConfig,
     else:
         out = render_tiled(prep, rs.bg, **common)
     return band_rows(out[0], cfg, band), band_rows(out[1][None], cfg, band)[0]
-
-
-def render_band(feat_all: torch.Tensor, ints_all: torch.Tensor, band: int,
-                cfg: SpatialConfig, cam: CameraArrays,
-                static: GaussianRasterizationSettings):
-    """The collective-free core of ``band_render``: band ``band``'s
-    (color [3, band_h, W], final_T [band_h, W]) from the gathered feature
-    tables of every shard, in shard order."""
-    rs = _with_camera(static, cam, feat_all.device)
-    mode, order, queues = _band_mode(rs, "band-sharded rendering")
-    prep = _band_prep(feat_all, ints_all, band, cfg)
-    return render_blend(prep, band, cfg, rs, mode, order, queues)
 
 
 def band_render(model_shard: GaussianModel, cam: CameraArrays,

@@ -68,7 +68,6 @@ def render_tiled(
     campos=None,
     inverse_vp=None,
     snapshot=None,
-    pairs=None,
 ):
     """GLOBAL-mode tiled render.
 
@@ -76,18 +75,14 @@ def render_tiled(
     depth_acc [H, W]), as the JAX package's ``render_tiled`` does. The
     per-tile-depth orders need ``campos`` and ``inverse_vp``. ``snapshot``,
     the (host arrays, settings) of a ``debug=True`` render, goes to the
-    blend Function, whose backward dumps it on failure. ``pairs``, a
-    PairBuffer over ``prep``'s rows sorted elsewhere (the ring-streamed
-    bands, parallel/ring.py), replaces the pair build.
+    blend Function, whose backward dumps it on failure.
     """
     grid_x, grid_y = tile_grid(image_width, image_height)
-    if pairs is None:
-        pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
-                            sort_order=sort_order,
-                            tile_based_culling=tile_based_culling,
-                            campos=campos, inverse_vp=inverse_vp,
-                            image_width=image_width,
-                            image_height=image_height)
+    pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
+                        sort_order=sort_order,
+                        tile_based_culling=tile_based_culling, campos=campos,
+                        inverse_vp=inverse_vp, image_width=image_width,
+                        image_height=image_height)
     rows = _rows(prep)
     depth = prep.depth.detach().contiguous()
     kw = dict(grid_x=grid_x, grid_y=grid_y, width=image_width,
@@ -117,7 +112,6 @@ def render_tiled_kbuffer(
     sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
     tile_based_culling: bool = False,
     snapshot=None,
-    pairs=None,
 ):
     """PER_PIXEL_KBUFFER tiled render (16x16 binning tiles): every pixel
     resorts its tile's stream through a window of ``k`` entries by exact
@@ -125,16 +119,14 @@ def render_tiled_kbuffer(
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits),
     pairs, depth_acc [H, W]), as the JAX package's ``render_tiled_kbuffer``
-    does. ``snapshot`` and ``pairs`` as in ``render_tiled``.
+    does. ``snapshot`` as in ``render_tiled``.
     """
     grid_x, grid_y = tile_grid(image_width, image_height)
-    if pairs is None:
-        pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
-                            sort_order=sort_order,
-                            tile_based_culling=tile_based_culling,
-                            campos=campos, inverse_vp=inverse_vp,
-                            image_width=image_width,
-                            image_height=image_height)
+    pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
+                        sort_order=sort_order,
+                        tile_based_culling=tile_based_culling, campos=campos,
+                        inverse_vp=inverse_vp, image_width=image_width,
+                        image_height=image_height)
     rows = _rows(prep)
     cam = (prep.cov3d_inv9.detach().contiguous(),
            inverse_vp.detach().contiguous(), campos.detach().contiguous())
@@ -164,7 +156,6 @@ def render_tiled_hier(
     tile_based_culling: bool = False,
     hier_4x4_culling: bool = False,
     snapshot=None,
-    pairs=None,
 ):
     """HIERARCHICAL tiled render (16x16 binning tiles): every tile's stream
     cascades through the tail (4x4 sub-tile), mid (2x2 quad) and head (pixel)
@@ -173,17 +164,14 @@ def render_tiled_hier(
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits with
     alpha > 0), pairs, depth_acc [H, W]), as the JAX package's
-    ``render_tiled_hier`` does. ``snapshot`` and ``pairs`` as in
-    ``render_tiled``.
+    ``render_tiled_hier`` does. ``snapshot`` as in ``render_tiled``.
     """
     grid_x, grid_y = tile_grid(image_width, image_height)
-    if pairs is None:
-        pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
-                            sort_order=sort_order,
-                            tile_based_culling=tile_based_culling,
-                            campos=campos, inverse_vp=inverse_vp,
-                            image_width=image_width,
-                            image_height=image_height)
+    pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
+                        sort_order=sort_order,
+                        tile_based_culling=tile_based_culling, campos=campos,
+                        inverse_vp=inverse_vp, image_width=image_width,
+                        image_height=image_height)
     rows = _rows(prep)
     # The depths, the culling thresholds and the camera only choose the
     # cascade's order and validity: no gradient flows into them.

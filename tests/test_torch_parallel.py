@@ -11,7 +11,9 @@ torch thread each) runs every case once; the tests read its results:
   send to oneself (a one-rank ring) is a copy; the halo exchange moves both
   directions, forward and backward (exactly: every sum has one term);
 - ``hosts.initialize`` twice is a no-op; ``global_mesh`` and ``make_mesh``
-  shapes; an explicit ``init_method`` that fails raises; without CUDA and
+  shapes; an explicit ``init_method`` that fails raises, and so do a
+  ``world_size`` over 1 or a ``rank`` with no ``init_method`` and no
+  torchrun environment; without CUDA and
   without ``device="cpu"`` the entry points raise; ``hosts.launch``
   returns 1 when a rank fails and 0 when every rank returns;
 - one (2, 2) ("data", "gauss") step at 32x32 with P = 256 (each rank its
@@ -197,6 +199,18 @@ def test_entry_points_need_cuda_or_cpu_and_a_good_init_method():
         hosts.launch(print, 2)
     with pytest.raises((ValueError, RuntimeError)):
         hosts.initialize("bogus://nowhere", 2, 0, device="cpu")
+
+
+@pytest.mark.parametrize("world_size,rank", [(4, None), (4, 0), (None, 1)])
+def test_initialize_refuses_ranks_without_a_rendezvous(monkeypatch,
+                                                       world_size, rank):
+    # No init_method and no torchrun environment: no other rank could join,
+    # so a world of several ranks, or a rank, is an error, not a lone rank.
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="init_method"):
+        hosts.initialize(world_size=world_size, rank=rank, device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_launch_reports_a_failed_rank():
