@@ -8,7 +8,9 @@ Run from the root of the repository on a machine with one NVIDIA H100:
                                      # training steps in each mode (phases
                                      # train_profile, train_kb_profile,
                                      # train_hier_profile)
-    python3 chip_smoke.py --parallel-only  # the build and phase 23 alone,
+    python3 chip_smoke.py --tile-only      # the build and phase 23 alone;
+                                           # no last line
+    python3 chip_smoke.py --parallel-only  # the build and phase 24 alone,
                                            # one rank per card (a host of
                                            # several cards); no last line
 
@@ -46,7 +48,8 @@ Phases, one JSON line each; any failure exits non-zero:
      trace of 3 more steps:
      device busy time, idle share and the kernels that take the most time.
   6. train_cli: the training CLI at small size in GLOBAL (asked for: the
-     CLI defaults to HIER) — a NeRF-synthetic dataset of 8 renders of the
+     CLI defaults to HIER; at its default binning tile there, 32x16) — a
+     NeRF-synthetic dataset of 8 renders of the
      procedural scene at 200x200, a few hundred iterations of
      train/cli.py::main with densification and an opacity reset; eval PSNR
      rises, the Gaussian count changes, the PLY loads, only K1 and K2
@@ -139,7 +142,25 @@ Phases, one JSON line each; any failure exits non-zero:
      K1's kernel.
  22. snapshot: a debug=True render with bad inputs raises and writes a
      snapshot_fw equal to the inputs; a good one is bitwise the plain render.
- 23. parallel: the multi-device layer (stopthepop_tpu_torch/parallel/), one
+ 23. tile: the binning tile (render/pipeline.py), 32x16 (bench.py's and the
+     training CLI's GLOBAL default) beside 16x16. (a) A 70x45 scene at
+     32x16 (five 16x16 columns: the right column of binning tiles has no
+     second half): K1, K3, K5 and K7 on the split segments bitwise equal
+     to their plain versions, K2, K4 and K6 with two gradient planes
+     against theirs (K2 within 1e-4 of each column's largest value, K4
+     and K6 bitwise; two launches bitwise; the rows no tile reads zero).
+     (b) The same at the 1080p/500K bench frame, with the plain versions'
+     counts (K1's and K2's footprint-kept shares, the bounds at 32x16)
+     and each kernel's time at 32x16; K2, K4 and K6 with one plane of an
+     all-zero sub-tile map bitwise their calls without a map at 16x16.
+     (c) The GLOBAL image at 32x16 within 5e-5 of the 16x16 one and each
+     parameter's gradient within 1e-4 of its largest value; two full
+     backward passes at 32x16 bitwise. (d) The serving path (4 orbit
+     frames) and the training step (5 steps) in GLOBAL at 16x16 and
+     32x16, the steps in PPX_KBUFFER and HIER and the PPX_FULL frames at
+     32x16: pairs, frame and step ms and stages, launches, peak memory,
+     each path with the launch counts set to 0 just before it.
+ 24. parallel: the multi-device layer (stopthepop_tpu_torch/parallel/), one
      process per card through parallel/hosts.py::launch (spawned, NCCL, a
      file store); a rank that fails fails the phase. Each rank, on the bench
      model: (a) one ("data", "gauss") step, each rank with a target of its
@@ -164,11 +185,13 @@ Phases, one JSON line each; any failure exits non-zero:
      just after (K1, K3 or K5 once a band and frame; the forward and
      backward kernels once a step); ms a frame and a step, peak memory a
      rank.
- 24. the kernels line: each ported kernel with its launches on its main
+ 25. the kernels line: each ported kernel with its launches on its main
      path (the training steps of phase 5 for K1/K2, of phase 10 for K3/K4
      and of phase 14 for K6, the HIER frames of phase 12 for K5, the FULL
      frames of phase 16 for K7), its error against the plain version, its
-     time, the plain version's time and its bound on this card.
+     time, the plain version's time and its bound on this card; under
+     "at_tile" its time, error and launches at 32x16 (phase 23's steps,
+     the FULL frames for K7) and, for K1, K2, K4 and K6, its bound there.
 The line before the last is the card's name and power limit from nvidia-smi;
 the last line is {"ok": true, "device": {...}}.
 
@@ -265,6 +288,10 @@ TIMED_FRAMES = 4
 # (check d), and the ring's per-step pair capacity (the bench frame has
 # ~1.28M pairs a frame, so no step overflows it).
 PAR_BANDS, RING_CAPACITY = 4, 4_000_000
+# Phase tile: the binning tile of bench.py's and the training CLI's GLOBAL
+# default, and the fewest pairs a bench frame must emit at it (~0.83M
+# expected, 1.28M at 16x16).
+TILE, MIN_PAIRS_TILE = (32, 16), 500_000
 
 
 def emit(obj):
@@ -306,8 +333,35 @@ def blend_args(prep, pairs):
             prep.depth.contiguous())
 
 
-def prepare(scene_or_model, cam, width, height, tile_based_culling=False):
+def binned_pairs(prep, tile, tile_based_culling=False, width=None,
+                 height=None):
+    """The pairs of ``prep`` (a ``width`` x ``height`` frame, by default
+    the bench frame) on the grid of the binning tile ``tile``: (pairs, the
+    same pairs with the 16x16 blend tiles' ranges, render/pipeline.py's
+    BlendSegments of the split)."""
     from stopthepop_tpu_torch.render.duplicate import build_pairs
+    from stopthepop_tpu_torch.render.pipeline import (
+        split_binning_segments,
+        tile_grid,
+    )
+
+    width = WIDTH if width is None else width
+    height = HEIGHT if height is None else height
+
+    bgx, bgy = tile_grid(width, height, *tile)
+    pairs = build_pairs(prep, grid_x=bgx, grid_y=bgy,
+                        tile_based_culling=tile_based_culling,
+                        tile_x=tile[0], tile_y=tile[1])
+    segs = split_binning_segments(pairs.starts, pairs.ends, width, height,
+                                  tile[0] // 16, tile[1] // 16)
+    return pairs, pairs._replace(starts=segs.starts, ends=segs.ends), segs
+
+
+def prepare_binned(scene_or_model, cam, width, height, tile,
+                   tile_based_culling=False):
+    """Preprocess at the binning tile ``tile`` and build its pairs:
+    (prep, pairs, pairs with the blend tiles' ranges, BlendSegments, the
+    blend grid's keywords)."""
     from stopthepop_tpu_torch.render.pipeline import tile_grid
     from stopthepop_tpu_torch.render.preprocess import preprocess
 
@@ -319,11 +373,21 @@ def prepare(scene_or_model, cam, width, height, tile_based_culling=False):
         campos=cam.campos, tanfovx=cam.tanfovx, tanfovy=cam.tanfovy,
         image_width=width, image_height=height, sh_degree=3,
         rect_bounding=True, tight_opacity_bounding=True,
+        tile_x=tile[0], tile_y=tile[1],
     )
+    pairs, view, segs = binned_pairs(prep, tile, tile_based_culling, width,
+                                     height)
     gx, gy = tile_grid(width, height)
-    pairs = build_pairs(prep, grid_x=gx, grid_y=gy,
-                        tile_based_culling=tile_based_culling)
-    return prep, pairs, dict(grid_x=gx, grid_y=gy, width=width, height=height)
+    return prep, pairs, view, segs, dict(grid_x=gx, grid_y=gy, width=width,
+                                         height=height)
+
+
+def prepare(scene_or_model, cam, width, height, tile_based_culling=False):
+    """prepare_binned at 16x16 bins: (prep, pairs, the blend grid's
+    keywords)."""
+    prep, pairs, _, _, kw = prepare_binned(
+        scene_or_model, cam, width, height, (16, 16), tile_based_culling)
+    return prep, pairs, kw
 
 
 def model_arrays(model):
@@ -680,26 +744,29 @@ def psnr_stats(img, ref):
             "mean_abs": float(diff.mean()), "max_abs": float(diff.max())}
 
 
-def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev):
+def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev,
+                tile=(16, 16), min_pairs=MIN_PAIRS):
     """One serving path: a warm-up frame, then the orbit ``cams`` through
     render/cli.py::render_frames with every launch count set to 0 just
     before and read just after. Every frame is finite, not background and
-    has at least MIN_PAIRS pairs; ``kernel`` launched once a frame and no
-    other kernel at all. Then frame 0's stages (CUDA events): preprocess,
-    the pair build and ``blend(*args_fn(prep, pairs, cam))``. Returns the
-    phase's fields and the launch counts."""
+    has at least ``min_pairs`` pairs; ``kernel`` launched once a frame and
+    no other kernel at all. Then frame 0's stages (CUDA events):
+    preprocess, the pair build (on the grid of the binning tile ``tile``,
+    split over the 16x16 blend tiles) and
+    ``blend(*args_fn(prep, pairs, cam))``, ``pairs`` with the blend tiles'
+    ranges. Returns the phase's fields and the launch counts."""
     from stopthepop_tpu_torch.io.cameras import to_camera_arrays
     from stopthepop_tpu_torch.render.cli import render_frames
-    from stopthepop_tpu_torch.render.duplicate import build_pairs
-    from stopthepop_tpu_torch.render.pipeline import tile_grid
     from stopthepop_tpu_torch.render.preprocess import preprocess
 
-    render_frames(model, cams[:1], settings, dev)  # warm-up (allocator, cuBLAS)
+    tile_shape = None if tuple(tile) == (16, 16) else tuple(tile)
+    render_frames(model, cams[:1], settings, dev,
+                  tile_shape=tile_shape)  # warm-up (allocator, cuBLAS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    outs = render_frames(model, cams, settings, dev)
+    outs = render_frames(model, cams, settings, dev, tile_shape=tile_shape)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
@@ -709,7 +776,7 @@ def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev):
               f"frame {i} shape {tuple(o.color.shape)}")
         check(bool(torch.isfinite(o.color).all()), phase, f"frame {i} not finite")
         check(bool((o.color != 0.0).any()), phase, f"frame {i} is background")
-        check(o.num_rendered >= MIN_PAIRS, phase,
+        check(o.num_rendered >= min_pairs, phase,
               f"frame {i}: only {o.num_rendered} pairs")
     check(launches[kernel] == len(cams)
           and not any(n for k, n in launches.items() if k != kernel), phase,
@@ -717,7 +784,6 @@ def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev):
     pairs_per_frame = [o.num_rendered for o in outs]
     del outs
     cam0 = to_camera_arrays(cams[0], dev)
-    gx, gy = tile_grid(WIDTH, HEIGHT)
     with torch.inference_mode():
         a = model_arrays(model)
 
@@ -729,13 +795,12 @@ def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev):
                 campos=cam0.campos, tanfovx=cams[0].tanfovx,
                 tanfovy=cams[0].tanfovy, image_width=WIDTH,
                 image_height=HEIGHT, sh_degree=3, rect_bounding=True,
-                tight_opacity_bounding=True)
+                tight_opacity_bounding=True, tile_x=tile[0], tile_y=tile[1])
 
         stage = {"preprocess_ms": cuda_ms(pre, 10)}
         prep0 = pre()
-        stage["pairs_ms"] = cuda_ms(
-            lambda: build_pairs(prep0, grid_x=gx, grid_y=gy), 10)
-        args0 = args_fn(prep0, build_pairs(prep0, grid_x=gx, grid_y=gy), cam0)
+        stage["pairs_ms"] = cuda_ms(lambda: binned_pairs(prep0, tile), 10)
+        args0 = args_fn(prep0, binned_pairs(prep0, tile)[1], cam0)
         stage[f"{kernel}_ms"] = cuda_ms(lambda: blend(*args0), 20)
     return {"frames": len(cams), "width": WIDTH, "height": HEIGHT,
             "gaussians": NUM_GAUSSIANS, "pairs_per_frame": pairs_per_frame,
@@ -744,13 +809,15 @@ def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev):
             "peak_mem_gib": peak}, launches
 
 
-def train_phase(phase, model, static, cam, target, dev, kernels):
+def train_phase(phase, model, static, cam, target, dev, kernels,
+                render_kwargs=None, min_pairs=MIN_PAIRS):
     """The training path at full width in one sort mode: one warm-up step,
     then TRAIN_STEPS steps of train/trainer.py's step with every launch
     count set to 0 just before and read just after. The loss is finite and
     falls, each of ``kernels`` launched once a step and no other kernel at
-    all, every gradient finite and nonzero somewhere, at least MIN_PAIRS
-    pairs a step. Then the stages of 3 more steps (CUDA events). Returns the
+    all, every gradient finite and nonzero somewhere, at least
+    ``min_pairs`` pairs a step. Then the stages of 3 more steps (CUDA
+    events). ``render_kwargs`` go to the step (``tile_shape``). Returns the
     phase's fields, the densification stats and a function taking one more
     step (for the profiler)."""
     from stopthepop_tpu_torch.models.gaussians import PARAM_NAMES
@@ -758,7 +825,8 @@ def train_phase(phase, model, static, cam, target, dev, kernels):
 
     state = trainer.init_train_state(model, trainer.make_3dgs_optimizer(model))
     stats = trainer.init_densify_stats(model.num_gaussians, dev)
-    step_fn = trainer.make_train_step(static=static)
+    step_fn = trainer.make_train_step(static=static,
+                                      render_kwargs=render_kwargs)
     state, stats, _ = step_fn(state, cam, target, stats)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -782,13 +850,14 @@ def train_phase(phase, model, static, cam, target, dev, kernels):
         g = getattr(model, name).grad
         check(g is not None and bool(torch.isfinite(g).all())
               and bool((g != 0).any()), phase, f"gradient of {name}")
-    check(min(step_pairs) >= MIN_PAIRS, phase, f"pairs per step {step_pairs}")
+    check(min(step_pairs) >= min_pairs, phase, f"pairs per step {step_pairs}")
     stage = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
     reps = 3
     for _ in range(reps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        loss, _, _ = trainer.step_forward(state, cam, target, static=static)
+        loss, _, _ = trainer.step_forward(state, cam, target, static=static,
+                                          render_kwargs=render_kwargs)
         ev[1].record()
         trainer.step_backward(state, loss)
         ev[2].record()
@@ -1295,6 +1364,342 @@ def snapshot_phase(model, bench_cam):
             "snapshot_equals_inputs": equal, "debug_render_bitwise_plain": same}
 
 
+def unread_rows(segs, n_pairs):
+    """[S, N] bool: the rows of each plane that no blend tile's range
+    covers (the missing halves of the binning tiles at the right or bottom
+    edge), which a backward must leave at zero."""
+    S = segs.num_sub
+    edge = torch.zeros((S, n_pairs + 1), dtype=torch.int64,
+                       device=segs.starts.device)
+    sub = segs.sub_tile.to(torch.int64)
+    one = torch.ones_like(sub)
+    edge.index_put_((sub, segs.starts.to(torch.int64)), one, accumulate=True)
+    edge.index_put_((sub, segs.ends.to(torch.int64)), -one, accumulate=True)
+    return torch.cumsum(edge, dim=1)[:, :n_pairs] == 0
+
+
+def compare_planes(phase, name, wrapper, plain, bwd_args, kw, segs, *,
+                   bitwise, plain_kw=None):
+    """A backward kernel (K2, K4, K6) with the sub-tile planes of ``segs``
+    against its plain version on the same inputs: each gradient column of
+    the [S, N, 9] planes within K2_RTOL of its largest magnitude (and the
+    same bits where ``bitwise``), two launches with the same bits, and the
+    rows no blend tile reads zero. Returns (stats, the plain version's
+    extra outputs)."""
+    from stopthepop_tpu_torch.kernels.global_blend import GRAD_COLS
+
+    planes = {"sub_tile": segs.sub_tile, "num_sub": segs.num_sub}
+    before = wrapper.launches
+    got = wrapper(*bwd_args, **kw, **planes)
+    again = wrapper(*bwd_args, **kw, **planes)
+    torch.cuda.synchronize()
+    check(wrapper.launches == before + 2, phase,
+          f"{name}: launch counter did not move")
+    ref = plain(*bwd_args, **kw, **planes, **(plain_kw or {}))
+    extra = ()
+    if isinstance(ref, tuple):
+        ref, *extra = ref
+    n_pairs = got.shape[1]
+    unread = unread_rows(segs, n_pairs)
+    g2, r2 = got.reshape(-1, len(GRAD_COLS)), ref.reshape(-1, len(GRAD_COLS))
+    scale = r2.abs().amax(dim=0)
+    err = (g2 - r2).abs().amax(dim=0)
+    stats = {
+        "planes": segs.num_sub, "pairs": n_pairs,
+        "unread_rows": int(unread.sum()),
+        "unread_rows_zero": bool((got[unread] == 0).all()),
+        "max_abs_err": float(err.max()),
+        "max_abs_err_by_column": dict(zip(GRAD_COLS, err.tolist())),
+        "column_max": dict(zip(GRAD_COLS, scale.tolist())),
+        "finite": bool(torch.isfinite(got).all()),
+        "bitwise_repeat": bool(torch.equal(got, again)),
+        "bitwise_equal_plain": bool(torch.equal(got, ref)),
+    }
+    check(tuple(got.shape) == (segs.num_sub, n_pairs, len(GRAD_COLS))
+          and stats["finite"] and bool((err <= K2_RTOL * scale).all()),
+          phase, f"{name}: kernel disagrees: {stats}")
+    check(stats["bitwise_repeat"], phase, f"{name}: two launches differ")
+    check(stats["unread_rows_zero"], phase,
+          f"{name}: rows no tile reads are not zero")
+    check(stats["bitwise_equal_plain"] or not bitwise, phase,
+          f"{name}: not bitwise equal to its plain version: {stats}")
+    return stats, extra
+
+
+def one_plane_bits(phase, name, wrapper, bwd_args, kw):
+    """One plane through an all-zero sub-tile map gives the bits of the
+    call without a map (16x16 bins, where no two tiles share a segment)."""
+    num_tiles = kw["grid_x"] * kw["grid_y"]
+    zero = torch.zeros(num_tiles, dtype=torch.int32, device=bwd_args[0].device)
+    one = wrapper(*bwd_args, **kw, sub_tile=zero, num_sub=1)
+    none = wrapper(*bwd_args, **kw)
+    torch.cuda.synchronize()
+    same = one.shape[0] == 1 and torch.equal(one[0], none)
+    check(same, phase, f"{name}: one plane differs from no plane map")
+    return same
+
+
+def tile_phase(model, bench_cam, cams, small, static, target, cotangents,
+               dev):
+    """The binning tile: phase 23's checks and times (see the module
+    notes). Returns the phase's fields."""
+    from stopthepop_tpu_torch.config import SortMode
+    from stopthepop_tpu_torch.io.cameras import CameraArrays
+    from stopthepop_tpu_torch.kernels import full_blend as fb
+    from stopthepop_tpu_torch.kernels import global_blend as gb
+    from stopthepop_tpu_torch.kernels import hier_blend as hb
+    from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
+    from stopthepop_tpu_torch.kernels.blend_vjp import BlendGlobal
+    from stopthepop_tpu_torch.render.cli import render_model
+    from stopthepop_tpu_torch.utils.testing import make_camera
+
+    out = {"tile": list(TILE)}
+    hq = {"queue_sizes": HIER_QUEUES, "hier_4x4_culling": False}
+
+    def kernels_at(case, prep, view, segs, kw, cam, width, height, counts):
+        """K1-K7 on the split segments of one frame against their plain
+        versions; K2, K4 and K6 with two planes. ``counts``: also the
+        plain versions' event counts (the bench frame)."""
+        st = {}
+        args = blend_args(prep, view)
+        st["k1"] = compare_kernel(f"{case} K1", args, kw,
+                                  count_evaluations=counts)
+        fwd = gb.blend_global_forward(*args, **kw)
+        cot = cotangents(width, height)
+        k2_args = (*args[:6], fwd[0], fwd[1], fwd[2], *cot)
+        warps = {}
+        st["k2"], extra = compare_planes(
+            "tile", f"{case} K2", gb.blend_global_backward,
+            gb.blend_global_backward_plain, k2_args, kw, segs, bitwise=False,
+            plain_kw={"count_evaluations": True, "warp_counts": warps}
+            if counts else None)
+        if counts:
+            st["k2"].update(evaluations=extra[0], blends=extra[1], **warps,
+                            footprint_kept_share=kept_share(warps))
+        kargs = kb_args(prep, view, cam)
+        st["k3"], k3_out = compare_kb(f"{case} K3", kargs, kw, KB_K,
+                                      count_evaluations=counts)
+        k4_args = (*kargs, k3_out[0], k3_out[1], k3_out[2], *cot)
+        st["k4"], extra = compare_planes(
+            "tile", f"{case} K4", kb.blend_kbuffer_backward,
+            kb.blend_kbuffer_backward_plain, k4_args, {**kw, "k": KB_K}, segs,
+            bitwise=True, plain_kw={"count_evaluations": counts})
+        if counts:
+            st["k4"]["replay"] = extra[0]
+        hargs = hier_args(prep, view, cam)
+        hkw = {**kw, **hq}
+        st["k5"] = compare_hier(f"{case} K5", hargs, hkw,
+                                count_evaluations=counts)
+        k5_out = hb.blend_hier_forward(*hargs, **hkw)
+        k6_args = (*hargs, k5_out[0], k5_out[1], k5_out[2], *cot)
+        st["k6"], extra = compare_planes(
+            "tile", f"{case} K6", hb.blend_hier_backward,
+            hb.blend_hier_backward_plain, k6_args, hkw, segs, bitwise=True,
+            plain_kw={"count_evaluations": counts})
+        if counts:
+            st["k6"]["replay"] = extra[0]
+        st["k7"] = compare_full(f"{case} K7", kargs, kw,
+                                count_evaluations=counts)
+        return st, (args, k2_args, kargs, k4_args, hargs, k6_args)
+
+    # (a) The 70x45 scene: five 16x16 columns, so the right column of 32x16
+    # binning tiles has no second half on the image.
+    small_cam = make_camera(70, 45, device=dev)
+    with torch.no_grad():
+        prep, pairs, view, segs, kw = prepare_binned(small, small_cam, 70, 45,
+                                                     TILE)
+        check(segs.num_sub == 2 and kw["grid_x"] == 5, "tile",
+              "the 70x45 scene is not split over an odd width")
+        out["small"], _ = kernels_at("70x45", prep, view, segs, kw, small_cam,
+                                     70, 45, False)
+    out["small"]["pairs"] = pairs.num_rendered
+    check(out["small"]["k2"]["unread_rows"] > 0, "tile",
+          "the 70x45 scene has no missing half")
+
+    # (b) The bench frame at 32x16, and one plane at 16x16.
+    P = NUM_GAUSSIANS
+    with torch.no_grad():
+        prep, pairs, view, segs, kw = prepare_binned(
+            model_arrays(model), bench_cam, WIDTH, HEIGHT, TILE)
+        bench, (args, k2_args, kargs, k4_args, hargs,
+                k6_args) = kernels_at("1080p", prep, view, segs, kw,
+                                      bench_cam, WIDTH, HEIGHT, True)
+        planes = {"sub_tile": segs.sub_tile, "num_sub": segs.num_sub}
+        hkw = {**kw, **hq}
+        ms = {
+            "k1": cuda_ms(lambda: gb.blend_global_forward(*args, **kw), 20),
+            "k2": cuda_ms(lambda: gb.blend_global_backward(
+                *k2_args, **kw, **planes), 20),
+            "k3": cuda_ms(lambda: kb.blend_kbuffer_forward(
+                *kargs, k=KB_K, **kw), 20),
+            "k4": cuda_ms(lambda: kb.blend_kbuffer_backward(
+                *k4_args, k=KB_K, **kw, **planes), 20),
+            "k5": cuda_ms(lambda: hb.blend_hier_forward(*hargs, **hkw), 20),
+            "k6": cuda_ms(lambda: hb.blend_hier_backward(
+                *k6_args, **hkw, **planes), 20),
+            "k7": cuda_ms(lambda: fb.blend_full_forward(*kargs, **kw), 20),
+        }
+    N, T = pairs.num_rendered, kw["grid_x"] * kw["grid_y"]
+    S = segs.num_sub
+    k1 = bench["k1"]
+    bounds = {
+        "k1": bound_ms(4 * (N + 2 * T + P * 10 + WIDTH * HEIGHT * 6),
+                       OPS_PER_EVAL * k1["evaluations_kept"]
+                       + OPS_PER_BLEND * k1["blends"]),
+        "k2": bound_ms(4 * (N + 3 * T + P * 9 + WIDTH * HEIGHT * 9
+                            + S * N * 9),
+                       OPS_PER_EVAL * bench["k2"]["evaluations_kept"]
+                       + OPS_PER_BLEND_BWD * bench["k2"]["blends"]),
+        "k4": bound_ms(4 * (N + 3 * T + P * 18 + 19 + WIDTH * HEIGHT * 9
+                            + S * N * 9),
+                       OPS_PER_EVAL * bench["k4"]["replay"]["evaluations"]
+                       + OPS_PER_DEPTH * bench["k4"]["replay"]["depths"]
+                       + OPS_PER_INSERT_SLOT * KB_K
+                       * bench["k4"]["replay"]["inserts"]
+                       + OPS_PER_COMMIT_BWD * bench["k4"]["replay"]["commits"]),
+        "k6": bound_ms(4 * (N + 3 * T + P * 19 + 19 + WIDTH * HEIGHT * 9
+                            + S * N * 9),
+                       hier_ops(bench["k6"]["replay"], OPS_PER_COMMIT_BWD)),
+    }
+    with torch.no_grad():
+        prep16, pairs16, _, _, kw16 = prepare_binned(
+            model_arrays(model), bench_cam, WIDTH, HEIGHT, (16, 16))
+        a16 = blend_args(prep16, pairs16)
+        f16 = gb.blend_global_forward(*a16, **kw16)
+        cot = cotangents(WIDTH, HEIGHT)
+        k16 = kb_args(prep16, pairs16, bench_cam)
+        kf16 = kb.blend_kbuffer_forward(*k16, k=KB_K, **kw16)
+        h16 = hier_args(prep16, pairs16, bench_cam)
+        hf16 = hb.blend_hier_forward(*h16, **kw16, **hq)
+        one_plane = {
+            "k2": one_plane_bits("tile", "K2", gb.blend_global_backward,
+                                 (*a16[:6], *f16[:3], *cot), kw16),
+            "k4": one_plane_bits("tile", "K4", kb.blend_kbuffer_backward,
+                                 (*k16, *kf16[:3], *cot), {**kw16, "k": KB_K}),
+            "k6": one_plane_bits("tile", "K6", hb.blend_hier_backward,
+                                 (*h16, *hf16[:3], *cot), {**kw16, **hq}),
+        }
+    out["bench"] = {
+        "pairs": N, "pairs_16x16": pairs16.num_rendered,
+        "max_segment": int((pairs.ends - pairs.starts).max()),
+        "max_segment_16x16": int((pairs16.ends - pairs16.starts).max()),
+        "kernels": bench, "ms": ms,
+        "bound_ms": {k: max(b) for k, b in bounds.items()},
+        "bound_by": {k: "bytes" if b[0] >= b[1] else "operations"
+                     for k, b in bounds.items()},
+        "one_plane_bitwise_no_map": one_plane,
+        "k1_footprint_kept_share": k1["footprint_kept_share"],
+        "k2_footprint_kept_share": bench["k2"]["footprint_kept_share"],
+    }
+    del prep, pairs, view, segs, args, k2_args, kargs, k4_args, hargs, k6_args
+    del prep16, a16, f16, k16, kf16, h16, hf16
+
+    # (c) The GLOBAL image and gradients at 32x16 against 16x16, and two
+    # backward passes at 32x16 with the same bits.
+    from stopthepop_tpu_torch.models.gaussians import PARAM_NAMES
+
+    cam = CameraArrays(bench_cam.viewmatrix, bench_cam.projmatrix,
+                       bench_cam.inv_viewprojmatrix, bench_cam.campos)
+    w = cotangents(WIDTH, HEIGHT)[0]
+    imgs, grads = {}, {}
+    for name, tile in (("16x16", None), ("32x16", TILE)):
+        for p in PARAM_NAMES:
+            getattr(model, p).grad = None
+        color, _ = render_model(model, cam, static=static, tile_shape=tile)
+        (color * w).sum().backward()
+        imgs[name] = color.detach()
+        grads[name] = model_grads(model)
+    img_err = float((imgs["32x16"] - imgs["16x16"]).abs().max())
+    check(img_err <= 5e-5, "tile",
+          f"the 32x16 image is {img_err} from the 16x16 one")
+    grad_err = {
+        p: float((grads["32x16"][p] - grads["16x16"][p]).abs().max()
+                 / grads["16x16"][p].abs().max().clamp(min=1e-30))
+        for p in PARAM_NAMES}
+    check(max(grad_err.values()) <= K2_RTOL, "tile",
+          f"32x16 gradients against 16x16: {grad_err}")
+    del imgs, grads
+    with torch.no_grad():
+        prep, pairs, view, segs, kw = prepare_binned(
+            model_arrays(model), bench_cam, WIDTH, HEIGHT, TILE)
+    repeat = check_backward_repeats(
+        "tile", "BlendGlobal at 32x16", prep,
+        lambda *rows: BlendGlobal.apply(
+            *rows, prep.depth.detach().contiguous(), pairs, kw["grid_x"],
+            kw["grid_y"], WIDTH, HEIGHT, None, segs),
+        cotangents(WIDTH, HEIGHT))
+    del prep, pairs, view, segs
+    out["vs_16x16"] = {"image_max_abs_err": img_err,
+                       "grad_max_err_over_tensor_max": grad_err,
+                       "bitwise_repeat_backward_32x16": repeat}
+
+    # (d) Frames and steps at both bins, each path with the launch counts
+    # set to 0 just before it and read just after.
+    settings = static.settings
+    for name, tile in (("16x16", (16, 16)), ("32x16", TILE)):
+        kwargs = {"tile_shape": None if tile == (16, 16) else tile}
+        fields, _ = serve_phase(
+            f"tile_main_{name}", model, cams, settings, "k1",
+            lambda prep, pairs, cam: blend_args(prep, pairs),
+            functools.partial(gb.blend_global_forward, **kw16), dev,
+            tile=tile, min_pairs=MIN_PAIRS_TILE)
+        out[f"main_{name}"] = fields
+        for mode, ks in (("GLOBAL", ("k1", "k2")),
+                         ("PPX_KBUFFER", ("k3", "k4")),
+                         ("HIER", ("k5", "k6"))):
+            if mode != "GLOBAL" and tile == (16, 16):
+                continue  # phases 10 and 14
+            mode_static = static
+            if mode != "GLOBAL":
+                mode_settings = culled_settings(SortMode[mode])
+                mode_settings.sort_settings.queue_sizes.per_pixel = (
+                    KB_K if mode == "PPX_KBUFFER" else HIER_QUEUES[2])
+                mode_static = static._replace(settings=mode_settings)
+            fields, _, _ = train_phase(
+                f"tile_train_{mode}_{name}", model, mode_static, cam, target,
+                dev, ks, render_kwargs=kwargs, min_pairs=MIN_PAIRS_TILE)
+            out[f"train_{mode}_{name}"] = fields
+    # PPX_FULL serves at 32x16 too (K7 once a frame); phase 16 at 16x16.
+    out["main_full_32x16"], _ = serve_phase(
+        "tile_main_full_32x16", model, cams, culled_settings(SortMode.PPX_FULL),
+        "k7", kb_args, functools.partial(fb.blend_full_forward, **kw16), dev,
+        tile=TILE, min_pairs=MIN_PAIRS_TILE)
+    return out
+
+
+def tile_only(dev):
+    """Phase 23 with the inputs the run before it would make: the bench
+    model, the bench and orbit cameras, phase 2's 70x45 scene, phase 5's
+    settings and target and phase 4's cotangents. Returns its fields."""
+    from stopthepop_tpu_torch.config import GaussianRasterizationSettings
+    from stopthepop_tpu_torch.io.cameras import orbit_camera
+    from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+
+    scene = random_scene(0, 300, device=dev)
+    small = {"means3d": scene.means3d, "opacities": scene.opacities,
+             "scales": scene.scales, "rotations": scene.rotations,
+             "shs": scene.shs}
+    bench_cam = make_camera(WIDTH, HEIGHT, campos=(0.0, 0.0, -4.0), device=dev)
+    cams = [orbit_camera(2 * math.pi * i / FRAMES, math.radians(60.0), WIDTH,
+                         HEIGHT) for i in range(FRAMES)]
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def cotangents(width, height):
+        return (torch.randn((3, height, width), generator=gen, device=dev),
+                torch.randn((height, width), generator=gen, device=dev))
+
+    static = GaussianRasterizationSettings(
+        image_height=HEIGHT, image_width=WIDTH, tanfovx=bench_cam.tanfovx,
+        tanfovy=bench_cam.tanfovy, bg=torch.zeros(3, device=dev),
+        scale_modifier=1.0, viewmatrix=None, projmatrix=None,
+        inv_viewprojmatrix=None, sh_degree=3, campos=None, prefiltered=False,
+        settings=culled_settings())
+    target = torch.rand((3, HEIGHT, WIDTH), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    return tile_phase(bench_model(dev), bench_cam, cams, small, static, target,
+                      cotangents, dev)
+
+
 def parallel_settings(cam, mode):
     """Raster settings of the parallel phase for a camera with ``tanfovx``
     and ``tanfovy``: the bench culling, Z_DEPTH, ``mode`` with the default
@@ -1775,6 +2180,13 @@ def main(argv=None) -> int:
               for n, log in build.build_log.items()
           },
           "hier_occupancy": hier_occupancy()})
+    if "--tile-only" in args:
+        t0 = time.perf_counter()
+        fields = tile_only(dev)
+        emit({"phase": "tile", "ok": True, **fields,
+              "seconds": time.perf_counter() - t0, "card": card})
+        print(card)
+        return 0
     if "--parallel-only" in args:
         t0 = time.perf_counter()
         fields = parallel_phase(ROOT / "build" / "chip_smoke")
@@ -2376,11 +2788,34 @@ def main(argv=None) -> int:
     emit_phase("snapshot", lambda: snapshot_phase(model, bench_cam))
     del model
 
-    # 23. parallel: the multi-device layer, one process per card ------------------
+    # 23. tile: the binning tile, 32x16 beside 16x16 ------------------------------
+    model = bench_model(dev)
+    t0 = time.perf_counter()
+    tile = tile_phase(model, bench_cam, cams, small, static, target,
+                      cotangents, dev)
+    emit({"phase": "tile", "ok": True, **tile,
+          "seconds": time.perf_counter() - t0, "card": card})
+    del model
+
+    # 24. parallel: the multi-device layer, one process per card ------------------
     torch.cuda.empty_cache()
     emit_phase("parallel", lambda: parallel_phase(out_dir))
 
-    # 24. kernels -----------------------------------------------------------------
+    # 25. kernels -----------------------------------------------------------------
+    def at_tile(key, launches):
+        """A kernel's numbers at the 32x16 binning tile (phase 23)."""
+        bench = tile["bench"]
+        return {"tile": list(TILE), "ms": bench["ms"][key],
+                "launches": launches,
+                "max_abs_err": max(tile["small"][key].get(
+                    "max_abs_err", tile["small"][key].get("max_abs_err_color")),
+                    bench["kernels"][key].get(
+                        "max_abs_err",
+                        bench["kernels"][key].get("max_abs_err_color"))),
+                **({"bound_ms": bench["bound_ms"][key],
+                    "bound_by": bench["bound_by"][key]}
+                   if key in bench["bound_ms"] else {})}
+
     emit({"kernels": [{
         "name": global_blend.KERNEL, "route": "cuda",
         "source": global_blend.SOURCE, "replaces": global_blend.REPLACES,
@@ -2390,6 +2825,7 @@ def main(argv=None) -> int:
         "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "at_tile": at_tile("k1", tile["train_GLOBAL_32x16"]["launches"]["k1"]),
     }, {
         "name": global_blend.BWD_KERNEL, "route": "cuda",
         "source": global_blend.BWD_SOURCE, "replaces": global_blend.BWD_REPLACES,
@@ -2400,6 +2836,7 @@ def main(argv=None) -> int:
         "bound_ms": max(k2_bytes_ms, k2_ops_ms),
         "bound_by": "bytes" if k2_bytes_ms >= k2_ops_ms else "operations",
         "library_ms": None,
+        "at_tile": at_tile("k2", tile["train_GLOBAL_32x16"]["launches"]["k2"]),
     }, {
         "name": kb.KERNEL, "route": "cuda", "source": kb.SOURCE,
         "replaces": kb.REPLACES, "launches": train_kb["launches"]["k3"],
@@ -2411,6 +2848,8 @@ def main(argv=None) -> int:
         "bound_ms": max(k3_bytes_ms, k3_ops_ms),
         "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
         "library_ms": None,
+        "at_tile": at_tile(
+            "k3", tile["train_PPX_KBUFFER_32x16"]["launches"]["k3"]),
     }, {
         "name": kb.BWD_KERNEL, "route": "cuda", "source": kb.BWD_SOURCE,
         "replaces": kb.BWD_REPLACES,
@@ -2421,6 +2860,8 @@ def main(argv=None) -> int:
         "bound_ms": max(k4_bytes_ms, k4_ops_ms),
         "bound_by": "bytes" if k4_bytes_ms >= k4_ops_ms else "operations",
         "library_ms": None,
+        "at_tile": at_tile(
+            "k4", tile["train_PPX_KBUFFER_32x16"]["launches"]["k4"]),
     }, {
         "name": hb.KERNEL, "route": "cuda", "source": hb.SOURCE,
         "replaces": hb.REPLACES, "launches": serve_hier["k5"],
@@ -2430,6 +2871,7 @@ def main(argv=None) -> int:
         "bound_ms": max(k5_bytes_ms, k5_ops_ms),
         "bound_by": "bytes" if k5_bytes_ms >= k5_ops_ms else "operations",
         "library_ms": None,
+        "at_tile": at_tile("k5", tile["train_HIER_32x16"]["launches"]["k5"]),
     }, {
         "name": hb.BWD_KERNEL, "route": "cuda", "source": hb.BWD_SOURCE,
         "replaces": hb.BWD_REPLACES, "launches": train_hier["launches"]["k6"],
@@ -2439,6 +2881,7 @@ def main(argv=None) -> int:
         "bound_ms": max(k6_bytes_ms, k6_ops_ms),
         "bound_by": "bytes" if k6_bytes_ms >= k6_ops_ms else "operations",
         "library_ms": None,
+        "at_tile": at_tile("k6", tile["train_HIER_32x16"]["launches"]["k6"]),
     }, {
         "name": fb.KERNEL, "route": "cuda", "source": fb.SOURCE,
         "replaces": fb.REPLACES, "launches": serve_full["k7"],
@@ -2448,6 +2891,8 @@ def main(argv=None) -> int:
         "bound_ms": max(k7_bytes_ms, k7_ops_ms),
         "bound_by": "bytes" if k7_bytes_ms >= k7_ops_ms else "operations",
         "library_ms": None,
+        "at_tile": at_tile("k7",
+                           tile["main_full_32x16"]["launches"]["k7"]),
     }]})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",

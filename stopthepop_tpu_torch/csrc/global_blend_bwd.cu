@@ -29,14 +29,18 @@
 //     9 sums, pairing lane l with l ^ 16, l ^ 8, ..., l ^ 1 as a shuffle-down
 //     tree does; skipped, as a zero, where no lane of the warp blended the
 //     pair), then the 8 warp partials in warp order, from shared memory,
-//     once per group of 32 pairs. The sum goes to the pair's sorted slot:
-//     two runs give the same bits;
+//     once per group of 32 pairs. The sum goes to the pair's sorted slot in
+//     the block's plane of d_pair: two runs give the same bits;
 //   * the replay stops at the tile's largest n_contrib (1-based position in
 //     the segment of the last pair blended, as K1 writes it): no pair past it
 //     has a gradient. Its rows stay as the caller allocated them (zeros).
 //
-// Output: d_pair [N, 9] float32 in sorted-slot order, columns
-// (d_x, d_y, d_a, d_b, d_c, d_opacity, d_r, d_g, d_b).
+// Output: d_pair [S, N, 9] float32 in sorted-slot order, columns
+// (d_x, d_y, d_a, d_b, d_c, d_opacity, d_r, d_g, d_b). With a binning tile
+// of S 16x16 blend tiles (render/pipeline.py::split_binning_segments) the S
+// blocks of a binning tile replay the same segment, and block b writes
+// plane sub_tile[b], so no two blocks write one row; the caller sums the
+// planes in a fixed order. Without sub_tile (16x16 bins) S = 1.
 //
 // What bounds it on an H100: the same (pixel, pair) evaluations as K1, each
 // now about 3-4x K1's FP32 operations (replay, the alpha gradient and its
@@ -108,6 +112,8 @@ global_blend_bwd_kernel(const int* __restrict__ point_list,
                         const float* __restrict__ grad_color,
                         const float* __restrict__ grad_final_t,
                         int grid_x, int width, int height,
+                        const int* __restrict__ sub_tile,
+                        long long plane_floats,
                         float* __restrict__ d_pair) {
   __shared__ float2 s_xy[kBlock];
   __shared__ float4 s_co[kBlock];
@@ -160,6 +166,8 @@ global_blend_bwd_kernel(const int* __restrict__ point_list,
 
   const int start = starts[tile];
   const int count = min(ends[tile] - start, last);
+  float* __restrict__ d_out =
+      sub_tile == nullptr ? d_pair : d_pair + sub_tile[tile] * plane_floats;
 
   float T = 1.0f;
   float prefix = 0.0f;
@@ -258,7 +266,7 @@ global_blend_bwd_kernel(const int* __restrict__ point_list,
         const int c = idx - jj * kCols;
         float s = s_part[0][jj][c];
         for (int w = 1; w < kWarps; ++w) s = s + s_part[w][jj][c];
-        d_pair[static_cast<long long>(start + base + sub + jj) * kCols + c] = s;
+        d_out[static_cast<long long>(start + base + sub + jj) * kCols + c] = s;
       }
       __syncthreads();
     }
@@ -267,6 +275,8 @@ global_blend_bwd_kernel(const int* __restrict__ point_list,
 
 }  // namespace
 
+// sub_tile: [grid_x * grid_y] int32, each blend tile's plane of d_pair, or
+// null for one plane; num_pairs: N, the rows of a plane.
 extern "C" int stp_global_blend_bwd(const void* point_list, const void* starts,
                                     const void* ends, const void* xy,
                                     const void* conic_opacity, const void* rgb,
@@ -275,6 +285,7 @@ extern "C" int stp_global_blend_bwd(const void* point_list, const void* starts,
                                     const void* grad_color,
                                     const void* grad_final_t, int grid_x,
                                     int grid_y, int width, int height,
+                                    const void* sub_tile, int num_pairs,
                                     void* d_pair, void* stream) {
   const int num_tiles = grid_x * grid_y;
   if (num_tiles > 0) {
@@ -288,6 +299,8 @@ extern "C" int stp_global_blend_bwd(const void* point_list, const void* starts,
         static_cast<const int*>(n_contrib),
         static_cast<const float*>(grad_color),
         static_cast<const float*>(grad_final_t), grid_x, width, height,
+        static_cast<const int*>(sub_tile),
+        static_cast<long long>(num_pairs) * kCols,
         static_cast<float*>(d_pair));
   }
   return static_cast<int>(cudaGetLastError());

@@ -36,13 +36,15 @@
 //     in device memory; at each step's end the lanes that commit the same
 //     pair sum their terms in ascending lane order and add the sum into the
 //     pair's row once; after the replay each pair's 8 warp rows are added in
-//     warp order into d_pair[start + src]. Every order is fixed, so two
-//     runs give the same bits.
+//     warp order into d_pair[start + src] of the block's plane. Every order
+//     is fixed, so two runs give the same bits.
 //
-// Output: d_pair [N, 9] float32 in sorted-slot order, columns
+// Output: d_pair [S, N, 9] float32 in sorted-slot order, columns
 // (d_x, d_y, d_a, d_b, d_c, d_opacity, d_r, d_g, d_b). No gradient flows to
 // the inverse covariances, the camera or the culling thresholds: they only
-// choose the order and the validity.
+// choose the order and the validity. With a 32x16 binning tile (S = 2) the
+// two 16x16 blocks of a binning tile replay the same segment; block b takes
+// plane sub_tile[b] of d_pair and of the scratch. Without sub_tile S = 1.
 //
 // What bounds it on an H100: operations, as K5 (the replay: tail keys, the
 // per-quad mid keys and inserts, the per-pixel evaluations and head
@@ -120,6 +122,7 @@ hier_blend_bwd_kernel(Args a, const float* __restrict__ color,
                       const int* __restrict__ n_contrib,
                       const float* __restrict__ grad_color,
                       const float* __restrict__ grad_final_t,
+                      const int* __restrict__ sub_tile, int num_pairs,
                       float* __restrict__ scratch,
                       float* __restrict__ d_pair) {
   __shared__ Smem<true> sh;
@@ -129,11 +132,16 @@ hier_blend_bwd_kernel(Args a, const float* __restrict__ color,
   const int tile = blockIdx.x;
   const int start = a.starts[tile];
   const int count = a.ends[tile] - start;
+  // The segment's first row in the block's plane.
+  const long long row0 =
+      (sub_tile == nullptr ? 0LL
+                           : static_cast<long long>(sub_tile[tile]) * num_pairs) +
+      start;
 
   const int t = threadIdx.x;
   // The segment's rows: features [count][kFeat], then the per-warp sums
   // [kWarps][count][kCols].
-  float* rows = scratch + static_cast<long long>(start) * kPairFloats;
+  float* rows = scratch + row0 * kPairFloats;
   float4* feat = reinterpret_cast<float4*>(rows);
   float* acc = rows + count * kFeat;
   for (int i = t; i < kWarps * count * kCols; i += kBlock) acc[i] = 0.0f;
@@ -168,7 +176,7 @@ hier_blend_bwd_kernel(Args a, const float* __restrict__ color,
     float sum = acc[idx];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) sum = sum + acc[w * count * kCols + idx];
-    d_pair[static_cast<long long>(start) * kCols + idx] = sum;
+    d_pair[row0 * kCols + idx] = sum;
   }
 }
 
@@ -176,7 +184,8 @@ template <int MID_MAX, int HEAD_MAX>
 cudaError_t launch(const Args& a, int num_tiles, const void* color,
                    const void* final_t, const void* n_contrib,
                    const void* grad_color, const void* grad_final_t,
-                   void* scratch, void* d_pair, cudaStream_t stream) {
+                   const void* sub_tile, int num_pairs, void* scratch,
+                   void* d_pair, cudaStream_t stream) {
   cudaError_t err =
       set_tail(hier_blend_bwd_kernel<MID_MAX, HEAD_MAX>, a.kt);
   if (err != cudaSuccess) return err;
@@ -187,6 +196,7 @@ cudaError_t launch(const Args& a, int num_tiles, const void* color,
           static_cast<const int*>(n_contrib),
           static_cast<const float*>(grad_color),
           static_cast<const float*>(grad_final_t),
+          static_cast<const int*>(sub_tile), num_pairs,
           static_cast<float*>(scratch), static_cast<float*>(d_pair));
   return cudaGetLastError();
 }
@@ -198,9 +208,11 @@ cudaError_t launch(const Args& a, int num_tiles, const void* color,
   X(20, 16)
 
 // mid_max / head_max: the instantiation (mid in 8, 12, 20; head in 4, 8, 16),
-// km <= mid_max, kh <= head_max; kt in 1..512. scratch: [N, 80] float32, one
-// row of features and per-warp sums a pair (written before it is read; no
-// initial value needed).
+// km <= mid_max, kh <= head_max; kt in 1..512. sub_tile: [grid_x * grid_y]
+// int32, each blend tile's plane, or null for one plane; num_pairs: N, the
+// rows of a plane. scratch: [S, N, 80] float32, one row of features and
+// per-warp sums a pair (written before it is read; no initial value
+// needed); d_pair: [S, N, 9].
 extern "C" int stp_hier_blend_bwd(
     const void* point_list, const void* starts, const void* ends,
     const void* xy, const void* conic_opacity, const void* rgb,
@@ -208,8 +220,8 @@ extern "C" int stp_hier_blend_bwd(
     float ndc_sy, int kt, int km, int kh, int mid_max, int head_max,
     int culling, const void* color, const void* final_t,
     const void* n_contrib, const void* grad_color, const void* grad_final_t,
-    int grid_x, int grid_y, int width, int height, void* scratch,
-    void* d_pair, void* stream) {
+    int grid_x, int grid_y, int width, int height, const void* sub_tile,
+    int num_pairs, void* scratch, void* d_pair, void* stream) {
   const int num_tiles = grid_x * grid_y;
   if (kt < 1 || kt > kTailMax || km < 1 || km > mid_max || kh < 1 ||
       kh > head_max) {
@@ -231,7 +243,8 @@ extern "C" int stp_hier_blend_bwd(
   if (mid_max == M && head_max == H)                                        \
     return static_cast<int>(launch<M, H>(a, num_tiles, color, final_t,      \
                                          n_contrib, grad_color,             \
-                                         grad_final_t, scratch, d_pair, st));
+                                         grad_final_t, sub_tile, num_pairs, \
+                                         scratch, d_pair, st));
   STP_INSTANCES(STP_LAUNCH)
 #undef STP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

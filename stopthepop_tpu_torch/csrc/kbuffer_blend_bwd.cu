@@ -33,11 +33,14 @@
 //     scratch in device memory (which also holds the pair's xy and conic for
 //     the commits): one independent read-modify-write a distinct pair and
 //     step. After the replay each pair's 8 warp rows are added in warp order
-//     into d_pair[start + src]. Every slot of the tile is written and every
-//     order is fixed, so two runs give the same bits.
+//     into d_pair[start + src] of the block's plane. Every slot of the tile
+//     is written and every order is fixed, so two runs give the same bits.
 //
-// Output: d_pair [N, 9] float32 in sorted-slot order, columns
-// (d_x, d_y, d_a, d_b, d_c, d_opacity, d_r, d_g, d_b).
+// Output: d_pair [S, N, 9] float32 in sorted-slot order, columns
+// (d_x, d_y, d_a, d_b, d_c, d_opacity, d_r, d_g, d_b). With a 32x16
+// binning tile (S = 2) the two 16x16 blocks of a binning tile replay the
+// same segment; block b takes plane sub_tile[b] of d_pair and of the
+// scratch, so no two blocks share a row. Without sub_tile S = 1.
 //
 // What bounds it on an H100: the replay (K3's evaluations, depths, inserts
 // and pops) plus about 45 FP32 operations for each commit (the alpha
@@ -92,6 +95,7 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
                          const float* __restrict__ grad_color,
                          const float* __restrict__ grad_final_t,
                          int grid_x, int width, int height,
+                         const int* __restrict__ sub_tile, int num_pairs,
                          float* __restrict__ scratch,
                          float* __restrict__ d_pair) {
   __shared__ float2 s_xy[kBlock];
@@ -113,10 +117,15 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
 
   const int start = starts[tile];
   const int count = ends[tile] - start;
+  // The segment's first row in the block's plane.
+  const long long row0 =
+      (sub_tile == nullptr ? 0LL
+                           : static_cast<long long>(sub_tile[tile]) * num_pairs) +
+      start;
 
   // The segment's rows: features [count][kFeat], then the per-warp sums
   // [kWarps][count][kCols].
-  float* rows = scratch + static_cast<long long>(start) * kPairFloats;
+  float* rows = scratch + row0 * kPairFloats;
   float4* feat = reinterpret_cast<float4*>(rows);
   float* acc = rows + count * kFeat;
   for (int i = t; i < kWarps * count * kCols; i += kBlock) acc[i] = 0.0f;
@@ -305,7 +314,7 @@ kbuffer_blend_bwd_kernel(const int* __restrict__ point_list,
     float sum = acc[idx];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) sum = sum + acc[w * count * kCols + idx];
-    d_pair[static_cast<long long>(start) * kCols + idx] = sum;
+    d_pair[row0 * kCols + idx] = sum;
   }
 }
 
@@ -317,7 +326,8 @@ cudaError_t launch(const void* point_list, const void* starts,
                    const void* final_t, const void* n_contrib,
                    const void* grad_color, const void* grad_final_t,
                    int num_tiles, int grid_x, int width, int height,
-                   void* scratch, void* d_pair, cudaStream_t stream) {
+                   const void* sub_tile, int num_pairs, void* scratch,
+                   void* d_pair, cudaStream_t stream) {
   kbuffer_blend_bwd_kernel<MAX_K><<<num_tiles, kBlock, 0, stream>>>(
       static_cast<const int*>(point_list), static_cast<const int*>(starts),
       static_cast<const int*>(ends), static_cast<const float2*>(xy),
@@ -328,6 +338,7 @@ cudaError_t launch(const void* point_list, const void* starts,
       static_cast<const int*>(n_contrib),
       static_cast<const float*>(grad_color),
       static_cast<const float*>(grad_final_t), grid_x, width, height,
+      static_cast<const int*>(sub_tile), num_pairs,
       static_cast<float*>(scratch), static_cast<float*>(d_pair));
   return cudaGetLastError();
 }
@@ -335,15 +346,18 @@ cudaError_t launch(const void* point_list, const void* starts,
 }  // namespace
 
 // max_k: the instantiation (one of 1, 2, 4, 8, 12, 16, 20, 24), k <= max_k.
-// scratch: [N, 80] float32, one row of features and per-warp sums a pair
-// (written before it is read; no initial value needed).
+// sub_tile: [grid_x * grid_y] int32, each blend tile's plane, or null for
+// one plane; num_pairs: N, the rows of a plane. scratch: [S, N, 80] float32,
+// one row of features and per-warp sums a pair (written before it is read;
+// no initial value needed); d_pair: [S, N, 9].
 extern "C" int stp_kbuffer_blend_bwd(
     const void* point_list, const void* starts, const void* ends,
     const void* xy, const void* conic_opacity, const void* rgb,
     const void* inv9, const void* cam, float ndc_sx, float ndc_sy, int k,
     int max_k, const void* color, const void* final_t, const void* n_contrib,
     const void* grad_color, const void* grad_final_t, int grid_x, int grid_y,
-    int width, int height, void* scratch, void* d_pair, void* stream) {
+    int width, int height, const void* sub_tile, int num_pairs, void* scratch,
+    void* d_pair, void* stream) {
   const int num_tiles = grid_x * grid_y;
   if (k < 1 || k > max_k) return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles == 0) return 0;
@@ -353,7 +367,8 @@ extern "C" int stp_kbuffer_blend_bwd(
     return static_cast<int>(launch<MK>(                                       \
         point_list, starts, ends, xy, conic_opacity, rgb, inv9, cam, ndc_sx,  \
         ndc_sy, k, color, final_t, n_contrib, grad_color, grad_final_t,       \
-        num_tiles, grid_x, width, height, scratch, d_pair, s));
+        num_tiles, grid_x, width, height, sub_tile, num_pairs, scratch,      \
+        d_pair, s));
   switch (max_k) {
     STP_LAUNCH(1)
     STP_LAUNCH(2)

@@ -5,8 +5,9 @@
 // A pixel commits pair src at a step of its replay that differs from pixel
 // to pixel, so K2's fixed tree at a stream position does not apply. Instead
 // each (tile, warp) owns private rows acc[warp][src][9] for every pair of the
-// tile's segment, in the tile's own rows [start, end) of a scratch in device
-// memory, 320 bytes a pair: the pair's xy and conic+opacity (8 floats, read
+// tile's segment, in the tile's own rows [start, end) of its plane of a
+// scratch in device memory (one plane a sub-tile of the binning tile, so the
+// blend tiles that share a segment share no row), 320 bytes a pair: the pair's xy and conic+opacity (8 floats, read
 // at commit time for any src) and the 8 warps' rows of 9 sums, [count][8]
 // features then [kWarps][count][kCols] sums, which each kernel zeroes and
 // fills before its replay. A lane commits at most once a step. At the step's
@@ -16,7 +17,7 @@
 // group's terms in ascending lane order, then the sum into the pair's row:
 // one independent read-modify-write a distinct pair and step. After the
 // replay each kernel adds each pair's 8 warp rows in warp order into
-// d_pair[start + src]. Every slot of the tile is written (zero where no
+// d_pair[start + src] of the tile's plane. Every slot of the tile is written (zero where no
 // pixel committed the pair) and every order is fixed, so two runs give the
 // same bits. The plain versions follow the same order
 // (kernels/kbuffer_blend.py::_route_grouped and _pair_sums).

@@ -30,14 +30,24 @@ package.
 ``cov3d_inv9`` and the camera, ``opacity_power_threshold`` (the 4x4 culling
 test) gets no gradient: it only decides which entries are valid.
 
-Each Function takes a last, optional ``snapshot``: the (host arrays,
+Each Function takes an optional ``snapshot``: the (host arrays,
 settings) of a ``debug=True`` render. Its backward then copies the
 cotangents to the host before the kernel launches, and a backward that
 raises writes them with the arrays to snapshot_bw.npz
 (``utils/snapshot.py``) before re-raising.
+
+And a last, optional ``segs`` (``BlendSegments``): the 16x16 blend tiles'
+ranges when the binning tile is larger (render/pipeline.py::
+split_binning_segments). Blend tiles that share their binning tile's
+segment then write their per-pair gradients into planes of their own
+(kernels K2, K4 and K6 take the sub-tile map), and ``sum_planes`` adds the
+planes in plane order before step 2: no two tiles write one row, and the
+order stays fixed (the JAX package's ``grad_row_split``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -59,6 +69,34 @@ def _backward(ctx, grad_color, grad_final_t, run):
         return run()
 
 
+class BlendSegments(NamedTuple):
+    """The pair ranges the 16x16 blend tiles read, and their planes."""
+    starts: torch.Tensor              # [T] int32 per-blend-tile range start
+    ends: torch.Tensor                # [T] int32 per-blend-tile range end
+    sub_tile: Optional[torch.Tensor]  # [T] int32 plane of each tile, or None
+    num_sub: int                      # planes: blend tiles a binning tile
+
+
+def _ranges(pairs, segs):
+    """(starts, ends, plane keywords of the backward wrappers)."""
+    if segs is None:
+        return pairs.starts, pairs.ends, {}
+    return segs.starts, segs.ends, (
+        {} if segs.sub_tile is None
+        else {"sub_tile": segs.sub_tile, "num_sub": segs.num_sub})
+
+
+def sum_planes(d_pair):
+    """[S, N, 9] per-sub-tile gradient planes -> [N, 9], added in plane
+    order 0..S-1; an [N, 9] input is returned as it is."""
+    if d_pair.dim() == 2:
+        return d_pair
+    total = d_pair[0]
+    for s in range(1, d_pair.shape[0]):
+        total = total + d_pair[s]
+    return total
+
+
 def reduce_pair_grads(d_pair, orig_slot, gauss_offsets):
     """Per-pair gradients in sorted-slot order -> per-Gaussian sums [P, 9]."""
     d_exp = torch.empty_like(d_pair)
@@ -73,15 +111,16 @@ class BlendGlobal(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xy, conic_opacity, rgb, depth, pairs, grid_x, grid_y,
-                width, height, snapshot=None):
+                width, height, snapshot=None, segs=None):
         kw = dict(grid_x=grid_x, grid_y=grid_y, width=width, height=height)
+        starts, ends, planes = _ranges(pairs, segs)
         color, final_t, n_contrib, depth_acc = blend_global_forward(
-            pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
-            depth, **kw)
+            pairs.gauss_id, starts, ends, xy, conic_opacity, rgb, depth, **kw)
         ctx.save_for_backward(xy, conic_opacity, rgb, color, final_t,
                               n_contrib)
         ctx.pairs = pairs
-        ctx.kw = kw
+        ctx.ranges = (starts, ends)
+        ctx.kw = {**kw, **planes}
         ctx.snapshot = snapshot
         ctx.mark_non_differentiable(n_contrib, depth_acc)
         return color, final_t, n_contrib, depth_acc
@@ -93,11 +132,12 @@ class BlendGlobal(torch.autograd.Function):
         # Autograd hands zeros for an unused output (materialize_grads).
         d_pair = _backward(
             ctx, grad_color, grad_final_t, lambda: blend_global_backward(
-                pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
+                pairs.gauss_id, *ctx.ranges, xy, conic_opacity, rgb,
                 color, final_t, n_contrib, grad_color.contiguous(),
                 grad_final_t.contiguous(), **ctx.kw))
-        d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
-        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 7
+        d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
+                              pairs.gauss_offsets)
+        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 8
 
 
 class BlendKBuffer(torch.autograd.Function):
@@ -107,16 +147,19 @@ class BlendKBuffer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xy, conic_opacity, rgb, cov3d_inv9, inverse_vp, campos,
-                pairs, k, grid_x, grid_y, width, height, snapshot=None):
+                pairs, k, grid_x, grid_y, width, height, snapshot=None,
+                segs=None):
         kw = dict(k=k, grid_x=grid_x, grid_y=grid_y, width=width,
                   height=height)
+        starts, ends, planes = _ranges(pairs, segs)
         color, final_t, n_contrib, depth_acc = blend_kbuffer_forward(
-            pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
+            pairs.gauss_id, starts, ends, xy, conic_opacity, rgb,
             cov3d_inv9, inverse_vp, campos, **kw)
         ctx.save_for_backward(xy, conic_opacity, rgb, cov3d_inv9, inverse_vp,
                               campos, color, final_t, n_contrib)
         ctx.pairs = pairs
-        ctx.kw = kw
+        ctx.ranges = (starts, ends)
+        ctx.kw = {**kw, **planes}
         ctx.snapshot = snapshot
         ctx.mark_non_differentiable(n_contrib, depth_acc)
         return color, final_t, n_contrib, depth_acc
@@ -128,11 +171,12 @@ class BlendKBuffer(torch.autograd.Function):
         pairs = ctx.pairs
         d_pair = _backward(
             ctx, grad_color, grad_final_t, lambda: blend_kbuffer_backward(
-                pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
+                pairs.gauss_id, *ctx.ranges, xy, conic_opacity, rgb,
                 cov3d_inv9, inverse_vp, campos, color, final_t, n_contrib,
                 grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw))
-        d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
-        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 10
+        d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
+                              pairs.gauss_offsets)
+        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 11
 
 
 class BlendHier(torch.autograd.Function):
@@ -145,17 +189,19 @@ class BlendHier(torch.autograd.Function):
     def forward(ctx, xy, conic_opacity, rgb, cov3d_inv9,
                 opacity_power_threshold, inverse_vp, campos, pairs,
                 queue_sizes, hier_4x4_culling, grid_x, grid_y, width, height,
-                snapshot=None):
+                snapshot=None, segs=None):
         kw = dict(queue_sizes=queue_sizes, hier_4x4_culling=hier_4x4_culling,
                   grid_x=grid_x, grid_y=grid_y, width=width, height=height)
+        starts, ends, planes = _ranges(pairs, segs)
         color, final_t, n_contrib, depth_acc = blend_hier_forward(
-            pairs.gauss_id, pairs.starts, pairs.ends, xy, conic_opacity, rgb,
+            pairs.gauss_id, starts, ends, xy, conic_opacity, rgb,
             cov3d_inv9, opacity_power_threshold, inverse_vp, campos, **kw)
         ctx.save_for_backward(xy, conic_opacity, rgb, cov3d_inv9,
                               opacity_power_threshold, inverse_vp, campos,
                               color, final_t, n_contrib)
         ctx.pairs = pairs
-        ctx.kw = kw
+        ctx.ranges = (starts, ends)
+        ctx.kw = {**kw, **planes}
         ctx.snapshot = snapshot
         ctx.mark_non_differentiable(n_contrib, depth_acc)
         return color, final_t, n_contrib, depth_acc
@@ -165,7 +211,8 @@ class BlendHier(torch.autograd.Function):
         pairs = ctx.pairs
         d_pair = _backward(
             ctx, grad_color, grad_final_t, lambda: blend_hier_backward(
-                pairs.gauss_id, pairs.starts, pairs.ends, *ctx.saved_tensors,
+                pairs.gauss_id, *ctx.ranges, *ctx.saved_tensors,
                 grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw))
-        d = reduce_pair_grads(d_pair, pairs.orig_slot, pairs.gauss_offsets)
-        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 12
+        d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
+                              pairs.gauss_offsets)
+        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 13

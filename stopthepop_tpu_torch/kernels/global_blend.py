@@ -28,6 +28,12 @@ background), final_T [H, W], n_contrib [H, W] int32 (1-based position in the
 tile's segment of the last pair blended), depth_acc [H, W]. K2 takes the same rows, the saved forward output and
 its cotangents, and returns d_pair [N, 9] in sorted-slot order (see
 ``blend_global_backward``).
+
+Binning tiles larger than 16x16 (``render/pipeline.py``) give several
+blend tiles the same segment: ``starts``/``ends`` then repeat the parent's
+range, and K2 takes ``sub_tile`` [T] int32, each blend tile's plane of a
+d_pair [S, N, 9], so that the tiles that share a segment write disjoint rows
+(``blend_vjp.sum_planes`` adds the planes in order). K1 needs nothing more.
 """
 
 from __future__ import annotations
@@ -78,7 +84,7 @@ def bind_bwd(lib):
     """K2's C entry point in a loaded library, typed."""
     fn = lib.stp_global_blend_bwd
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -141,6 +147,29 @@ def _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, depth,
             raise ValueError(f"{name} must be contiguous")
     if point_list.dim() != 1:
         raise ValueError("point_list must be 1-D")
+
+
+def check_planes(sub_tile, num_sub: int, num_tiles: int, device):
+    """Validate a backward's ``sub_tile`` [T] int32 and plane count."""
+    if sub_tile is None:
+        if num_sub != 1:
+            raise ValueError(f"num_sub={num_sub} needs a sub_tile map")
+        return
+    if num_sub < 1:
+        raise ValueError(f"num_sub must be at least 1, got {num_sub}")
+    if sub_tile.device != device:
+        raise ValueError(f"sub_tile is on {sub_tile.device}, xy on {device}")
+    if sub_tile.dtype != torch.int32:
+        raise TypeError(f"sub_tile must be torch.int32, got {sub_tile.dtype}")
+    if tuple(sub_tile.shape) != (num_tiles,) or not sub_tile.is_contiguous():
+        raise ValueError(f"sub_tile must be a contiguous ({num_tiles},) "
+                         f"tensor, got {tuple(sub_tile.shape)}")
+
+
+def plane_rows(d_planes, sub_tile):
+    """The caller's view of a backward's [S, N, 9] planes: [N, 9] when no
+    ``sub_tile`` map was given (one plane), else the planes."""
+    return d_planes[0] if sub_tile is None else d_planes
 
 
 def _check_backward_inputs(color, final_t, n_contrib, grad_color,
@@ -310,7 +339,7 @@ def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
 def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
                           color, final_t, n_contrib, grad_color, grad_final_t,
                           *, grid_x: int, grid_y: int, width: int,
-                          height: int):
+                          height: int, sub_tile=None, num_sub: int = 1):
     """Per-pair gradients of K1's color and final_T (kernel K2).
 
     Takes K1's inputs (without depth), its saved outputs ``color`` (raw,
@@ -319,7 +348,10 @@ def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
     d_pair [N, 9] float32 in sorted-slot order, columns ``GRAD_COLS``: the
     gradient with respect to the pair's x, y, conic a, b, c, opacity and
     r, g, b, summed over the tile's pixels. Rows past a tile's last
-    contributor are zero. CUDA tensors go to kernel K2 (counted in
+    contributor are zero. With ``sub_tile`` [T] int32 (tiles that share a
+    segment, see the module notes) it returns [num_sub, N, 9]: tile t's
+    sums in plane ``sub_tile[t]``, zero where no tile of a plane reads a
+    segment. CUDA tensors go to kernel K2 (counted in
     ``blend_global_backward.launches``); CPU tensors to the plain version.
     """
     _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, None,
@@ -327,18 +359,21 @@ def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
     dev = xy.device
     _check_backward_inputs(color, final_t, n_contrib, grad_color,
                            grad_final_t, width, height, dev)
+    check_planes(sub_tile, num_sub, grid_x * grid_y, dev)
     if dev.type == "cpu":
         return blend_global_backward_plain(
             point_list, starts, ends, xy, conic_opacity, rgb, color, final_t,
             n_contrib, grad_color, grad_final_t,
             grid_x=grid_x, grid_y=grid_y, width=width, height=height,
+            sub_tile=sub_tile, num_sub=num_sub,
         )
     if dev.type != "cuda":
         raise ValueError(f"no blend kernel for device {dev}")
     if xy.data_ptr() % 8 or conic_opacity.data_ptr() % 16:
         raise ValueError("xy must be 8-byte and conic_opacity 16-byte aligned")
     fn = _bind_bwd()
-    d_pair = torch.zeros((point_list.shape[0], len(GRAD_COLS)),
+    n_pairs = point_list.shape[0]
+    d_pair = torch.zeros((num_sub, n_pairs, len(GRAD_COLS)),
                          dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
@@ -346,12 +381,14 @@ def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
         xy.data_ptr(), conic_opacity.data_ptr(), rgb.data_ptr(),
         color.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
         grad_color.data_ptr(), grad_final_t.data_ptr(),
-        grid_x, grid_y, width, height, d_pair.data_ptr(), stream,
+        grid_x, grid_y, width, height,
+        None if sub_tile is None else sub_tile.data_ptr(), n_pairs,
+        d_pair.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError_t {err}")
     blend_global_backward.launches += 1
-    return d_pair
+    return plane_rows(d_pair, sub_tile)
 
 
 blend_global_backward.launches = 0
@@ -377,6 +414,7 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
                                 rgb, color, final_t, n_contrib, grad_color,
                                 grad_final_t, *, grid_x: int, grid_y: int,
                                 width: int, height: int,
+                                sub_tile=None, num_sub: int = 1,
                                 count_evaluations: bool = False,
                                 warp_counts: dict | None = None,
                                 footprint_cull: bool = False):
@@ -393,8 +431,10 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
     dev = xy.device
     T_tiles = grid_x * grid_y
     n_pairs = point_list.shape[0]
-    d_pair = torch.zeros((n_pairs, len(GRAD_COLS)), dtype=torch.float32,
-                         device=dev)
+    d_pair = torch.zeros((num_sub, n_pairs, len(GRAD_COLS)),
+                         dtype=torch.float32, device=dev)
+    plane = (torch.zeros(T_tiles, dtype=torch.int64, device=dev)
+             if sub_tile is None else sub_tile.to(torch.int64))
     inside = pack_image(torch.ones((height, width), dtype=torch.bool,
                                    device=dev), grid_x, grid_y)
     g = pack_image(grad_color, grid_x, grid_y)          # [3, T, 256]
@@ -451,7 +491,7 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
             w * g[2],
         ])  # [9, T, 256]
         sums = _warp_tree_sum(torch.where(blend, vals, zero))  # [9, T]
-        d_pair[pos[live]] = sums.T[live]
+        d_pair[plane[live], pos[live]] = sums.T[live]
         T = torch.where(blend, test_t, T)
         done = done | stop
         if count_evaluations:
@@ -462,6 +502,7 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
     if warp_counts is not None:
         warps.close()
         warp_counts.update(warps.counts)
+    d_pair = plane_rows(d_pair, sub_tile)
     if count_evaluations:
         return d_pair, evaluations, blends
     return d_pair

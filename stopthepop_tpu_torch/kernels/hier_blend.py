@@ -63,7 +63,8 @@ u = Sigma^-1 (mean - campos)), ``opacity_power_threshold`` [P]
 ``campos`` [3] (float32), and the queue sizes (kt, km, kh). Outputs:
 color [3, H, W] (raw; the caller composites the background), final_T
 [H, W], n_contrib [H, W] int32, depth_acc [H, W]. K6 returns d_pair
-[N, 9] in sorted-slot order, columns ``GRAD_COLS``.
+[N, 9] in sorted-slot order, columns ``GRAD_COLS``; with a ``sub_tile`` map
+(a 32x16 binning tile) [S, N, 9], one plane a sub-tile, as K4.
 """
 
 from __future__ import annotations
@@ -90,11 +91,12 @@ from .global_blend import (
     _check_backward_inputs,
     _check_inputs,
     _tile_pixel_coords,
+    check_planes,
     pack_image,
+    plane_rows,
     unpack_image,
 )
 from .kbuffer_blend import (
-    SCRATCH_FLOATS,
     _check_float_rows,
     _commit_terms,
     _cuda_prelude,
@@ -103,6 +105,7 @@ from .kbuffer_blend import (
     _route_grouped,
     _shift_out,
     _warp_rows,
+    backward_buffers,
 )
 
 KERNEL = "hier_blend_fwd"
@@ -146,7 +149,8 @@ def bind(lib, backward=False):
         fn = lib.stp_hier_blend_bwd
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 2
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 3)
     else:
         fn = lib.stp_hier_blend_fwd
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 2
@@ -498,7 +502,8 @@ def blend_hier_backward(point_list, starts, ends, xy, conic_opacity, rgb,
                         cov3d_inv9, opacity_power_threshold, inverse_vp,
                         campos, color, final_t, n_contrib, grad_color,
                         grad_final_t, *, queue_sizes, hier_4x4_culling: bool,
-                        grid_x: int, grid_y: int, width: int, height: int):
+                        grid_x: int, grid_y: int, width: int, height: int,
+                        sub_tile=None, num_sub: int = 1):
     """Per-pair gradients of K5's color and final_T (kernel K6).
 
     Takes K5's inputs, its saved outputs ``color`` (raw, before the
@@ -508,9 +513,10 @@ def blend_hier_backward(point_list, starts, ends, xy, conic_opacity, rgb,
     with respect to each pair's x, y, conic a, b, c, opacity and r, g, b,
     summed over the pixels that committed it. No gradient flows to
     ``cov3d_inv9``, the camera or ``opacity_power_threshold``: they only
-    choose the cascade's order and validity. CUDA tensors go to kernel K6
-    (counted in ``blend_hier_backward.launches``); CPU tensors to the plain
-    version.
+    choose the cascade's order and validity. ``sub_tile`` and ``num_sub``
+    as in ``global_blend.blend_global_backward``. CUDA tensors go to kernel
+    K6 (counted in ``blend_hier_backward.launches``); CPU tensors to the
+    plain version.
     """
     kt, km, kh = check_hier_queues(*queue_sizes)
     _check_hier_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
@@ -519,23 +525,20 @@ def blend_hier_backward(point_list, starts, ends, xy, conic_opacity, rgb,
     dev = xy.device
     _check_backward_inputs(color, final_t, n_contrib, grad_color,
                            grad_final_t, width, height, dev)
+    check_planes(sub_tile, num_sub, grid_x * grid_y, dev)
     if dev.type == "cpu":
         return blend_hier_backward_plain(
             point_list, starts, ends, xy, conic_opacity, rgb, cov3d_inv9,
             opacity_power_threshold, inverse_vp, campos, color, final_t,
             n_contrib, grad_color, grad_final_t, queue_sizes=(kt, km, kh),
             hier_4x4_culling=hier_4x4_culling, grid_x=grid_x, grid_y=grid_y,
-            width=width, height=height,
+            width=width, height=height, sub_tile=sub_tile, num_sub=num_sub,
         )
     cam, sx, sy = _cuda_prelude(xy, conic_opacity, inverse_vp, campos, width,
                                 height)
     fn = _bind_bwd()
     n_pairs = point_list.shape[0]
-    # Each tile's block zeroes and fills its own rows [start, end).
-    scratch = torch.empty((n_pairs, SCRATCH_FLOATS), dtype=torch.float32,
-                          device=dev)
-    d_pair = torch.empty((n_pairs, len(GRAD_COLS)), dtype=torch.float32,
-                         device=dev)
+    scratch, d_pair = backward_buffers(num_sub, n_pairs, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
         point_list.data_ptr(), starts.data_ptr(), ends.data_ptr(),
@@ -545,12 +548,13 @@ def blend_hier_backward(point_list, starts, ends, xy, conic_opacity, rgb,
         _instance(kh, HEAD_SIZES), int(bool(hier_4x4_culling)),
         color.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
         grad_color.data_ptr(), grad_final_t.data_ptr(), grid_x, grid_y,
-        width, height, scratch.data_ptr(), d_pair.data_ptr(), stream,
+        width, height, None if sub_tile is None else sub_tile.data_ptr(),
+        n_pairs, scratch.data_ptr(), d_pair.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError_t {err}")
     blend_hier_backward.launches += 1
-    return d_pair
+    return plane_rows(d_pair, sub_tile)
 
 
 blend_hier_backward.launches = 0
@@ -561,7 +565,8 @@ def blend_hier_backward_plain(point_list, starts, ends, xy, conic_opacity,
                               inverse_vp, campos, color, final_t, n_contrib,
                               grad_color, grad_final_t, *, queue_sizes,
                               hier_4x4_culling: bool, grid_x: int, grid_y: int,
-                              width: int, height: int,
+                              width: int, height: int, sub_tile=None,
+                              num_sub: int = 1,
                               count_evaluations: bool = False):
     """Plain PyTorch version of kernel K6, same signature and outputs.
 
@@ -586,9 +591,10 @@ def blend_hier_backward_plain(point_list, starts, ends, xy, conic_opacity,
     dev = xy.device
     n_pairs = point_list.shape[0]
     n = _counts()
-    d_pair = torch.zeros((n_pairs, len(GRAD_COLS)), dtype=torch.float32,
-                         device=dev)
+    d_pair = torch.zeros((num_sub, n_pairs, len(GRAD_COLS)),
+                         dtype=torch.float32, device=dev)
     if n_pairs == 0:  # nothing to replay
+        d_pair = plane_rows(d_pair, sub_tile)
         return (d_pair, n) if count_evaluations else d_pair
     T_tiles = grid_x * grid_y
     counts = (ends - starts).to(torch.int64)
@@ -635,5 +641,6 @@ def blend_hier_backward_plain(point_list, starts, ends, xy, conic_opacity,
             grid_x=grid_x, grid_y=grid_y, width=width, height=height,
             done=target == 0, pop=pop, skip_done=True,
             n=n if count_evaluations else None)
-    _pair_sums(rows, starts, counts, d_pair)
+    _pair_sums(rows, starts, counts, d_pair, sub_tile)
+    d_pair = plane_rows(d_pair, sub_tile)
     return (d_pair, n) if count_evaluations else d_pair

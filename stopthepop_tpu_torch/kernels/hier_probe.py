@@ -18,7 +18,10 @@ A family is the kernels of one sort mode whose sources a redesign touches:
   plain K1's output.
 
 A DIR holds an earlier version of the sources (e.g. unpacked with ``git
-show``) or a step of a redesign. The checkout's own ``csrc/`` joins as
+show``) or a step of a redesign. A backward source from before the
+binning tile's sub-tile planes (no ``sub_tile`` in it) has an interface
+without them: the probe calls it with one plane, as the checkout's is
+called at 16x16 bins, so its bits can be held against the checkout's. The checkout's own ``csrc/`` joins as
 ``tree``, last. Every variant is built with ``build.NVCC_FLAGS`` (all nvcc
 processes at once), then run on the bench frame of ``chip_smoke.py``
 (1920x1080, 500K Gaussians from seed 0; queues (64, 8, 4) for ``hier``):
@@ -29,9 +32,9 @@ processes at once), then run on the bench frame of ``chip_smoke.py``
   the same bits; for K7 also the passes ("rounds") a tile takes at the
   variant's list length, from the plain version's counts; for ``kbuffer``
   and ``global`` also a flag that the outputs have the bits of the first
-  variant's (the parent's sources, where given first), and first of all a
-  line of the plain version's counts under each warp shape of
-  ``kernels/footprint.py``;
+  variant's (the parent's sources, where given first), for ``hier`` the
+  same flag, and first of all (``kbuffer``, ``global``) a line of the plain
+  version's counts under each warp shape of ``kernels/footprint.py``;
 * times, CUDA events over 20 launches after 2, taken in turns: every
   variant in the given order, then in the reverse order (A B .. Z Z .. B A),
   and each variant's two times averaged;
@@ -107,8 +110,30 @@ def _build(family, variants):
             raise RuntimeError(f"nvcc failed for {name} {stem}:\n{log}")
         found, regs = libs.setdefault(name, ({}, {}))
         found[stem] = ctypes.CDLL(str(so))
+        found[stem]._stp_one_plane = (
+            stem.endswith("_bwd")
+            and "sub_tile" not in (Path(variants[name]) / f"{stem}.cu").read_text())
         regs[stem] = _ptxas(family, log)
     return libs
+
+
+def _bwd(fn, lib, tail):
+    """A backward entry point ``fn`` of ``lib``, typed for the checkout's
+    interface. A build from before the sub-tile planes takes no
+    (sub_tile, num_pairs), the two arguments ``tail`` before the last: it
+    is typed without them and called with one plane only."""
+    if not getattr(lib, "_stp_one_plane", False):
+        return fn
+    types = list(fn.argtypes)
+    cut = len(types) - tail - 2
+    fn.argtypes = types[:cut] + types[cut + 2:]
+
+    def one_plane(*args):
+        if args[cut] is not None:
+            raise ValueError("a build from before the sub-tile planes "
+                             "serves one plane only")
+        return fn(*args[:cut], *args[cut + 2:])
+    return one_plane
 
 
 def _bench_frame(dev):
@@ -170,7 +195,19 @@ def _grad_checks(prefix, got, again, ref):
             f"{prefix}_bitwise_repeat": bool(torch.equal(got, again))}
 
 
-class _Hier:
+class _SameAsFirst:
+    """Whether a variant's outputs have the bits of the first variant's."""
+
+    def same_as_first(self, outputs, key=""):
+        """``key`` tells apart the outputs of the family's kernels."""
+        outputs = [o.clone() for o in outputs]
+        if not hasattr(self, "first"):
+            self.first = {}
+        first = self.first.setdefault(key, outputs)
+        return all(torch.equal(a, b) for a, b in zip(outputs, first))
+
+
+class _Hier(_SameAsFirst):
     """K5 and K6 (the probe's first family; its keys are unchanged)."""
     module, timed = hb, ("k5", "k6")
 
@@ -185,7 +222,8 @@ class _Hier:
 
     def bind(self, libs):
         hb._bind = lambda f=hb.bind(libs["hier_blend_fwd"]): f
-        hb._bind_bwd = lambda f=hb.bind(libs["hier_blend_bwd"], backward=True): f
+        lib = libs["hier_blend_bwd"]
+        hb._bind_bwd = lambda f=_bwd(hb.bind(lib, backward=True), lib, 3): f
 
     def run(self):
         return {"k5": lambda: hb.blend_hier_forward(*self.args, **self.kw),
@@ -202,6 +240,7 @@ class _Hier:
             "k5_bitwise": all(torch.equal(g, r) for g, r in zip(got, self.ref)),
             "k5_n_contrib_mismatches": int((got[2] != self.ref[2]).sum()),
             "k5_max_abs_err_color": float((got[0] - self.ref[0]).abs().max()),
+            "k5_k6_bitwise_first": self.same_as_first([*got, d]),
             **_grad_checks("k6", d, again, self.ref_d)}
 
     @staticmethod
@@ -226,18 +265,6 @@ def _footprint_counts(module, plain):
     return out
 
 
-class _SameAsFirst:
-    """Whether a variant's outputs have the bits of the first variant's."""
-
-    def same_as_first(self, outputs, key=""):
-        """``key`` tells apart the outputs of the family's kernels."""
-        outputs = [o.clone() for o in outputs]
-        if not hasattr(self, "first"):
-            self.first = {}
-        first = self.first.setdefault(key, outputs)
-        return all(torch.equal(a, b) for a, b in zip(outputs, first))
-
-
 class _KBuffer(_SameAsFirst):
     """K3 and K4 at k = 4; K4 on the plain K3's output."""
     module, timed = kb, ("k3", "k4")
@@ -256,8 +283,8 @@ class _KBuffer(_SameAsFirst):
 
     def bind(self, libs):
         kb._bind = lambda f=kb.bind(libs["kbuffer_blend_fwd"]): f
-        kb._bind_bwd = (lambda f=kb.bind(libs["kbuffer_blend_bwd"],
-                                         backward=True): f)
+        lib = libs["kbuffer_blend_bwd"]
+        kb._bind_bwd = lambda f=_bwd(kb.bind(lib, backward=True), lib, 3): f
 
     def run(self):
         return {"k3": lambda: kb.blend_kbuffer_forward(*self.args, **self.kw),
@@ -320,7 +347,8 @@ class _Global(_SameAsFirst):
 
     def bind(self, libs):
         gb._bind = lambda f=gb.bind(libs["global_blend_fwd"]): f
-        gb._bind_bwd = lambda f=gb.bind_bwd(libs["global_blend_bwd"]): f
+        lib = libs["global_blend_bwd"]
+        gb._bind_bwd = lambda f=_bwd(gb.bind_bwd(lib), lib, 2): f
 
     def run(self):
         return {"k1": lambda: gb.blend_global_forward(*self.args, **self.kw),

@@ -35,7 +35,9 @@ u = Sigma^-1 (mean - campos)), the camera ``inverse_vp`` [4, 4] and
 color [3, H, W] (raw; the caller composites the background), final_T [H, W],
 n_contrib [H, W] int32 (the number of commits), depth_acc [H, W]
 (sum of w * ray depth). K4 returns d_pair [N, 9] in sorted-slot order,
-columns ``GRAD_COLS``.
+columns ``GRAD_COLS``; with a ``sub_tile`` map (a 32x16 binning tile, whose
+two 16x16 halves share a segment) [S, N, 9], one plane a sub-tile, as K2
+(``global_blend.py``), its scratch in planes too.
 """
 
 from __future__ import annotations
@@ -55,7 +57,9 @@ from .global_blend import (
     _check_backward_inputs,
     _check_inputs,
     _tile_pixel_coords,
+    check_planes,
     pack_image,
+    plane_rows,
     unpack_image,
 )
 
@@ -95,7 +99,8 @@ def bind(lib, backward=False):
         fn = lib.stp_kbuffer_blend_bwd
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_float] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 3)
     else:
         fn = lib.stp_kbuffer_blend_fwd
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_float] * 2
@@ -411,20 +416,26 @@ def _route_grouped(acc, commit, src, vals):
     acc[t, w, s] = acc[t, w, s] + sums[t, w, o]
 
 
-def _pair_sums(acc, starts, counts, d_pair):
-    """Each pair's warp rows added in warp order into its sorted slot."""
+def _pair_sums(acc, starts, counts, d_pair, sub_tile=None):
+    """Each pair's warp rows added in warp order into its sorted slot of
+    the tile's plane of ``d_pair`` [S, N, 9] (plane 0 without
+    ``sub_tile``)."""
     total = acc[:, 0]
     for w in range(1, WARPS):
         total = total + acc[:, w]                          # [T, L, 9]
     s = torch.arange(total.shape[1], device=acc.device)[None, :]
     mine = s < counts[:, None]
-    d_pair[(starts.to(torch.int64)[:, None] + s)[mine]] = total[mine]
+    slot = starts.to(torch.int64)[:, None] + s
+    plane = (torch.zeros_like(slot) if sub_tile is None
+             else sub_tile.to(torch.int64)[:, None].expand_as(slot))
+    d_pair[plane[mine], slot[mine]] = total[mine]
 
 
 def blend_kbuffer_backward(point_list, starts, ends, xy, conic_opacity, rgb,
                            cov3d_inv9, inverse_vp, campos, color, final_t,
                            n_contrib, grad_color, grad_final_t, *, k: int,
-                           grid_x: int, grid_y: int, width: int, height: int):
+                           grid_x: int, grid_y: int, width: int, height: int,
+                           sub_tile=None, num_sub: int = 1):
     """Per-pair gradients of K3's color and final_T (kernel K4).
 
     Takes K3's inputs, its saved outputs ``color`` (raw, before the
@@ -434,7 +445,8 @@ def blend_kbuffer_backward(point_list, starts, ends, xy, conic_opacity, rgb,
     with respect to each pair's x, y, conic a, b, c, opacity and r, g, b,
     summed over the pixels that committed it. No gradient flows to
     ``cov3d_inv9`` or the camera: the window order is a discrete choice.
-    CUDA tensors go to kernel K4 (counted in
+    ``sub_tile`` and ``num_sub`` as in ``blend_global_backward``. CUDA
+    tensors go to kernel K4 (counted in
     ``blend_kbuffer_backward.launches``); CPU tensors to the plain version.
     """
     _check_kbuffer_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
@@ -443,22 +455,19 @@ def blend_kbuffer_backward(point_list, starts, ends, xy, conic_opacity, rgb,
     dev = xy.device
     _check_backward_inputs(color, final_t, n_contrib, grad_color,
                            grad_final_t, width, height, dev)
+    check_planes(sub_tile, num_sub, grid_x * grid_y, dev)
     if dev.type == "cpu":
         return blend_kbuffer_backward_plain(
             point_list, starts, ends, xy, conic_opacity, rgb, cov3d_inv9,
             inverse_vp, campos, color, final_t, n_contrib, grad_color,
             grad_final_t, k=k, grid_x=grid_x, grid_y=grid_y, width=width,
-            height=height,
+            height=height, sub_tile=sub_tile, num_sub=num_sub,
         )
     cam, sx, sy = _cuda_prelude(xy, conic_opacity, inverse_vp, campos, width,
                                 height)
     fn = _bind_bwd()
     n_pairs = point_list.shape[0]
-    # Each tile's block zeroes and fills its own rows [start, end).
-    scratch = torch.empty((n_pairs, SCRATCH_FLOATS), dtype=torch.float32,
-                          device=dev)
-    d_pair = torch.empty((n_pairs, len(GRAD_COLS)), dtype=torch.float32,
-                         device=dev)
+    scratch, d_pair = backward_buffers(num_sub, n_pairs, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
         point_list.data_ptr(), starts.data_ptr(), ends.data_ptr(),
@@ -466,22 +475,38 @@ def blend_kbuffer_backward(point_list, starts, ends, xy, conic_opacity, rgb,
         cov3d_inv9.data_ptr(), cam.data_ptr(), sx, sy, k, _instance(k),
         color.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
         grad_color.data_ptr(), grad_final_t.data_ptr(), grid_x, grid_y, width,
-        height, scratch.data_ptr(), d_pair.data_ptr(), stream,
+        height, None if sub_tile is None else sub_tile.data_ptr(), n_pairs,
+        scratch.data_ptr(), d_pair.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError_t {err}")
     blend_kbuffer_backward.launches += 1
-    return d_pair
+    return plane_rows(d_pair, sub_tile)
 
 
 blend_kbuffer_backward.launches = 0
+
+
+def backward_buffers(num_sub: int, n_pairs: int, dev):
+    """K4's and K6's scratch [S, N, 80] and d_pair [S, N, 9]. Each tile's
+    block zeroes and fills its own rows [start, end) of its plane, and
+    writes every row of them in d_pair; with S > 1 d_pair starts at zero,
+    for the rows of a plane that no tile reads (the missing half of a
+    binning tile at the image's right edge)."""
+    scratch = torch.empty((num_sub, n_pairs, SCRATCH_FLOATS),
+                          dtype=torch.float32, device=dev)
+    alloc = torch.empty if num_sub == 1 else torch.zeros
+    d_pair = alloc((num_sub, n_pairs, len(GRAD_COLS)), dtype=torch.float32,
+                   device=dev)
+    return scratch, d_pair
 
 
 def blend_kbuffer_backward_plain(point_list, starts, ends, xy, conic_opacity,
                                  rgb, cov3d_inv9, inverse_vp, campos, color,
                                  final_t, n_contrib, grad_color, grad_final_t,
                                  *, k: int, grid_x: int, grid_y: int,
-                                 width: int, height: int,
+                                 width: int, height: int, sub_tile=None,
+                                 num_sub: int = 1,
                                  count_evaluations: bool = False):
     """Plain PyTorch version of kernel K4, same signature and outputs.
 
@@ -503,9 +528,10 @@ def blend_kbuffer_backward_plain(point_list, starts, ends, xy, conic_opacity,
     T_tiles = grid_x * grid_y
     n_pairs = point_list.shape[0]
     n = {"evaluations": 0, "depths": 0, "inserts": 0, "commits": 0}
-    d_pair = torch.zeros((n_pairs, len(GRAD_COLS)), dtype=torch.float32,
-                         device=dev)
+    d_pair = torch.zeros((num_sub, n_pairs, len(GRAD_COLS)),
+                         dtype=torch.float32, device=dev)
     if n_pairs == 0:  # nothing to replay
+        d_pair = plane_rows(d_pair, sub_tile)
         return (d_pair, n) if count_evaluations else d_pair
     counts = (ends - starts).to(torch.int64)
     max_count = int(counts.max()) if T_tiles else 0
@@ -574,7 +600,8 @@ def blend_kbuffer_backward_plain(point_list, starts, ends, xy, conic_opacity,
     for _ in range(k):
         win, fill, T, acc_g, nc, done = pop(win, fill, T, acc_g, nc, done,
                                            (fill > 0) & ~done)
-    _pair_sums(acc, starts, counts, d_pair)
+    _pair_sums(acc, starts, counts, d_pair, sub_tile)
+    d_pair = plane_rows(d_pair, sub_tile)
     if count_evaluations:
         return d_pair, n
     return d_pair

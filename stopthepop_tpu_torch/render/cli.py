@@ -84,11 +84,13 @@ def render_frames(
     bg=(0.0, 0.0, 0.0),
     sh_degree: Optional[int] = None,
     render_depth: bool = False,
+    tile_shape: Optional[tuple] = None,
 ) -> List[RenderOutput]:
     """Render ``model`` from every camera; one RenderOutput per frame.
 
     The model must already lie on ``device`` (default: the GPU). With
     ``render_depth`` each colour is the Depth debug visualization.
+    ``tile_shape`` is the binning tile (``rasterize_gaussians``).
     """
     dev = resolve_device(device)
     if model.means3d.device.type != dev.type:
@@ -109,7 +111,7 @@ def render_frames(
     with torch.inference_mode():
         return [
             render_model(model, to_camera_arrays(c, dev), static=static,
-                         full_output=True)
+                         full_output=True, tile_shape=tile_shape)
             for c in cams
         ]
 

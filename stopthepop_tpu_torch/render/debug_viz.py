@@ -71,7 +71,7 @@ def normalize_field(field, lo=None, hi=None):
 
 
 def sort_error_maps(prep: PreprocessOutput, width: int, height: int, campos,
-                    inverse_vp, sort_order=None):
+                    inverse_vp, sort_order=None, tile=(TILE_X, TILE_Y)):
     """(error_opacity [H, W], error_distance [H, W]) of a GLOBAL-mode order.
 
     Per pixel, contributions are replayed in the mode's stream order
@@ -86,12 +86,12 @@ def sort_error_maps(prep: PreprocessOutput, width: int, height: int, campos,
     dev = prep.mean2d.device
     N = width * height
     pix = _pixel_grid(width, height, dev)
-    pix_tile = _pixel_tiles(pix)
+    pix_tile = _pixel_tiles(pix, tile)
     alpha, skip = _alpha(prep.conic_opacity, prep.mean2d, pix)
     drop = skip | ~_covers(prep, pix_tile)
     a_eff = torch.where(drop, torch.zeros_like(alpha), alpha)
     key = pair_stream_keys(prep, pix_tile, sort_order, campos, inverse_vp,
-                           width, height)
+                           width, height, tile)
     key = torch.where(a_eff > 0.0, key, torch.full_like(a_eff, float("inf")))
     order = torch.sort(key, dim=0, stable=True).indices  # [P, N]
     a_eff = torch.gather(a_eff, 0, order)
@@ -126,8 +126,11 @@ def tile_count_map(pair_counts, width: int, height: int):
 
 def debug_field(mode: DebugVisualization, *, final_t, n_contrib,
                 depth_acc=None, pair_counts=None, prep=None, campos=None,
-                inverse_vp=None, width: int = 0, height: int = 0):
-    """The scalar field [H, W] of a debug mode, and its colormap table."""
+                inverse_vp=None, width: int = 0, height: int = 0,
+                tile=(TILE_X, TILE_Y)):
+    """The scalar field [H, W] of a debug mode, and its colormap table.
+    ``pair_counts`` [T] are the 16x16 blend tiles' and ``tile`` is the
+    binning tile ``prep`` was made for."""
     mode = DebugVisualization(mode)
     if mode == DebugVisualization.Depth:
         # Expected depth of the blended mass (turbo, like the reference).
@@ -141,7 +144,7 @@ def debug_field(mode: DebugVisualization, *, final_t, n_contrib,
     if mode in (DebugVisualization.SortErrorOpacity,
                 DebugVisualization.SortErrorDistance):
         err_op, err_dist = sort_error_maps(prep, width, height, campos,
-                                           inverse_vp)
+                                           inverse_vp, tile=tile)
         return (err_op if mode == DebugVisualization.SortErrorOpacity
                 else err_dist), MAGMA_TABLE
     raise ValueError(f"not a renderable debug mode: {mode}")
@@ -151,7 +154,8 @@ def apply_debug_visualization(mode: DebugVisualization, *, final_t, n_contrib,
                               depth_acc=None, pair_counts=None, prep=None,
                               campos=None, inverse_vp=None, width: int = 0,
                               height: int = 0,
-                              data: Optional[DebugVisualizationData] = None):
+                              data: Optional[DebugVisualizationData] = None,
+                              tile=(TILE_X, TILE_Y)):
     """Scalar field -> stats -> colormapped [3, H, W] image.
 
     The reference's applyDebugVisualization post-pass
@@ -165,7 +169,7 @@ def apply_debug_visualization(mode: DebugVisualization, *, final_t, n_contrib,
     field, table = debug_field(
         mode, final_t=final_t, n_contrib=n_contrib, depth_acc=depth_acc,
         pair_counts=pair_counts, prep=prep, campos=campos,
-        inverse_vp=inverse_vp, width=width, height=height)
+        inverse_vp=inverse_vp, width=width, height=height, tile=tile)
     field = field.detach()
     lo, hi, mean, std = field_stats(field)
     if data is not None:

@@ -16,6 +16,10 @@ sort then breaks depth ties by ascending Gaussian id, as ``jax.lax.sort`` does
 on the same stream. With ``tile_based_culling`` the pairs whose tile the
 Gaussian cannot reach above the 1/255 alpha threshold are dropped before the
 sort (JAX ``duplicate.py:342-352``); the stream stays Gaussian-major.
+Tiles here are binning tiles of ``tile_x`` x ``tile_y`` pixels (16x16 by
+default): the culling test covers the binning tile's pixel rect and the
+PTD_CENTER / PTD_MAX depth is taken at its centre or its nearest point, as
+in JAX ``duplicate.py:346-361``.
 
 For the backward, the buffer keeps the sort permutation (``orig_slot``) and
 the Gaussian-major run offsets (``gauss_offsets``): unsorting per-pair
@@ -87,6 +91,8 @@ def expand_pairs(
     inverse_vp=None,
     image_width: int = 0,
     image_height: int = 0,
+    tile_x: int = TILE_X,
+    tile_y: int = TILE_Y,
 ):
     """The "Duplicate" stage: one (tile, depth, Gaussian) triple per pair.
 
@@ -96,7 +102,8 @@ def expand_pairs(
     most its ``opacity_power_threshold``. ``depth`` is the sort key: the
     Gaussian's depth, or the pair's per-tile depth for PTD_CENTER /
     PTD_MAX, which need ``campos`` [3], ``inverse_vp`` [4, 4] and the image
-    size (ValueError without them).
+    size (ValueError without them). ``grid_x``, ``tile_x`` and ``tile_y``
+    are those of the binning grid ``prep`` was made for.
     """
     order = GlobalSortOrder(sort_order)
     per_tile = order in PER_TILE_ORDERS
@@ -122,10 +129,10 @@ def expand_pairs(
     # Culling and sort keys are discrete decisions: no gradient flows
     # through them.
     if tile_based_culling or order == GlobalSortOrder.PTD_MAX:
-        tile_min, tile_max = tile_rect_bounds(tx, ty)
+        tile_min, tile_max = tile_rect_bounds(tx, ty, tile_x, tile_y)
         power, max_pos = max_contrib_power_rect(
             prep.conic_opacity.detach()[g], prep.mean2d.detach()[g],
-            tile_min, tile_max,
+            tile_min, tile_max, patch_w=tile_x - 1, patch_h=tile_y - 1,
         )
     if tile_based_culling:
         keep = power <= prep.opacity_power_threshold.detach()[g]
@@ -136,10 +143,11 @@ def expand_pairs(
     if not per_tile:
         return tile_id, prep.depth.detach()[g], g.to(torch.int32)
     if order == GlobalSortOrder.PTD_CENTER:
-        # Center of the inclusive pixel rect: (tx*16 + 7.5, ty*16 + 7.5).
+        # Center of the inclusive pixel rect, (tx*16 + 7.5, ty*16 + 7.5) at
+        # 16x16.
         target = torch.stack(
-            [tx.to(torch.float32) * TILE_X + (TILE_X - 1) / 2.0,
-             ty.to(torch.float32) * TILE_Y + (TILE_Y - 1) / 2.0], dim=-1)
+            [tx.to(torch.float32) * tile_x + (tile_x - 1) / 2.0,
+             ty.to(torch.float32) * tile_y + (tile_y - 1) / 2.0], dim=-1)
     else:
         target = max_pos
     depth = per_tile_depth(target, prep.cov3d_inv9.detach()[g],
@@ -179,14 +187,19 @@ def build_pairs(
     inverse_vp=None,
     image_width: int = 0,
     image_height: int = 0,
+    tile_x: int = TILE_X,
+    tile_y: int = TILE_Y,
 ) -> PairBuffer:
-    """Expand, optionally tile-cull, key and sort all Gaussian/tile pairs.
+    """Expand, optionally tile-cull, key and sort all Gaussian/tile pairs
+    of the binning grid (``grid_x`` x ``grid_y`` tiles of ``tile_x`` x
+    ``tile_y`` pixels).
 
     The camera and image size are needed by the per-tile-depth orders only
     (see ``expand_pairs``)."""
     expanded = expand_pairs(prep, grid_x=grid_x, sort_order=sort_order,
                             tile_based_culling=tile_based_culling,
                             campos=campos, inverse_vp=inverse_vp,
-                            image_width=image_width, image_height=image_height)
+                            image_width=image_width, image_height=image_height,
+                            tile_x=tile_x, tile_y=tile_y)
     return sort_expanded(*expanded, num_tiles=grid_x * grid_y,
                          num_gaussians=prep.tiles_touched.shape[0])

@@ -56,11 +56,12 @@ def _pixel_grid(width: int, height: int, device=None):
     return torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)
 
 
-def _pixel_tiles(pix):
-    """[N, 2] int32 tile coordinates (tx, ty) of pixel coordinates."""
+def _pixel_tiles(pix, tile=(TILE_X, TILE_Y)):
+    """[N, 2] int32 coordinates (tx, ty) of the pixels' binning tiles of
+    ``tile`` = (tile_x, tile_y) pixels (those ``prep``'s rects count)."""
     return torch.stack(
-        [torch.div(pix[:, 0], TILE_X, rounding_mode="floor"),
-         torch.div(pix[:, 1], TILE_Y, rounding_mode="floor")],
+        [torch.div(pix[:, 0], tile[0], rounding_mode="floor"),
+         torch.div(pix[:, 1], tile[1], rounding_mode="floor")],
         dim=-1).to(torch.int32)
 
 
@@ -181,7 +182,8 @@ def render_global_naive(prep: PreprocessOutput, bg, width: int, height: int,
 
 
 def render_full_sort_naive(prep: PreprocessOutput, bg, width: int,
-                           height: int, campos, inverse_vp):
+                           height: int, campos, inverse_vp,
+                           tile=(TILE_X, TILE_Y)):
     """PER_PIXEL_FULL oracle: every pixel sorts all Gaussians by exact depth
     along its ray and blends them front to back.
 
@@ -189,7 +191,8 @@ def render_full_sort_naive(prep: PreprocessOutput, bg, width: int,
     is valid, it passes the alpha tests and its ray depth is >= 0
     (resorted_render.cuh:182-184); the sort is stable, so exact ties keep
     Gaussian order. Differentiable through alpha and rgb; the depth channel
-    and the order are not. Returns (color [3, H, W], final_T [H*W],
+    and the order are not. ``tile`` is the binning tile ``prep`` was made
+    for. Returns (color [3, H, W], final_T [H*W],
     n_contrib [H*W] int32 (1-based rank of the last committed entry),
     depth_acc [H, W] (sum of w * ray depth)).
     """
@@ -199,7 +202,7 @@ def render_full_sort_naive(prep: PreprocessOutput, bg, width: int,
     depth = depth_along_ray(prep.cov3d_inv9[:, None, :], viewdir[None, :, :])
 
     alpha, skip = _alpha(prep.conic_opacity, prep.mean2d, pix)
-    drop = skip | ~_covers(prep, _pixel_tiles(pix)) | (depth < 0.0)
+    drop = skip | ~_covers(prep, _pixel_tiles(pix, tile)) | (depth < 0.0)
     alpha_eff = torch.where(drop, torch.zeros_like(alpha), alpha)
 
     key = torch.where(alpha_eff > 0.0, depth.detach(),
@@ -308,8 +311,9 @@ def _blend_one(T, C, nc, done, popm, a0, rgb0, count_zero_alpha=True):
 
 
 def pair_stream_keys(prep: PreprocessOutput, pix_tile, sort_order, campos,
-                     inverse_vp, w: int, h: int):
-    """Per-(Gaussian, pixel) stream sort key [P, N] for the pixel's tile."""
+                     inverse_vp, w: int, h: int, tile=(TILE_X, TILE_Y)):
+    """Per-(Gaussian, pixel) stream sort key [P, N] for the pixel's
+    binning tile of ``tile`` = (tile_x, tile_y) pixels."""
     P, N = prep.depth.shape[0], pix_tile.shape[0]
     sort_order = GlobalSortOrder(sort_order)
     if sort_order in (GlobalSortOrder.Z_DEPTH, GlobalSortOrder.DISTANCE):
@@ -317,14 +321,14 @@ def pair_stream_keys(prep: PreprocessOutput, pix_tile, sort_order, campos,
     tx, ty = pix_tile[None, :, 0], pix_tile[None, :, 1]
     if sort_order == GlobalSortOrder.PTD_CENTER:
         target = torch.stack(
-            [tx.to(torch.float32) * TILE_X + (TILE_X - 1) / 2.0,
-             ty.to(torch.float32) * TILE_Y + (TILE_Y - 1) / 2.0],
+            [tx.to(torch.float32) * tile[0] + (tile[0] - 1) / 2.0,
+             ty.to(torch.float32) * tile[1] + (tile[1] - 1) / 2.0],
             dim=-1).expand(P, N, 2)
     else:  # PTD_MAX
-        tile_min, tile_max = tile_rect_bounds(tx, ty)
+        tile_min, tile_max = tile_rect_bounds(tx, ty, *tile)
         _, target = max_contrib_power_rect(
             prep.conic_opacity[:, None, :], prep.mean2d[:, None, :],
-            tile_min, tile_max)
+            tile_min, tile_max, patch_w=tile[0] - 1, patch_h=tile[1] - 1)
     return per_tile_depth(target, prep.cov3d_inv9[:, None, :], campos, w, h,
                           inverse_vp)
 

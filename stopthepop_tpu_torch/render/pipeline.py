@@ -1,10 +1,9 @@
 """Tiled rendering pipeline: preprocess -> duplicate -> sort -> blend (torch).
 
 Port of ``stopthepop_tpu/render/pipeline.py::render_tiled`` (GLOBAL sort mode),
-``render_tiled_kbuffer`` (PER_PIXEL_KBUFFER, 16x16 binning),
-``render_tiled_hier`` (HIERARCHICAL, 16x16 binning), ``render_tiled_full``
-(PER_PIXEL_FULL, 16x16 binning, forward only) and ``render_tiled_timed``
-(GLOBAL, each stage timed on its own), the analog of
+``render_tiled_kbuffer`` (PER_PIXEL_KBUFFER), ``render_tiled_hier``
+(HIERARCHICAL), ``render_tiled_full`` (PER_PIXEL_FULL, forward only) and
+``render_tiled_timed`` (GLOBAL, each stage timed on its own), the analog of
 Rasterizer::forward, rasterizer_impl.cu:221-413:
 
   stage          reference                         here
@@ -27,6 +26,21 @@ Rasterizer::forward, rasterizer_impl.cu:221-413:
 With any per-Gaussian row requiring grad (and grad mode on) the blend goes
 through ``BlendGlobal`` / ``BlendKBuffer`` / ``BlendHier``; otherwise K1 /
 K3 / K5 is called directly.
+
+The binning tile (``tile_x`` x ``tile_y``, 16x16 by default, as the
+reference) sets the pairs: preprocess, expansion and sort work on its grid.
+The kernels always blend 16x16 tiles: a binning tile of (16 sx) x (16 sy)
+pixels covers sx * sy of them, and each reads its parent's whole segment
+(``split_binning_segments``, as the JAX package's resort modes do), and
+the kernels' footprint tests drop most of the pairs that cannot reach a
+warp before they are evaluated. With tight-opacity bounding a pair's rect
+bounds its alpha >= 1/255 extent, so the pairs of the parent's segment
+that miss a blend tile never pass the alpha threshold there: every pixel
+blends what it blends at 16x16. Without it the rect is 3 sigma wide and a
+pair may still pass the threshold just outside it, where a larger bin
+keeps it: the JAX package's semantics at that bin. GLOBAL takes any
+multiple of 16 on each side; the resort modes take 16x16 and 32x16, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -35,7 +49,7 @@ import torch
 
 from ..config import GlobalSortOrder
 from ..constants import TILE_X, TILE_Y
-from ..kernels.blend_vjp import BlendGlobal, BlendHier, BlendKBuffer
+from ..kernels.blend_vjp import BlendGlobal, BlendHier, BlendKBuffer, BlendSegments
 from ..kernels.full_blend import blend_full_forward
 from ..kernels.global_blend import blend_global_forward
 from ..kernels.hier_blend import blend_hier_forward
@@ -44,8 +58,85 @@ from .duplicate import build_pairs, expand_pairs, sort_expanded
 from .preprocess import PreprocessOutput
 
 
-def tile_grid(width: int, height: int):
-    return (width + TILE_X - 1) // TILE_X, (height + TILE_Y - 1) // TILE_Y
+def tile_grid(width: int, height: int, tile_x: int = TILE_X,
+              tile_y: int = TILE_Y):
+    return (width + tile_x - 1) // tile_x, (height + tile_y - 1) // tile_y
+
+
+def global_subdivision(tile_x: int, tile_y: int):
+    """(sx, sy): the 16x16 blend tiles a GLOBAL binning tile spans along
+    x and y. NotImplementedError unless both sides are multiples of 16."""
+    if tile_x < TILE_X or tile_y < TILE_Y or tile_x % TILE_X or tile_y % TILE_Y:
+        raise NotImplementedError(
+            f"GLOBAL binning tile {tile_x}x{tile_y}: the port blends 16x16 "
+            "tiles, so a binning tile's sides must be multiples of 16")
+    return tile_x // TILE_X, tile_y // TILE_Y
+
+
+def resort_subdivision(tile_x: int, tile_y: int):
+    """(sx, sy) of a resort-mode (PER_PIXEL_KBUFFER, HIERARCHICAL,
+    PER_PIXEL_FULL) binning tile: 16x16 (reference parity) or 32x16, the
+    sizes the JAX package's ``_resolve_bin_tile`` accepts; any other raises
+    NotImplementedError."""
+    if (tile_x, tile_y) == (TILE_X, TILE_Y):
+        return 1, 1
+    if (tile_x, tile_y) == (2 * TILE_X, TILE_Y):
+        return 2, 1
+    raise NotImplementedError(
+        f"resort-mode binning tile {tile_x}x{tile_y}: the resort modes "
+        "support 16x16 (reference parity) and 32x16 only")
+
+
+def blend_tile_parents(width: int, height: int, sx: int, sy: int, device):
+    """(parent [T] int64, sub [T] int32) of the T 16x16 blend tiles of a
+    ``width`` x ``height`` image under (16 sx) x (16 sy) binning tiles.
+
+    Blend tile (bx, by) of the ``tile_grid(width, height)`` grid lies in
+    binning tile parent = (bx // sx, by // sy) as its sub-tile
+    s = (bx % sx) + sx (by % sy). Only the blend tiles on the image are
+    mapped: a binning tile at the right or bottom edge may have fewer than
+    sx * sy of them.
+    """
+    gx, gy = tile_grid(width, height)
+    bin_gx = (gx + sx - 1) // sx
+    bx = torch.arange(gx, device=device)
+    by = torch.arange(gy, device=device)[:, None]
+    parent = ((by // sy) * bin_gx + bx // sx).reshape(-1)
+    sub = ((bx % sx) + sx * (by % sy)).reshape(-1).to(torch.int32)
+    return parent, sub
+
+
+def split_binning_segments(starts, ends, width: int, height: int, sx: int,
+                           sy: int) -> BlendSegments:
+    """Map the segments of (16 sx) x (16 sy) binning tiles to the 16x16
+    blend tiles of a ``width`` x ``height`` image: each blend tile reads
+    its parent's range and writes its gradients into the plane of its
+    sub-tile (``blend_tile_parents``). The planes of a parent's missing
+    blend tiles are written by no tile.
+    """
+    if (sx, sy) == (1, 1):
+        return BlendSegments(starts, ends, None, 1)
+    parent, sub = blend_tile_parents(width, height, sx, sy, starts.device)
+    return BlendSegments(starts[parent].contiguous(),
+                         ends[parent].contiguous(), sub, sx * sy)
+
+
+def _binned_pairs(prep, subdivision, *, image_width, image_height,
+                  sort_order, tile_based_culling, campos, inverse_vp):
+    """Build the pairs on the binning grid of ``subdivision`` (sx, sy) and
+    split them over the 16x16 blend grid: (pairs, segs, blend grid)."""
+    sx, sy = subdivision
+    bin_gx, bin_gy = tile_grid(image_width, image_height, TILE_X * sx,
+                               TILE_Y * sy)
+    pairs = build_pairs(prep, grid_x=bin_gx, grid_y=bin_gy,
+                        sort_order=sort_order,
+                        tile_based_culling=tile_based_culling, campos=campos,
+                        inverse_vp=inverse_vp, image_width=image_width,
+                        image_height=image_height, tile_x=TILE_X * sx,
+                        tile_y=TILE_Y * sy)
+    segs = split_binning_segments(pairs.starts, pairs.ends, image_width,
+                                  image_height, sx, sy)
+    return pairs, segs, tile_grid(image_width, image_height)
 
 
 def _rows(prep: PreprocessOutput):
@@ -68,6 +159,8 @@ def render_tiled(
     campos=None,
     inverse_vp=None,
     snapshot=None,
+    tile_x: int = TILE_X,
+    tile_y: int = TILE_Y,
 ):
     """GLOBAL-mode tiled render.
 
@@ -75,14 +168,15 @@ def render_tiled(
     depth_acc [H, W]), as the JAX package's ``render_tiled`` does. The
     per-tile-depth orders need ``campos`` and ``inverse_vp``. ``snapshot``,
     the (host arrays, settings) of a ``debug=True`` render, goes to the
-    blend Function, whose backward dumps it on failure.
+    blend Function, whose backward dumps it on failure. ``tile_x`` x
+    ``tile_y`` is the binning tile (``prep`` must be made for it): any
+    multiple of 16 on each side; ``pairs`` is on its grid.
     """
-    grid_x, grid_y = tile_grid(image_width, image_height)
-    pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
-                        sort_order=sort_order,
-                        tile_based_culling=tile_based_culling, campos=campos,
-                        inverse_vp=inverse_vp, image_width=image_width,
-                        image_height=image_height)
+    pairs, segs, (grid_x, grid_y) = _binned_pairs(
+        prep, global_subdivision(tile_x, tile_y), image_width=image_width,
+        image_height=image_height, sort_order=sort_order,
+        tile_based_culling=tile_based_culling, campos=campos,
+        inverse_vp=inverse_vp)
     rows = _rows(prep)
     depth = prep.depth.detach().contiguous()
     kw = dict(grid_x=grid_x, grid_y=grid_y, width=image_width,
@@ -90,10 +184,10 @@ def render_tiled(
     if _needs_grad(rows):
         color, final_t, n_contrib, depth_acc = BlendGlobal.apply(
             *rows, depth, pairs, grid_x, grid_y, image_width, image_height,
-            snapshot)
+            snapshot, segs)
     else:
         color, final_t, n_contrib, depth_acc = blend_global_forward(
-            pairs.gauss_id, pairs.starts, pairs.ends, *rows, depth, **kw)
+            pairs.gauss_id, segs.starts, segs.ends, *rows, depth, **kw)
     # Background composite outside the kernel, as in the JAX package: autograd
     # gives d_bg and folds the background into the final_T cotangent.
     color = color + final_t[None, :, :] * bg[:, None, None]
@@ -112,31 +206,32 @@ def render_tiled_kbuffer(
     sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
     tile_based_culling: bool = False,
     snapshot=None,
+    tile_x: int = TILE_X,
+    tile_y: int = TILE_Y,
 ):
-    """PER_PIXEL_KBUFFER tiled render (16x16 binning tiles): every pixel
-    resorts its tile's stream through a window of ``k`` entries by exact
-    per-ray depth (kernel K3; its backward K4).
+    """PER_PIXEL_KBUFFER tiled render: every pixel resorts its tile's
+    stream through a window of ``k`` entries by exact per-ray depth (kernel
+    K3; its backward K4).
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits),
     pairs, depth_acc [H, W]), as the JAX package's ``render_tiled_kbuffer``
-    does. ``snapshot`` as in ``render_tiled``.
+    does. ``snapshot`` as in ``render_tiled``; binning tile 16x16 or 32x16.
     """
-    grid_x, grid_y = tile_grid(image_width, image_height)
-    pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
-                        sort_order=sort_order,
-                        tile_based_culling=tile_based_culling, campos=campos,
-                        inverse_vp=inverse_vp, image_width=image_width,
-                        image_height=image_height)
+    pairs, segs, (grid_x, grid_y) = _binned_pairs(
+        prep, resort_subdivision(tile_x, tile_y), image_width=image_width,
+        image_height=image_height, sort_order=sort_order,
+        tile_based_culling=tile_based_culling, campos=campos,
+        inverse_vp=inverse_vp)
     rows = _rows(prep)
     cam = (prep.cov3d_inv9.detach().contiguous(),
            inverse_vp.detach().contiguous(), campos.detach().contiguous())
     if _needs_grad(rows):
         color, final_t, n_contrib, depth_acc = BlendKBuffer.apply(
             *rows, *cam, pairs, k, grid_x, grid_y, image_width, image_height,
-            snapshot)
+            snapshot, segs)
     else:
         color, final_t, n_contrib, depth_acc = blend_kbuffer_forward(
-            pairs.gauss_id, pairs.starts, pairs.ends, *rows, *cam, k=k,
+            pairs.gauss_id, segs.starts, segs.ends, *rows, *cam, k=k,
             grid_x=grid_x, grid_y=grid_y, width=image_width,
             height=image_height)
     color = color + final_t[None, :, :] * bg[:, None, None]
@@ -156,22 +251,24 @@ def render_tiled_hier(
     tile_based_culling: bool = False,
     hier_4x4_culling: bool = False,
     snapshot=None,
+    tile_x: int = TILE_X,
+    tile_y: int = TILE_Y,
 ):
-    """HIERARCHICAL tiled render (16x16 binning tiles): every tile's stream
-    cascades through the tail (4x4 sub-tile), mid (2x2 quad) and head (pixel)
+    """HIERARCHICAL tiled render: every 16x16 tile's stream cascades
+    through the tail (4x4 sub-tile), mid (2x2 quad) and head (pixel)
     windows of ``queue_sizes`` = (tile_4x4, tile_2x2, per_pixel) entries, and
     a head pop blends (kernel K5; its backward K6).
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits with
     alpha > 0), pairs, depth_acc [H, W]), as the JAX package's
-    ``render_tiled_hier`` does. ``snapshot`` as in ``render_tiled``.
+    ``render_tiled_hier`` does. ``snapshot`` as in ``render_tiled``; binning
+    tile 16x16 or 32x16.
     """
-    grid_x, grid_y = tile_grid(image_width, image_height)
-    pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
-                        sort_order=sort_order,
-                        tile_based_culling=tile_based_culling, campos=campos,
-                        inverse_vp=inverse_vp, image_width=image_width,
-                        image_height=image_height)
+    pairs, segs, (grid_x, grid_y) = _binned_pairs(
+        prep, resort_subdivision(tile_x, tile_y), image_width=image_width,
+        image_height=image_height, sort_order=sort_order,
+        tile_based_culling=tile_based_culling, campos=campos,
+        inverse_vp=inverse_vp)
     rows = _rows(prep)
     # The depths, the culling thresholds and the camera only choose the
     # cascade's order and validity: no gradient flows into them.
@@ -182,10 +279,10 @@ def render_tiled_hier(
     if _needs_grad(rows):
         color, final_t, n_contrib, depth_acc = BlendHier.apply(
             *rows, *cam, pairs, queues, hier_4x4_culling, grid_x, grid_y,
-            image_width, image_height, snapshot)
+            image_width, image_height, snapshot, segs)
     else:
         color, final_t, n_contrib, depth_acc = blend_hier_forward(
-            pairs.gauss_id, pairs.starts, pairs.ends, *rows, *cam,
+            pairs.gauss_id, segs.starts, segs.ends, *rows, *cam,
             queue_sizes=queues, hier_4x4_culling=hier_4x4_culling,
             grid_x=grid_x, grid_y=grid_y, width=image_width,
             height=image_height)
@@ -203,25 +300,26 @@ def render_tiled_full(
     inverse_vp,
     sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
     tile_based_culling: bool = False,
+    tile_x: int = TILE_X,
+    tile_y: int = TILE_Y,
 ):
-    """PER_PIXEL_FULL tiled render (16x16 binning tiles): every pixel sorts
-    its tile's whole stream by exact per-ray depth and blends it (kernel K7).
-    Forward only, like the reference's renderSortedFullCUDA: the inputs are
-    detached. There is no segment cap.
+    """PER_PIXEL_FULL tiled render: every pixel sorts its 16x16 tile's
+    whole stream by exact per-ray depth and blends it (kernel K7). Forward
+    only, like the reference's renderSortedFullCUDA: the inputs are
+    detached. There is no segment cap. Binning tile 16x16 or 32x16.
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits),
     pairs, depth_acc [H, W]), as the JAX package's ``render_tiled_full``
     does.
     """
-    grid_x, grid_y = tile_grid(image_width, image_height)
-    pairs = build_pairs(prep, grid_x=grid_x, grid_y=grid_y,
-                        sort_order=sort_order,
-                        tile_based_culling=tile_based_culling, campos=campos,
-                        inverse_vp=inverse_vp, image_width=image_width,
-                        image_height=image_height)
+    pairs, segs, (grid_x, grid_y) = _binned_pairs(
+        prep, resort_subdivision(tile_x, tile_y), image_width=image_width,
+        image_height=image_height, sort_order=sort_order,
+        tile_based_culling=tile_based_culling, campos=campos,
+        inverse_vp=inverse_vp)
     rows = [r.detach() for r in _rows(prep)]
     color, final_t, n_contrib, depth_acc = blend_full_forward(
-        pairs.gauss_id, pairs.starts, pairs.ends, *rows,
+        pairs.gauss_id, segs.starts, segs.ends, *rows,
         prep.cov3d_inv9.detach().contiguous(),
         inverse_vp.detach().contiguous(), campos.detach().contiguous(),
         grid_x=grid_x, grid_y=grid_y, width=image_width, height=image_height)

@@ -46,23 +46,25 @@ class PreprocessOutput(NamedTuple):
     opacity_power_threshold: torch.Tensor  # [P] log(opacity / alpha_thresh)
 
 
-def get_rect(mean2d, rect_dims, grid_x: int, grid_y: int):
-    """Tile-space bounding rect of a screen-space extent box.
+def get_rect(mean2d, rect_dims, grid_x: int, grid_y: int,
+             tile_x: int = TILE_X, tile_y: int = TILE_Y):
+    """Tile-space bounding rect of a screen-space extent box, in binning
+    tiles of ``tile_x`` x ``tile_y`` pixels.
 
     Reference: auxiliary.h:91-101 (getRect) — min inclusive, max exclusive,
     both clamped to [0, grid].
     """
     lo = torch.stack(
         [
-            torch.clamp(torch.floor((mean2d[..., 0] - rect_dims[..., 0]) / TILE_X), 0, grid_x),
-            torch.clamp(torch.floor((mean2d[..., 1] - rect_dims[..., 1]) / TILE_Y), 0, grid_y),
+            torch.clamp(torch.floor((mean2d[..., 0] - rect_dims[..., 0]) / tile_x), 0, grid_x),
+            torch.clamp(torch.floor((mean2d[..., 1] - rect_dims[..., 1]) / tile_y), 0, grid_y),
         ],
         dim=-1,
     ).to(torch.int32)
     hi = torch.stack(
         [
-            torch.clamp(torch.ceil((mean2d[..., 0] + rect_dims[..., 0]) / TILE_X), 0, grid_x),
-            torch.clamp(torch.ceil((mean2d[..., 1] + rect_dims[..., 1]) / TILE_Y), 0, grid_y),
+            torch.clamp(torch.ceil((mean2d[..., 0] + rect_dims[..., 0]) / tile_x), 0, grid_x),
+            torch.clamp(torch.ceil((mean2d[..., 1] + rect_dims[..., 1]) / tile_y), 0, grid_y),
         ],
         dim=-1,
     ).to(torch.int32)
@@ -91,12 +93,19 @@ def preprocess(
     rect_bounding: bool = False,
     tight_opacity_bounding: bool = False,
     proper_ewa_scaling: bool = False,
+    tile_x: int = TILE_X,
+    tile_y: int = TILE_Y,
 ) -> PreprocessOutput:
-    """Preprocess all Gaussians in one masked pass (16x16 binning tiles)."""
+    """Preprocess all Gaussians in one masked pass.
+
+    ``tile_x`` x ``tile_y`` is the binning tile (16x16, the reference's,
+    by default; config.h:16-17): ``rect_min``, ``rect_max`` and
+    ``tiles_touched`` count binning tiles.
+    """
     P = means3d.shape[0]
     opacities = opacities.reshape(P)
-    grid_x = (image_width + TILE_X - 1) // TILE_X
-    grid_y = (image_height + TILE_Y - 1) // TILE_Y
+    grid_x = (image_width + tile_x - 1) // tile_x
+    grid_y = (image_height + tile_y - 1) // tile_y
     # Focal lengths from tan-fov, reference rasterizer_impl.cu:251-252.
     focal_y = image_height / (2.0 * tanfovy)
     focal_x = image_width / (2.0 * tanfovx)
@@ -151,7 +160,8 @@ def preprocess(
         ext_y = radius
     rect_dims = torch.stack([ext_x, ext_y], dim=-1)
 
-    rect_min, rect_max = get_rect(mean2d, rect_dims, grid_x, grid_y)
+    rect_min, rect_max = get_rect(mean2d, rect_dims, grid_x, grid_y,
+                                  tile_x, tile_y)
     tile_count = torch.prod(
         torch.clamp(rect_max - rect_min, min=0), dim=-1
     ).to(torch.int32)

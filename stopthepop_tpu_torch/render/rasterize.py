@@ -21,6 +21,13 @@ package. There is no pair capacity: the pair count is read back once per
 frame, as in the reference. The debug paths are ported too: the six debug
 visualization modes and ``render_depth`` (render/debug_viz.py), and the
 ``debug=True`` failure snapshots (utils/snapshot.py).
+
+``tile_shape`` = (tile_x, tile_y) sets the binning tile, as in the JAX
+package (``None``: 16x16, the reference's). GLOBAL takes any multiple of 16
+on each side (32x16 is the JAX package's benchmarked and trained default),
+the resort modes 16x16 and 32x16; any other raises NotImplementedError
+naming the binning tile (render/pipeline.py). ``num_rendered`` counts the
+binning tiles' pairs.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..config import (
     GlobalSortOrder,
     SortMode,
 )
+from ..constants import TILE_X, TILE_Y
 from ..kernels.hier_blend import check_hier_queues
 from ..kernels.kbuffer_blend import check_window
 from ..ops.transforms import mark_visible
@@ -43,10 +51,13 @@ from .debug_viz import DebugVisualizationData, apply_debug_visualization
 from .duplicate import rect_histogram
 from .naive import render_full_sort_naive
 from .pipeline import (
+    blend_tile_parents,
+    global_subdivision,
     render_tiled,
     render_tiled_full,
     render_tiled_hier,
     render_tiled_kbuffer,
+    resort_subdivision,
     tile_grid,
 )
 from .preprocess import preprocess
@@ -89,8 +100,9 @@ class RenderOutput(NamedTuple):
     depth_acc: torch.Tensor  # [H, W] sum(depth * alpha * T) (PPX_KBUFFER,
                              # HIER and PPX_FULL: the depth along the
                              # pixel's ray)
-    num_rendered: int        # (tile, Gaussian) pairs of this frame (the
-                             # dense PPX_FULL path: those its rects imply)
+    num_rendered: int        # (binning tile, Gaussian) pairs of this frame
+                             # (the dense PPX_FULL path: those its rects
+                             # imply)
 
 
 def _check_supported(rs: GaussianRasterizationSettings):
@@ -115,6 +127,18 @@ def _check_supported(rs: GaussianRasterizationSettings):
     return mode, order, queues
 
 
+def _binning_tile(mode: SortMode, tile_shape):
+    """(tile_x, tile_y) of ``tile_shape`` (None: 16x16), or
+    NotImplementedError where ``mode`` does not take it."""
+    tile = (TILE_X, TILE_Y) if tile_shape is None else tuple(
+        int(v) for v in tile_shape)
+    if mode == SortMode.GLOBAL:
+        global_subdivision(*tile)
+    else:
+        resort_subdivision(*tile)
+    return tile
+
+
 def rasterize_gaussians(
     means3D,
     means2D,
@@ -130,8 +154,12 @@ def rasterize_gaussians(
     full_mode: str = "auto",
     debug_visualization: DebugVisualization = DebugVisualization.Disabled,
     debug_data: Optional[DebugVisualizationData] = None,
+    tile_shape: Optional[tuple] = None,
 ):
     """Render. Returns (color, radii) like the reference, or RenderOutput.
+
+    ``tile_shape`` = (tile_x, tile_y) is the binning tile (module notes);
+    ``None`` is 16x16.
 
     ``full_mode`` chooses PER_PIXEL_FULL's backend: "naive", the dense
     differentiable oracle (render/naive.py); "tiled", kernel K7, forward
@@ -153,7 +181,8 @@ def rasterize_gaussians(
     args = (means3D, means2D, sh, colors_precomp, opacities, scales,
             rotations, cov3Ds_precomp, raster_settings)
     kw = dict(full_output=full_output, full_mode=full_mode,
-              debug_visualization=debug_visualization, debug_data=debug_data)
+              debug_visualization=debug_visualization, debug_data=debug_data,
+              tile_shape=tile_shape)
     rs = raster_settings
     if not rs.debug:
         return _rasterize_impl(*args, **kw)
@@ -189,6 +218,7 @@ def _rasterize_impl(
     full_mode: str,
     debug_visualization: DebugVisualization,
     debug_data: Optional[DebugVisualizationData],
+    tile_shape: Optional[tuple],
     snapshot=None,
 ):
     rs = raster_settings
@@ -202,6 +232,7 @@ def _rasterize_impl(
     rotations = none_if_empty(rotations)
     cov3Ds_precomp = none_if_empty(cov3Ds_precomp)
     sort_mode, sort_order, queues = _check_supported(rs)
+    tile_x, tile_y = _binning_tile(sort_mode, tile_shape)
     ext = rs.settings
     dev = means3D.device
     W, H = int(rs.image_width), int(rs.image_height)
@@ -244,6 +275,8 @@ def _rasterize_impl(
         rect_bounding=ext.culling_settings.rect_bounding,
         tight_opacity_bounding=ext.culling_settings.tight_opacity_bounding,
         proper_ewa_scaling=ext.proper_ewa_scaling,
+        tile_x=tile_x,
+        tile_y=tile_y,
     )
     if means2D is not None and means2D.numel():
         # Densification-gradient dummy: a value-neutral reroute, so that
@@ -252,7 +285,8 @@ def _rasterize_impl(
         prep = prep._replace(mean2d=prep.mean2d + m2d - m2d.detach())
     kw = dict(image_width=W, image_height=H, sort_order=sort_order,
               tile_based_culling=ext.culling_settings.tile_based_culling,
-              campos=campos, inverse_vp=inverse_vp)
+              campos=campos, inverse_vp=inverse_vp, tile_x=tile_x,
+              tile_y=tile_y)
     num_rendered, pairs = None, None
     if sort_mode == SortMode.PPX_FULL:
         inputs = (means3D, means2D, sh, colors_precomp, opacities, scales,
@@ -262,7 +296,7 @@ def _rasterize_impl(
         if full_backend(full_mode, dev, wants_grad, means3D.shape[0], W,
                         H) == "naive":
             color, final_t, n_contrib, depth_acc = render_full_sort_naive(
-                prep, bg, W, H, campos, inverse_vp)
+                prep, bg, W, H, campos, inverse_vp, tile=(tile_x, tile_y))
             final_t, n_contrib = final_t.reshape(H, W), n_contrib.reshape(H, W)
             num_rendered = int(prep.tiles_touched.sum())
         else:
@@ -291,15 +325,18 @@ def _rasterize_impl(
     if rs.render_depth and viz_mode == DebugVisualization.Disabled:
         viz_mode = DebugVisualization.Depth
     if viz_mode != DebugVisualization.Disabled:
-        # The dense FULL oracle builds no pair list: its per-tile counts
-        # are those its rects imply.
-        pair_counts = (pairs.ends - pairs.starts if pairs is not None
-                       else rect_histogram(prep, *tile_grid(W, H)))
+        # The pairs each 16x16 blend tile reads: its binning tile's. The
+        # dense FULL oracle builds no pair list: its counts are those its
+        # rects imply.
+        counts = (pairs.ends - pairs.starts if pairs is not None else
+                  rect_histogram(prep, *tile_grid(W, H, tile_x, tile_y)))
+        parent, _ = blend_tile_parents(W, H, tile_x // TILE_X,
+                                       tile_y // TILE_Y, dev)
         color = apply_debug_visualization(
             viz_mode, final_t=final_t, n_contrib=n_contrib,
-            depth_acc=depth_acc, pair_counts=pair_counts, prep=prep,
+            depth_acc=depth_acc, pair_counts=counts[parent], prep=prep,
             campos=campos, inverse_vp=inverse_vp, width=W, height=H,
-            data=debug_data)
+            data=debug_data, tile=(tile_x, tile_y))
     if full_output:
         return RenderOutput(
             color, prep.radii, final_t, n_contrib, depth_acc,

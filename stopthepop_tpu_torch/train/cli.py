@@ -15,10 +15,12 @@ GPU, queues ``SortQueueSizes`` (64, 8, 4); ``--device cpu`` runs their plain
 versions), or with ``--sort-mode GLOBAL`` the global-sort pipeline (kernels
 K1 and K2) or with ``--sort-mode PPX_KBUFFER`` the k-buffer pipeline
 (kernels K3 and K4, window ``SortQueueSizes.per_pixel`` = 4). Rasterization
-uses rect, tight-opacity and tile-based culling, as the JAX CLI does. The JAX
-CLI's TPU flags (pair capacity, segment cap, binning tile, bf16 carriers,
-rank key, interpret mode) have no counterpart: the pair count is dynamic
-here. A ``--data`` directory with a ``sparse/`` subdirectory is a COLMAP
+uses rect, tight-opacity and tile-based culling, as the JAX CLI does.
+``--tile`` sets the binning tile of training and evaluation: ``auto`` (the
+default, as in the JAX CLI) is 32x16 in GLOBAL and 16x16 otherwise;
+``--tile 16x16`` is reference parity. The JAX CLI's TPU flags (pair
+capacity, segment cap, bf16 carriers, rank key, interpret mode) have no
+counterpart: the pair count is dynamic here. A ``--data`` directory with a ``sparse/`` subdirectory is a COLMAP
 capture: every 8th view (sorted by name) is held out for evaluation, the
 model starts from its ``points3D`` cloud and the scene extent is 1.1 times
 the largest distance of a camera centre from their centroid, as in the JAX
@@ -151,6 +153,18 @@ def init_model(rng: np.random.Generator, n_points: int, extent: float,
     return from_points(pts, cols, sh_degree=sh_degree, device=device)
 
 
+def binning_tile(tile: str, sort_mode: SortMode):
+    """``--tile``'s binning tile: ``auto`` is 32x16 in GLOBAL and 16x16
+    otherwise (the JAX CLI's rule); "WxH" is that tile; 16x16 is None."""
+    if tile == "auto":
+        return (32, 16) if sort_mode == SortMode.GLOBAL else None
+    try:
+        tw, th = (int(v) for v in tile.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--tile must be auto or WxH, got {tile!r}") from None
+    return None if (tw, th) == (16, 16) else (tw, th)
+
+
 def main(argv=None) -> TrainResult:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--data", required=True,
@@ -187,6 +201,9 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--tile", default="auto",
+                    help="binning tile WxH (auto = 32x16 for GLOBAL, "
+                         "16x16 otherwise)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -232,11 +249,15 @@ def main(argv=None) -> TrainResult:
                            args.sh_degree, device)
     static = make_static_settings(cams[0], bg, args.sh_degree, sort_mode,
                                   device)
+    render_kwargs = {"tile_shape": binning_tile(args.tile, sort_mode)}
+    if render_kwargs["tile_shape"] is not None:
+        print(f"perf defaults: {render_kwargs}", flush=True)
     optimizer = make_3dgs_optimizer(model, spatial_lr_scale=args.scene_extent,
                                     position_lr_max_steps=args.iters)
     state = init_train_state(model, optimizer)
     stats = init_densify_stats(model.num_gaussians, device)
-    step_fn = make_train_step(static=static, sh_ramp_every=args.sh_ramp_every)
+    step_fn = make_train_step(static=static, sh_ramp_every=args.sh_ramp_every,
+                              render_kwargs=render_kwargs)
     cam_arrays = [to_camera_arrays(c, device) for c in cams]
     targets = torch.as_tensor(targets, dtype=torch.float32, device=device)
     eval_arrays = [to_camera_arrays(c, device) for c in eval_cams]
@@ -249,8 +270,8 @@ def main(argv=None) -> TrainResult:
 
     def evaluate():
         with torch.inference_mode():
-            vals = [float(psnr(render_model(state.model, ca, static=static)[0],
-                               tgt))
+            vals = [float(psnr(render_model(state.model, ca, static=static,
+                                            **render_kwargs)[0], tgt))
                     for ca, tgt in zip(eval_arrays, eval_targets)]
         return sum(vals) / len(vals)
 

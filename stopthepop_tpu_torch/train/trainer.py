@@ -155,9 +155,10 @@ def means2d_leaf(model: GaussianModel) -> torch.Tensor:
 def step_forward(state: TrainState, cam: CameraArrays, target, *,
                  static: GaussianRasterizationSettings,
                  lambda_dssim: float = 0.2, sh_ramp_every: int = 0,
-                 means2d_dummy=None):
+                 means2d_dummy=None, render_kwargs=None):
     """The step's forward stage: render (kernel K1, K3 in PPX_KBUFFER, K5 in
-    HIER) and L1 + D-SSIM.
+    HIER) and L1 + D-SSIM. ``render_kwargs`` go to ``rasterize_gaussians``
+    (e.g. ``tile_shape``).
 
     Returns (loss, RenderOutput, means2d_dummy): the dummy (a new
     ``means2d_leaf`` unless one is given) is the leaf whose gradient the
@@ -179,7 +180,7 @@ def step_forward(state: TrainState, cam: CameraArrays, target, *,
     out = rasterize_gaussians(
         model.means3d, means2d_dummy, shs, None, model.opacities(),
         model.scales(), model.rotations_normalized(), None, rs,
-        full_output=True,
+        full_output=True, **(render_kwargs or {}),
     )
     return rgb_loss(out.color, target, lambda_dssim), out, means2d_dummy
 
@@ -214,18 +215,21 @@ def make_train_step(
     static: GaussianRasterizationSettings,
     lambda_dssim: float = 0.2,
     sh_ramp_every: int = 0,
+    render_kwargs=None,
 ):
     """Returns (state, cam, target, stats) -> (state, stats, aux).
 
     ``sh_ramp_every > 0`` enables the upstream trainer's progressive SH
     schedule (one more band every N steps, up to ``static.sh_degree``).
+    ``render_kwargs`` pass extra rasterize options through (``tile_shape``:
+    the JAX package's GLOBAL-mode training default is (32, 16)).
     ``aux`` holds the loss as a 0-d tensor (read it with ``float`` only
     where the host needs it: that waits for the device)."""
 
     def train_step(state: TrainState, cam: CameraArrays, target, stats):
         loss, out, means2d_dummy = step_forward(
             state, cam, target, static=static, lambda_dssim=lambda_dssim,
-            sh_ramp_every=sh_ramp_every)
+            sh_ramp_every=sh_ramp_every, render_kwargs=render_kwargs)
         step_backward(state, loss)
         state = step_update(state)
         stats = update_densify_stats(stats, out, means2d_dummy)
@@ -239,6 +243,7 @@ def make_batched_train_step(
     *,
     static: GaussianRasterizationSettings,
     lambda_dssim: float = 0.2,
+    render_kwargs=None,
 ):
     """Like make_train_step, but over a BATCH of cameras per step.
 
@@ -254,7 +259,8 @@ def make_batched_train_step(
     ``vmap``. Densify stats accumulate per-camera visibility and that
     gradient scaled back by B, like B single-camera steps. No progressive
     SH schedule, as in the JAX batched step. ``aux`` holds the mean loss (a
-    0-d tensor) and each camera's pair count.
+    0-d tensor) and each camera's pair count. ``render_kwargs`` as in
+    make_train_step.
     """
 
     def train_step(state: TrainState, cams: CameraArrays, targets, stats):
@@ -266,7 +272,8 @@ def make_batched_train_step(
             cam = CameraArrays(*(x[b] for x in cams))
             loss, out, _ = step_forward(
                 state, cam, targets[b], static=static,
-                lambda_dssim=lambda_dssim, means2d_dummy=means2d_dummy)
+                lambda_dssim=lambda_dssim, means2d_dummy=means2d_dummy,
+                render_kwargs=render_kwargs)
             (loss / B).backward()
             losses.append(loss.detach())
             radii.append(out.radii)
