@@ -13,6 +13,8 @@ Run from the root of the repository on a machine with one NVIDIA H100:
     python3 chip_smoke.py --parallel-only  # the build and phase 24 alone,
                                            # one rank per card (a host of
                                            # several cards); no last line
+    python3 chip_smoke.py --cascade-only   # the build and phase 25 alone;
+                                           # no last line
 
 Phases, one JSON line each; any failure exits non-zero:
   1. build: compile every CUDA kernel of the port with nvcc (in parallel);
@@ -158,8 +160,16 @@ Phases, one JSON line each; any failure exits non-zero:
      backward passes at 32x16 bitwise. (d) The serving path (4 orbit
      frames) and the training step (5 steps) in GLOBAL at 16x16 and
      32x16, the steps in PPX_KBUFFER and HIER and the PPX_FULL frames at
-     32x16: pairs, frame and step ms and stages, launches, peak memory,
-     each path with the launch counts set to 0 just before it.
+     32x16, and GLOBAL steps at 24x16 and 8x8: pairs, frame and step ms and
+     stages, launches, peak memory, each path with the launch counts set to
+     0 just before it. (e) GLOBAL at bins whose sides are not multiples of
+     16, cut into pieces of at most 16x16 (20x12 on the 70x45 scene, 24x16
+     and 8x8 on the bench frame): K1 on the pieces bitwise its plain
+     version, and its image and final T bitwise the 16x16 grid's; K2 with
+     its planes within 1e-4 of each column's largest value of its plain
+     version, two launches bitwise; at 1080p the plain versions' counts,
+     K1's and K2's times and bounds, and the API's image bitwise the 16x16
+     one.
  24. parallel: the multi-device layer (stopthepop_tpu_torch/parallel/), one
      process per card through parallel/hosts.py::launch (spawned, NCCL, a
      file store); a rank that fails fails the phase. Each rank, on the bench
@@ -185,13 +195,32 @@ Phases, one JSON line each; any failure exits non-zero:
      just after (K1, K3 or K5 once a band and frame; the forward and
      backward kernels once a step); ms a frame and a step, peak memory a
      rank.
- 25. the kernels line: each ported kernel with its launches on its main
+ 25. cascade: HIER's batched cascade (batched_cascade=True). (a) K5 and K6
+     batched against their plain versions, bitwise (K6 also two launches
+     bitwise), on phase 7's two 70x45 scenes at queues (64, 8, 4),
+     (16, 5, 3), (8, 4, 2), (256, 20, 16) and (16, 8, 4) with hierarchical
+     4x4 and tile-based culling, the deep 32x32 scene, the clone trap scene
+     at (16, 8, 4), and (b) the 1080p/500K bench frame at (64, 8, 4), with
+     each case's largest difference from the per-entry image (some case
+     must differ); at 1080p also two full BlendHier backward passes
+     bitwise, the times of K5 and K6 batched and per-entry and of their
+     plain versions, the bounds from the plain versions' counts, and the
+     batched instantiations' registers, spills and blocks an SM. (c) 4
+     orbit frames through the API, batched and per-entry (K5 once a frame),
+     (d) the PSNR against the FULL render of frame 0 of HIER 64/8/4 and
+     16/8/4 (PTD_MAX), batched and per-entry, as phase 17 renders them, and
+     (e) 5 training steps with the batched cascade (K5 and K6 once a step),
+     each path with the launch counts set to 0 just before it.
+ 26. the kernels line: each ported kernel with its launches on its main
      path (the training steps of phase 5 for K1/K2, of phase 10 for K3/K4
      and of phase 14 for K6, the HIER frames of phase 12 for K5, the FULL
      frames of phase 16 for K7), its error against the plain version, its
      time, the plain version's time and its bound on this card; under
      "at_tile" its time, error and launches at 32x16 (phase 23's steps,
-     the FULL frames for K7) and, for K1, K2, K4 and K6, its bound there.
+     the FULL frames for K7) and, for K1, K2, K4 and K6, its bound there,
+     and for K1 and K2 the same at 24x16 and 8x8 (phase 23's steps); under
+     "batched" K5's and K6's with the batched cascade (phase 25's frames
+     for K5, its steps for K6).
 The line before the last is the card's name and power limit from nvidia-smi;
 the last line is {"ok": true, "device": {...}}.
 
@@ -292,6 +321,17 @@ PAR_BANDS, RING_CAPACITY = 4, 4_000_000
 # default, and the fewest pairs a bench frame must emit at it (~0.83M
 # expected, 1.28M at 16x16).
 TILE, MIN_PAIRS_TILE = (32, 16), 500_000
+# GLOBAL bins whose sides are not multiples of 16 (cut into pieces of at most
+# 16x16): on the bench frame, and on the 70x45 scene.
+ODD_TILES, ODD_SMALL_TILE = ((24, 16), (8, 8)), (20, 12)
+# Phase cascade: HIER's batched cascade on the 70x45 scenes at these
+# (queues, hierarchical 4x4 and tile-based culling); (16, 5, 3) has a mid
+# window that is no multiple of the sub-batch of 8.
+CASC_SMALL_CASES = (((64, 8, 4), False), ((16, 5, 3), False),
+                    ((8, 4, 2), False), ((256, 20, 16), False),
+                    ((16, 8, 4), True))
+# The sort-mode cases of phase quality that the batched cascade renders too.
+CASC_QUALITY = (("HIER 64/8/4", (64, 8, 4)), ("HIER 16/8/4", (16, 8, 4)))
 
 
 def emit(obj):
@@ -353,7 +393,7 @@ def binned_pairs(prep, tile, tile_based_culling=False, width=None,
                         tile_based_culling=tile_based_culling,
                         tile_x=tile[0], tile_y=tile[1])
     segs = split_binning_segments(pairs.starts, pairs.ends, width, height,
-                                  tile[0] // 16, tile[1] // 16)
+                                  *tile)
     return pairs, pairs._replace(starts=segs.starts, ends=segs.ends), segs
 
 
@@ -616,23 +656,25 @@ def hier_args(prep, pairs, cam):
     return (*args[:7], prep.opacity_power_threshold.contiguous(), *args[7:])
 
 
-def compare_hier(name, args, kw, *, count_evaluations=False):
+def compare_hier(name, args, kw, *, count_evaluations=False,
+                 phase="kernel_hier"):
     """K5 against its plain version, to the bit; returns stats."""
     from stopthepop_tpu_torch.kernels import hier_blend as hb
 
     stats, _ = compare_resort(
-        "kernel_hier", name, hb.blend_hier_forward,
+        phase, name, hb.blend_hier_forward,
         hb.blend_hier_forward_plain, args, kw,
         count_evaluations=count_evaluations)
     check(stats["max_abs_err_color"] == 0.0
           and stats["max_abs_err_final_t"] == 0.0
-          and stats["max_rel_err_depth_acc"] == 0.0, "kernel_hier",
+          and stats["max_rel_err_depth_acc"] == 0.0, phase,
           f"{name}: K5 is not bitwise equal to its plain version: {stats}")
     return {"queues": list(kw["queue_sizes"]),
             "hier_4x4_culling": kw["hier_4x4_culling"], **stats}
 
 
-def compare_hier_bwd(name, args, kw, cotangents, *, count_evaluations=False):
+def compare_hier_bwd(name, args, kw, cotangents, *, count_evaluations=False,
+                     phase="kernel_hier_bwd"):
     """K6 against its plain version on K5's output for ``args``. Returns
     (stats, K6 inputs)."""
     from stopthepop_tpu_torch.kernels import hier_blend as hb
@@ -640,7 +682,7 @@ def compare_hier_bwd(name, args, kw, cotangents, *, count_evaluations=False):
     fwd = hb.blend_hier_forward(*args, **kw)
     bwd_args = (*args, fwd[0], fwd[1], fwd[2], *cotangents)
     stats = compare_resort_bwd(
-        "kernel_hier_bwd", name, hb.blend_hier_backward,
+        phase, name, hb.blend_hier_backward,
         hb.blend_hier_backward_plain, bwd_args, kw,
         count_evaluations=count_evaluations)
     return {"queues": list(kw["queue_sizes"]),
@@ -1389,6 +1431,8 @@ def compare_planes(phase, name, wrapper, plain, bwd_args, kw, segs, *,
     from stopthepop_tpu_torch.kernels.global_blend import GRAD_COLS
 
     planes = {"sub_tile": segs.sub_tile, "num_sub": segs.num_sub}
+    if segs.pieces is not None:
+        planes["pieces"] = segs.pieces
     before = wrapper.launches
     got = wrapper(*bwd_args, **kw, **planes)
     again = wrapper(*bwd_args, **kw, **planes)
@@ -1618,7 +1662,10 @@ def tile_phase(model, bench_cam, cams, small, static, target, cotangents,
         for p in PARAM_NAMES}
     check(max(grad_err.values()) <= K2_RTOL, "tile",
           f"32x16 gradients against 16x16: {grad_err}")
-    del imgs, grads
+    del grads
+    out["odd"] = odd_bins(model, bench_cam, small, static, cam, imgs["16x16"],
+                          cotangents, dev)
+    del imgs
     with torch.no_grad():
         prep, pairs, view, segs, kw = prepare_binned(
             model_arrays(model), bench_cam, WIDTH, HEIGHT, TILE)
@@ -1659,11 +1706,107 @@ def tile_phase(model, bench_cam, cams, small, static, target, cotangents,
                 f"tile_train_{mode}_{name}", model, mode_static, cam, target,
                 dev, ks, render_kwargs=kwargs, min_pairs=MIN_PAIRS_TILE)
             out[f"train_{mode}_{name}"] = fields
+    for tile in ODD_TILES:
+        name = f"{tile[0]}x{tile[1]}"
+        out[f"train_GLOBAL_{name}"], _, _ = train_phase(
+            f"tile_train_GLOBAL_{name}", model, static, cam, target, dev,
+            ("k1", "k2"), render_kwargs={"tile_shape": tile},
+            min_pairs=MIN_PAIRS_TILE)
     # PPX_FULL serves at 32x16 too (K7 once a frame); phase 16 at 16x16.
     out["main_full_32x16"], _ = serve_phase(
         "tile_main_full_32x16", model, cams, culled_settings(SortMode.PPX_FULL),
         "k7", kb_args, functools.partial(fb.blend_full_forward, **kw16), dev,
         tile=TILE, min_pairs=MIN_PAIRS_TILE)
+    return out
+
+
+def odd_bins(model, bench_cam, small, static, cam, img16, cotangents, dev):
+    """Phase 23 (e): GLOBAL at binning tiles whose sides are not multiples
+    of 16, cut into pieces of at most 16x16 pixels: K1 on the pieces
+    bitwise its plain version and its image and final T bitwise the 16x16
+    grid's, K2 with its planes within K2_RTOL of its plain version (20x12 on
+    the 70x45 scene; ODD_TILES on the bench frame, with the plain versions'
+    counts, both kernels' times and bounds); the API's image at each of
+    ODD_TILES bitwise the 16x16 one (``img16``). Returns the fields."""
+    from stopthepop_tpu_torch.kernels import global_blend as gb
+    from stopthepop_tpu_torch.render.cli import render_model
+    from stopthepop_tpu_torch.utils.testing import make_camera
+
+    out = {}
+    small_cam = make_camera(70, 45, device=dev)
+    P = NUM_GAUSSIANS
+    for case, arrays, ccam, (w, h), tiles in (
+            ("70x45", small, small_cam, (70, 45), (ODD_SMALL_TILE,)),
+            ("1080p", model_arrays(model), bench_cam, (WIDTH, HEIGHT),
+             ODD_TILES)):
+        bench = case == "1080p"
+        with torch.no_grad():
+            prep16, pairs16, _, _, kw16 = prepare_binned(arrays, ccam, w, h,
+                                                         (16, 16))
+            ref16 = gb.blend_global_forward(*blend_args(prep16, pairs16),
+                                            **kw16)
+            del prep16, pairs16
+            cot = cotangents(w, h)
+            for tile in tiles:
+                name = f"{case} {tile[0]}x{tile[1]}"
+                prep, pairs, view, segs, kw = prepare_binned(arrays, ccam, w,
+                                                             h, tile)
+                check(segs.pieces is not None, "tile",
+                      f"{name}: no piece table")
+                pkw = {**kw, "pieces": segs.pieces}
+                args = blend_args(prep, view)
+                st = {"pairs": pairs.num_rendered,
+                      "pieces": int(segs.pieces.shape[0]),
+                      "planes": segs.num_sub}
+                st["k1"] = compare_kernel(f"{name} K1", args, pkw,
+                                          count_evaluations=bench)
+                fwd = gb.blend_global_forward(*args, **pkw)
+                st["k1_bitwise_16x16"] = (torch.equal(fwd[0], ref16[0])
+                                          and torch.equal(fwd[1], ref16[1]))
+                check(st["k1_bitwise_16x16"], "tile",
+                      f"{name}: K1's image is not the 16x16 grid's")
+                k2_args = (*args[:6], *fwd[:3], *cot)
+                warps = {}
+                st["k2"], extra = compare_planes(
+                    "tile", f"{name} K2", gb.blend_global_backward,
+                    gb.blend_global_backward_plain, k2_args, kw, segs,
+                    bitwise=False,
+                    plain_kw={"count_evaluations": True,
+                              "warp_counts": warps} if bench else None)
+                if bench:
+                    planes = {"sub_tile": segs.sub_tile,
+                              "num_sub": segs.num_sub, "pieces": segs.pieces}
+                    st["k2"].update(evaluations=extra[0], blends=extra[1],
+                                    **warps,
+                                    footprint_kept_share=kept_share(warps))
+                    st["ms"] = {
+                        "k1": cuda_ms(lambda: gb.blend_global_forward(
+                            *args, **pkw), 20),
+                        "k2": cuda_ms(lambda: gb.blend_global_backward(
+                            *k2_args, **kw, **planes), 20)}
+                    N, T = pairs.num_rendered, segs.pieces.shape[0]
+                    bounds = {
+                        "k1": bound_ms(
+                            4 * (N + 6 * T + P * 10 + WIDTH * HEIGHT * 6),
+                            OPS_PER_EVAL * st["k1"]["evaluations_kept"]
+                            + OPS_PER_BLEND * st["k1"]["blends"]),
+                        "k2": bound_ms(
+                            4 * (N + 7 * T + P * 9 + WIDTH * HEIGHT * 9
+                                 + segs.num_sub * N * 9),
+                            OPS_PER_EVAL * st["k2"]["evaluations_kept"]
+                            + OPS_PER_BLEND_BWD * st["k2"]["blends"])}
+                    st["bound_ms"] = {k: max(b) for k, b in bounds.items()}
+                    st["bound_by"] = {
+                        k: "bytes" if b[0] >= b[1] else "operations"
+                        for k, b in bounds.items()}
+                out[name] = st
+                del prep, pairs, view, segs, args, fwd, k2_args
+    for tile in ODD_TILES:
+        with torch.no_grad():
+            img, _ = render_model(model, cam, static=static, tile_shape=tile)
+        same = torch.equal(img, img16)
+        check(same, "tile", f"the API's image at {tile} is not the 16x16 one")
+        out[f"1080p {tile[0]}x{tile[1]}"]["api_image_bitwise_16x16"] = same
     return out
 
 
@@ -1673,12 +1816,9 @@ def tile_only(dev):
     settings and target and phase 4's cotangents. Returns its fields."""
     from stopthepop_tpu_torch.config import GaussianRasterizationSettings
     from stopthepop_tpu_torch.io.cameras import orbit_camera
-    from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+    from stopthepop_tpu_torch.utils.testing import make_camera
 
-    scene = random_scene(0, 300, device=dev)
-    small = {"means3d": scene.means3d, "opacities": scene.opacities,
-             "scales": scene.scales, "rotations": scene.rotations,
-             "shs": scene.shs}
+    small = small_scene_arrays(dev)[0][1]
     bench_cam = make_camera(WIDTH, HEIGHT, campos=(0.0, 0.0, -4.0), device=dev)
     cams = [orbit_camera(2 * math.pi * i / FRAMES, math.radians(60.0), WIDTH,
                          HEIGHT) for i in range(FRAMES)]
@@ -1698,6 +1838,229 @@ def tile_only(dev):
                         generator=torch.Generator(device=dev).manual_seed(1))
     return tile_phase(bench_model(dev), bench_cam, cams, small, static, target,
                       cotangents, dev)
+
+
+def small_scene_arrays(dev):
+    """The two 70x45 scenes of phases 2 and 7 (the second of larger
+    Gaussians, whose windows overflow more): (case, arrays) each."""
+    from stopthepop_tpu_torch.utils.testing import random_scene
+
+    out = []
+    for case, kw in (("70x45 random scene, 300 Gaussians", {}),
+                     ("70x45 random scene, 300 larger Gaussians",
+                      {"scale_range": (0.05, 0.4)})):
+        sc = random_scene(0, 300, device=dev, **kw)
+        out.append((case, {"means3d": sc.means3d, "opacities": sc.opacities,
+                           "scales": sc.scales, "rotations": sc.rotations,
+                           "shs": sc.shs}))
+    return tuple(out)
+
+
+def hier_frames(model, cams, settings, dev, batched):
+    """HIER frames of ``model`` from ``cams`` through the API
+    (render/cli.py::render_model), with the batched cascade where
+    ``batched``: (colours, seconds)."""
+    from stopthepop_tpu_torch.config import GaussianRasterizationSettings
+    from stopthepop_tpu_torch.io.cameras import to_camera_arrays
+    from stopthepop_tpu_torch.render.cli import render_model
+
+    static = GaussianRasterizationSettings(
+        image_height=HEIGHT, image_width=WIDTH, tanfovx=cams[0].tanfovx,
+        tanfovy=cams[0].tanfovy, bg=torch.zeros(3, device=dev),
+        scale_modifier=1.0, viewmatrix=None, projmatrix=None,
+        inv_viewprojmatrix=None, sh_degree=3, campos=None, prefiltered=False,
+        settings=settings)
+    arrays = [to_camera_arrays(c, dev) for c in cams]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        colors = [render_model(model, a, static=static,
+                               batched_cascade=batched)[0] for a in arrays]
+    torch.cuda.synchronize()
+    return colors, time.perf_counter() - t0
+
+
+def cascade_phase(model, bench_cam, cams, static, target, cotangents, dev):
+    """Phase 25: HIER's batched cascade (see the module notes). Returns the
+    phase's fields."""
+    from stopthepop_tpu_torch.config import GlobalSortOrder, SortMode
+    from stopthepop_tpu_torch.io.cameras import CameraArrays
+    from stopthepop_tpu_torch.kernels import hier_blend as hb
+    from stopthepop_tpu_torch.kernels.blend_vjp import BlendHier
+    from stopthepop_tpu_torch.render.cli import render_frames
+    from stopthepop_tpu_torch.utils.testing import clone_trap_scene, make_camera
+
+    out = {"sub_batch": hb.CASC_BATCH, "occupancy": {
+        kernel: {f"MID,HEAD={m},{h} kt=64": hb.occupancy(kernel, 64, m, h,
+                                                          batched=True)
+                 for m in hb.MID_SIZES for h in hb.HEAD_SIZES}
+        for kernel in (hb.KERNEL, hb.BWD_KERNEL)}}
+
+    def both(case, args, kw, size, count_evaluations=False):
+        """Batched K5 and K6 against their plain versions, to the bit, and
+        how far the batched image lies from the per-entry one."""
+        bkw = {**kw, "batched_cascade": True}
+        st = {"case": case,
+              "k5": compare_hier(case, args, bkw, phase="cascade",
+                                 count_evaluations=count_evaluations)}
+        st["k6"], bwd_args = compare_hier_bwd(
+            case, args, bkw, cotangents(*size), phase="cascade",
+            count_evaluations=count_evaluations)
+        per_entry = hb.blend_hier_forward(*args, **kw)
+        st["max_abs_diff_per_entry"] = float(
+            (bwd_args[-5] - per_entry[0]).abs().max())
+        return st, bwd_args
+
+    # (a) The 70x45 scenes, the deep 32x32 scene and the clone trap scene.
+    cases = []
+    small_cam = make_camera(70, 45, device=dev)
+    trap = clone_trap_scene(dev)
+    trap_arrays = {"means3d": trap.means3d, "opacities": trap.opacities,
+                   "scales": trap.scales, "rotations": trap.rotations,
+                   "shs": trap.shs}
+    with torch.no_grad():
+        for case, arrays in small_scene_arrays(dev):
+            for queues, cull in CASC_SMALL_CASES:
+                prep, pairs, kw = prepare(arrays, small_cam, 70, 45,
+                                          tile_based_culling=cull)
+                st, _ = both(f"{case}, queues={queues}, culling={cull}",
+                             hier_args(prep, pairs, small_cam),
+                             {**kw, "queue_sizes": queues,
+                              "hier_4x4_culling": cull}, (70, 45))
+                cases.append({"pairs": pairs.num_rendered, **st})
+        deep_case, (prep, pairs, kw), deep_cam = hier_deep_case(dev, "cascade")
+        st, _ = both(deep_case, hier_args(prep, pairs, deep_cam),
+                     {**kw, "queue_sizes": HIER_QUEUES,
+                      "hier_4x4_culling": False},
+                     (HIER_DEEP_SIZE, HIER_DEEP_SIZE))
+        cases.append({"pairs": pairs.num_rendered, **st})
+        trap_cam = make_camera(32, 32, device=dev)
+        prep, pairs, kw = prepare(trap_arrays, trap_cam, 32, 32)
+        st, _ = both("32x32 clone trap scene", hier_args(prep, pairs, trap_cam),
+                     {**kw, "queue_sizes": (16, 8, 4),
+                      "hier_4x4_culling": False}, (32, 32))
+        cases.append({"pairs": pairs.num_rendered, **st})
+    check(max(c["max_abs_diff_per_entry"] for c in cases) > 0.0, "cascade",
+          "no scene tells the batched cascade from the per-entry one")
+    out["cases"] = cases
+
+    # (b) The bench frame at the default queues: bitwise, times, bounds, and
+    # two full backward passes with the same bits.
+    hkw_pe = {"queue_sizes": HIER_QUEUES, "hier_4x4_culling": False}
+    with torch.no_grad():
+        prep, pairs, kw = prepare(model_arrays(model), bench_cam, WIDTH, HEIGHT)
+        args = hier_args(prep, pairs, bench_cam)
+        hkw = {**kw, **hkw_pe}
+        st, bwd_args = both("1080p", args, hkw, (WIDTH, HEIGHT),
+                            count_evaluations=True)
+        bkw = {**hkw, "batched_cascade": True}
+        fwd_pe = hb.blend_hier_forward(*args, **hkw)
+        bwd_pe = (*args, *fwd_pe[:3], *bwd_args[-2:])
+        ms = {}
+        for name, run in (
+                ("k5_batched", lambda: hb.blend_hier_forward(*args, **bkw)),
+                ("k5_per_entry", lambda: hb.blend_hier_forward(*args, **hkw)),
+                ("k6_batched", lambda: hb.blend_hier_backward(*bwd_args,
+                                                              **bkw)),
+                ("k6_per_entry", lambda: hb.blend_hier_backward(*bwd_pe,
+                                                                **hkw))):
+            ms[name] = cuda_ms(run, 20)
+        ms["k5_plain"] = cuda_ms(lambda: hb.blend_hier_forward_plain(
+            *args, **bkw), 1, 0)
+        ms["k6_plain"] = cuda_ms(lambda: hb.blend_hier_backward_plain(
+            *bwd_args, **bkw), 1, 0)
+    st["bitwise_repeat_backward"] = check_backward_repeats(
+        "cascade", "BlendHier (batched)", prep,
+        lambda *rows: BlendHier.apply(
+            *rows, *args[6:], pairs, HIER_QUEUES, False, kw["grid_x"],
+            kw["grid_y"], WIDTH, HEIGHT, None, None, True),
+        cotangents(WIDTH, HEIGHT))
+    N, T, P = pairs.num_rendered, kw["grid_x"] * kw["grid_y"], NUM_GAUSSIANS
+    bounds = {
+        "k5": bound_ms(4 * (N + 2 * T + P * 19 + 19 + WIDTH * HEIGHT * 6),
+                       hier_ops(st["k5"], OPS_PER_COMMIT)),
+        "k6": bound_ms(4 * (N + 2 * T + P * 19 + 19 + WIDTH * HEIGHT * 9
+                            + N * 9),
+                       hier_ops(st["k6"]["replay"], OPS_PER_COMMIT_BWD))}
+    out["bench"] = {**st, "pairs": N, "ms": ms,
+                    "bound_ms": {k: max(b) for k, b in bounds.items()},
+                    "bound_by": {k: "bytes" if b[0] >= b[1] else "operations"
+                                 for k, b in bounds.items()}}
+    del prep, pairs, args, bwd_args, fwd_pe, bwd_pe
+
+    # (c) The serving path: 4 orbit frames through the API, batched and
+    # per-entry, each with the launch counts set to 0 just before it.
+    hier_settings = culled_settings(SortMode.HIER)
+    hier_frames(model, cams[:1], hier_settings, dev, True)  # warm-up
+    for name, batched in (("frames_batched", True),
+                          ("frames_per_entry", False)):
+        reset_launches()
+        colors, dt = hier_frames(model, cams, hier_settings, dev, batched)
+        launches = read_launches()
+        check(launches["k5"] == len(cams)
+              and not any(n for k, n in launches.items() if k != "k5"),
+              "cascade", f"{name}: launches {launches}")
+        check(all(bool(torch.isfinite(c).all()) and bool((c != 0).any())
+                  for c in colors), "cascade", f"{name}: a frame is not finite "
+              "or is background")
+        out[name] = {"frames": len(cams), "ms_per_frame": dt * 1e3 / len(cams),
+                     "launches": launches}
+        del colors
+
+    # (d) Quality: frame 0 against the FULL render, batched and per-entry
+    # (the bench model as phase 17 renders it, before any step).
+    full_img = render_frames(model, cams[:1], culled_settings(SortMode.PPX_FULL),
+                             dev)[0].color
+    quality = {}
+    for case, queues in CASC_QUALITY:
+        q = culled_settings(SortMode.HIER)
+        q.sort_settings.sort_order = GlobalSortOrder.PTD_MAX
+        qs = q.sort_settings.queue_sizes
+        qs.tile_4x4, qs.tile_2x2, qs.per_pixel = queues
+        for batched in (True, False):
+            img = hier_frames(model, cams[:1], q, dev, batched)[0][0]
+            check(bool(torch.isfinite(img).all()), "cascade",
+                  f"{case}: not finite")
+            quality[f"{case} {'batched' if batched else 'per-entry'}"] = (
+                psnr_stats(img, full_img))
+    out["quality"] = quality
+
+    # (e) The training step, 5 steps, batched.
+    cam = CameraArrays(bench_cam.viewmatrix, bench_cam.projmatrix,
+                       bench_cam.inv_viewprojmatrix, bench_cam.campos)
+    out["train_batched"], _, _ = train_phase(
+        "cascade_train", model, static._replace(settings=hier_settings), cam,
+        target, dev, ("k5", "k6"), render_kwargs={"batched_cascade": True})
+    return out
+
+
+def cascade_only(dev):
+    """Phase 25 with the inputs the run before it would make (the bench
+    model and cameras, phase 5's settings and target, seeded cotangents).
+    Returns its fields."""
+    from stopthepop_tpu_torch.config import GaussianRasterizationSettings
+    from stopthepop_tpu_torch.io.cameras import orbit_camera
+    from stopthepop_tpu_torch.utils.testing import make_camera
+
+    bench_cam = make_camera(WIDTH, HEIGHT, campos=(0.0, 0.0, -4.0), device=dev)
+    cams = [orbit_camera(2 * math.pi * i / FRAMES, math.radians(60.0), WIDTH,
+                         HEIGHT) for i in range(FRAMES)]
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def cotangents(width, height):
+        return (torch.randn((3, height, width), generator=gen, device=dev),
+                torch.randn((height, width), generator=gen, device=dev))
+
+    static = GaussianRasterizationSettings(
+        image_height=HEIGHT, image_width=WIDTH, tanfovx=bench_cam.tanfovx,
+        tanfovy=bench_cam.tanfovy, bg=torch.zeros(3, device=dev),
+        scale_modifier=1.0, viewmatrix=None, projmatrix=None,
+        inv_viewprojmatrix=None, sh_degree=3, campos=None, prefiltered=False,
+        settings=culled_settings())
+    target = torch.rand((3, HEIGHT, WIDTH), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    return cascade_phase(bench_model(dev), bench_cam, cams, static, target,
+                         cotangents, dev)
 
 
 def parallel_settings(cam, mode):
@@ -2128,14 +2491,18 @@ _USED = re.compile(r"Used (\d+) registers.*?(\d+) bytes smem")
 def ptxas_summary(log: str):
     """{instantiation: {registers, spill_stores, spill_loads, smem}} from
     nvcc's -Xptxas -v output; a template's key is its MAX_K, or its
-    (MID_MAX, HEAD_MAX) for K5."""
+    (MID_MAX, HEAD_MAX) for K5 and K6 ("batched" added for the batched
+    cascade's), or "kernel" for K1 and K2 ("pieces" for the piece
+    table's)."""
     out, key = {}, None
     for line in log.splitlines():
         m = _ENTRY.search(line)
         if m:
             k = re.findall(r"Li(\d+)E", m.group(1))
+            flag = "Lb1E" in m.group(1)
             key = (f"MAX_K={k[0]}" if len(k) == 1 else
-                   f"MID,HEAD={','.join(k)}" if len(k) == 2 else "kernel")
+                   f"MID,HEAD={','.join(k)}" + (" batched" if flag else "")
+                   if len(k) == 2 else "pieces" if flag else "kernel")
             out[key] = {}
         elif key and (m := _SPILL.search(line)):
             out[key]["spill_stores"], out[key]["spill_loads"] = map(int, m.groups())
@@ -2162,7 +2529,7 @@ def main(argv=None) -> int:
     )
     from stopthepop_tpu_torch.models.gaussians import to_numpy_params
     from stopthepop_tpu_torch.render.cli import render_model
-    from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+    from stopthepop_tpu_torch.utils.testing import make_camera
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2194,12 +2561,17 @@ def main(argv=None) -> int:
               "seconds": time.perf_counter() - t0, "card": card})
         print(card)
         return 0
+    if "--cascade-only" in args:
+        t0 = time.perf_counter()
+        fields = cascade_only(dev)
+        emit({"phase": "cascade", "ok": True, **fields,
+              "seconds": time.perf_counter() - t0, "card": card})
+        print(card)
+        return 0
 
     # 2. kernel against plain version -----------------------------------------
-    scene = random_scene(0, 300, device=dev)
-    small = {"means3d": scene.means3d, "opacities": scene.opacities,
-             "scales": scene.scales, "rotations": scene.rotations,
-             "shs": scene.shs}
+    small_scenes = small_scene_arrays(dev)
+    small = small_scenes[0][1]
     prep, pairs, kw = prepare(small, make_camera(70, 45, device=dev), 70, 45)
     small_args, small_kw = blend_args(prep, pairs), kw
     small_stats = compare_kernel("70x45", small_args, small_kw)
@@ -2405,15 +2777,8 @@ def main(argv=None) -> int:
     from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
 
     # The 300-Gaussian scene of phase 2, and the same draw with larger
-    # Gaussians, whose windows overflow more.
-    dense = random_scene(0, 300, scale_range=(0.05, 0.4), device=dev)
+    # Gaussians, whose windows overflow more (small_scenes).
     small_cam = make_camera(70, 45, device=dev)
-    small_scenes = (
-        ("70x45 random scene, 300 Gaussians", small),
-        ("70x45 random scene, 300 larger Gaussians",
-         {"means3d": dense.means3d, "opacities": dense.opacities,
-          "scales": dense.scales, "rotations": dense.rotations,
-          "shs": dense.shs}))
     kb_cases, kb_small_stats = [], []  # (case, K3 inputs, kw, {k: K3 output})
     with torch.no_grad():
         for case, scene_arrays in small_scenes:
@@ -2801,20 +3166,53 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     emit_phase("parallel", lambda: parallel_phase(out_dir))
 
-    # 25. kernels -----------------------------------------------------------------
+    # 25. cascade: HIER's batched cascade ----------------------------------------
+    model = bench_model(dev)
+    t0 = time.perf_counter()
+    cascade = cascade_phase(model, bench_cam, cams, static, target,
+                            cotangents, dev)
+    emit({"phase": "cascade", "ok": True, **cascade,
+          "seconds": time.perf_counter() - t0, "card": card})
+    del model
+
+    # 26. kernels -----------------------------------------------------------------
     def at_tile(key, launches):
-        """A kernel's numbers at the 32x16 binning tile (phase 23)."""
+        """A kernel's numbers at the binning tiles of phase 23: 32x16 and,
+        for K1 and K2, the odd bins of ODD_TILES."""
         bench = tile["bench"]
-        return {"tile": list(TILE), "ms": bench["ms"][key],
-                "launches": launches,
-                "max_abs_err": max(tile["small"][key].get(
-                    "max_abs_err", tile["small"][key].get("max_abs_err_color")),
-                    bench["kernels"][key].get(
-                        "max_abs_err",
-                        bench["kernels"][key].get("max_abs_err_color"))),
-                **({"bound_ms": bench["bound_ms"][key],
-                    "bound_by": bench["bound_by"][key]}
-                   if key in bench["bound_ms"] else {})}
+        rows = [{"tile": list(TILE), "ms": bench["ms"][key],
+                 "launches": launches,
+                 "max_abs_err": max(tile["small"][key].get(
+                     "max_abs_err",
+                     tile["small"][key].get("max_abs_err_color")),
+                     bench["kernels"][key].get(
+                         "max_abs_err",
+                         bench["kernels"][key].get("max_abs_err_color"))),
+                 **({"bound_ms": bench["bound_ms"][key],
+                     "bound_by": bench["bound_by"][key]}
+                    if key in bench["bound_ms"] else {})}]
+        for t in (ODD_TILES if key in ("k1", "k2") else ()):
+            odd = tile["odd"][f"1080p {t[0]}x{t[1]}"]
+            st = odd[key]
+            rows.append({
+                "tile": list(t), "ms": odd["ms"][key],
+                "launches": tile[f"train_GLOBAL_{t[0]}x{t[1]}"]["launches"][key],
+                "max_abs_err": st.get("max_abs_err",
+                                      st.get("max_abs_err_color")),
+                "bound_ms": odd["bound_ms"][key],
+                "bound_by": odd["bound_by"][key]})
+        return rows
+
+    def batched(key, launches):
+        """K5's or K6's numbers with the batched cascade (phase 25)."""
+        bench = cascade["bench"]
+        errs = [c[key].get("max_abs_err", c[key].get("max_abs_err_color"))
+                for c in (*cascade["cases"], bench)]
+        return {"ms": bench["ms"][f"{key}_batched"],
+                "plain_ms": bench["ms"][f"{key}_plain"],
+                "launches": launches, "max_abs_err": max(errs),
+                "bound_ms": bench["bound_ms"][key],
+                "bound_by": bench["bound_by"][key]}
 
     emit({"kernels": [{
         "name": global_blend.KERNEL, "route": "cuda",
@@ -2872,6 +3270,7 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if k5_bytes_ms >= k5_ops_ms else "operations",
         "library_ms": None,
         "at_tile": at_tile("k5", tile["train_HIER_32x16"]["launches"]["k5"]),
+        "batched": batched("k5", cascade["frames_batched"]["launches"]["k5"]),
     }, {
         "name": hb.BWD_KERNEL, "route": "cuda", "source": hb.BWD_SOURCE,
         "replaces": hb.BWD_REPLACES, "launches": train_hier["launches"]["k6"],
@@ -2882,6 +3281,8 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if k6_bytes_ms >= k6_ops_ms else "operations",
         "library_ms": None,
         "at_tile": at_tile("k6", tile["train_HIER_32x16"]["launches"]["k6"]),
+        "batched": batched("k6",
+                           cascade["train_batched"]["launches"]["k6"]),
     }, {
         "name": fb.KERNEL, "route": "cuda", "source": fb.SOURCE,
         "replaces": fb.REPLACES, "launches": serve_full["k7"],

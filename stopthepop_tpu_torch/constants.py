@@ -59,3 +59,7 @@ PAIR_CAPACITY_FACTOR = 16
 # per tail round; the reference's analogous batcher cadence is 32,
 # hierarchical_render.cuh:158-192 — 64 here fills half a stream chunk).
 TAIL_BATCH = 64
+# Sub-batch of the HIERARCHICAL batched cascade: the entries a mid or head
+# round sorts into its window at once (JAX kernels/hier_blend.py's
+# CASC_BATCH default); divides TAIL_BATCH.
+CASC_BATCH = 8

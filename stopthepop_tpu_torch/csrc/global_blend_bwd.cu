@@ -40,7 +40,11 @@
 // of S 16x16 blend tiles (render/pipeline.py::split_binning_segments) the S
 // blocks of a binning tile replay the same segment, and block b writes
 // plane sub_tile[b], so no two blocks write one row; the caller sums the
-// planes in a fixed order. Without sub_tile (16x16 bins) S = 1.
+// planes in a fixed order. Without sub_tile (16x16 bins) S = 1. A binning
+// tile whose sides are not multiples of 16 is cut into pieces of at most
+// 16x16, one block each (the PIECES instantiation, as in K1): a piece's
+// origin and extent come from the piece table, the lanes outside it start
+// done, and its plane is its index in the parent.
 //
 // What bounds it on an H100: the same (pixel, pair) evaluations as K1, each
 // now about 3-4x K1's FP32 operations (replay, the alpha gradient and its
@@ -99,6 +103,7 @@ __device__ __forceinline__ void scatter_step(float (&v)[10], int off,
   }
 }
 
+template <bool PIECES>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 global_blend_bwd_kernel(const int* __restrict__ point_list,
                         const int* __restrict__ starts,
@@ -111,6 +116,7 @@ global_blend_bwd_kernel(const int* __restrict__ point_list,
                         const int* __restrict__ n_contrib,
                         const float* __restrict__ grad_color,
                         const float* __restrict__ grad_final_t,
+                        const int4* __restrict__ pieces,
                         int grid_x, int width, int height,
                         const int* __restrict__ sub_tile,
                         long long plane_floats,
@@ -126,12 +132,20 @@ global_blend_bwd_kernel(const int* __restrict__ point_list,
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int ox = (tile % grid_x) * kTileX;
-  const int oy = (tile / grid_x) * kTileY;
+  const int4 piece =
+      PIECES ? pieces[tile]
+             : make_int4((tile % grid_x) * kTileX, (tile / grid_x) * kTileY,
+                         kTileX, kTileY);
+  const int ox = piece.x;
+  const int oy = piece.y;
   const int2 in_tile = footprint::pixel_in_tile<kWarpW, kWarpH>(t);
   const int px = ox + in_tile.x;
   const int py = oy + in_tile.y;
-  const bool inside = px < width && py < height;
+  bool inside = px < width && py < height;
+  if constexpr (PIECES) {
+    inside = inside && in_tile.x < piece.z && in_tile.y < piece.w &&
+             px >= 0 && py >= 0;
+  }
   const float pfx = static_cast<float>(px);
   const float pfy = static_cast<float>(py);
 
@@ -273,6 +287,32 @@ global_blend_bwd_kernel(const int* __restrict__ point_list,
   }
 }
 
+template <bool PIECES>
+int run(const void* point_list, const void* starts, const void* ends,
+        const void* xy, const void* conic_opacity, const void* rgb,
+        const void* color, const void* final_t, const void* n_contrib,
+        const void* grad_color, const void* grad_final_t, const void* pieces,
+        int num_tiles, int grid_x, int width, int height,
+        const void* sub_tile, int num_pairs, void* d_pair, void* stream) {
+  if (num_tiles > 0) {
+    global_blend_bwd_kernel<PIECES><<<num_tiles, kBlock, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(point_list), static_cast<const int*>(starts),
+        static_cast<const int*>(ends), static_cast<const float2*>(xy),
+        static_cast<const float4*>(conic_opacity),
+        static_cast<const float*>(rgb), static_cast<const float*>(color),
+        static_cast<const float*>(final_t),
+        static_cast<const int*>(n_contrib),
+        static_cast<const float*>(grad_color),
+        static_cast<const float*>(grad_final_t),
+        static_cast<const int4*>(pieces), grid_x, width, height,
+        static_cast<const int*>(sub_tile),
+        static_cast<long long>(num_pairs) * kCols,
+        static_cast<float*>(d_pair));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // sub_tile: [grid_x * grid_y] int32, each blend tile's plane of d_pair, or
@@ -287,34 +327,38 @@ extern "C" int stp_global_blend_bwd(const void* point_list, const void* starts,
                                     int grid_y, int width, int height,
                                     const void* sub_tile, int num_pairs,
                                     void* d_pair, void* stream) {
-  const int num_tiles = grid_x * grid_y;
-  if (num_tiles > 0) {
-    global_blend_bwd_kernel<<<num_tiles, kBlock, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(point_list), static_cast<const int*>(starts),
-        static_cast<const int*>(ends), static_cast<const float2*>(xy),
-        static_cast<const float4*>(conic_opacity),
-        static_cast<const float*>(rgb), static_cast<const float*>(color),
-        static_cast<const float*>(final_t),
-        static_cast<const int*>(n_contrib),
-        static_cast<const float*>(grad_color),
-        static_cast<const float*>(grad_final_t), grid_x, width, height,
-        static_cast<const int*>(sub_tile),
-        static_cast<long long>(num_pairs) * kCols,
-        static_cast<float*>(d_pair));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run<false>(point_list, starts, ends, xy, conic_opacity, rgb, color,
+                    final_t, n_contrib, grad_color, grad_final_t, nullptr,
+                    grid_x * grid_y, grid_x, width, height, sub_tile,
+                    num_pairs, d_pair, stream);
+}
+
+// One block a piece: pieces [num_pieces] int4 (x0, y0, w, h), 16-byte
+// aligned; starts/ends and sub_tile [num_pieces] (sub_tile: each piece's
+// plane, its index in its parent).
+extern "C" int stp_global_blend_bwd_pieces(
+    const void* point_list, const void* starts, const void* ends,
+    const void* xy, const void* conic_opacity, const void* rgb,
+    const void* color, const void* final_t, const void* n_contrib,
+    const void* grad_color, const void* grad_final_t, const void* pieces,
+    int num_pieces, int width, int height, const void* sub_tile,
+    int num_pairs, void* d_pair, void* stream) {
+  return run<true>(point_list, starts, ends, xy, conic_opacity, rgb, color,
+                   final_t, n_contrib, grad_color, grad_final_t, pieces,
+                   num_pieces, 1, width, height, sub_tile, num_pairs, d_pair,
+                   stream);
 }
 
 // K2 on this device: out[0] resident blocks per SM, out[1] registers a
 // thread, out[2] local (spill) bytes a thread, out[3] shared bytes a block.
 extern "C" int stp_global_blend_bwd_occupancy(int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, global_blend_bwd_kernel);
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, global_blend_bwd_kernel<false>);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[1] = attr.numRegs;
   out[2] = static_cast<int>(attr.localSizeBytes);
   out[3] = static_cast<int>(attr.sharedSizeBytes);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, global_blend_bwd_kernel, kBlock, 0));
+      out, global_blend_bwd_kernel<false>, kBlock, 0));
 }

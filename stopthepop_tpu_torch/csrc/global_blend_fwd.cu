@@ -18,6 +18,14 @@
 //   * pixels outside the image start done and are not written; the block
 //     leaves its loop when __syncthreads_count says that every pixel is done.
 //
+// Binning tiles whose sides are not multiples of 16 (render/pipeline.py::
+// split_binning_segments) are cut, from their own origin, into pieces of at
+// most 16x16 pixels; the PIECES instantiation runs one block a piece, which
+// reads its origin and extent from the piece table, its parent's range
+// from starts/ends, and starts the lanes outside the piece done, as those
+// outside the image. The footprint masks use the block's whole 16x16 rect:
+// a larger rect only keeps more pairs, and no bit changes.
+//
 // Outputs, written straight into the image layout: color [3, H, W] (raw,
 // the background is composited by the caller), final_T [H, W], n_contrib
 // [H, W] (1-based position in the tile's segment of the last pair blended),
@@ -77,6 +85,7 @@ constexpr int kWarpH = 4;
 // (PERF.md).
 constexpr int kMinBlocks = 6;
 
+template <bool PIECES>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 global_blend_fwd_kernel(const int* __restrict__ point_list,
                         const int* __restrict__ starts,
@@ -85,6 +94,7 @@ global_blend_fwd_kernel(const int* __restrict__ point_list,
                         const float4* __restrict__ conic_opacity,
                         const float* __restrict__ rgb,
                         const float* __restrict__ depth,
+                        const int4* __restrict__ pieces,
                         int grid_x, int width, int height,
                         float* __restrict__ out_color,
                         float* __restrict__ out_final_t,
@@ -99,12 +109,20 @@ global_blend_fwd_kernel(const int* __restrict__ point_list,
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int ox = (tile % grid_x) * kTileX;
-  const int oy = (tile / grid_x) * kTileY;
+  const int4 piece =
+      PIECES ? pieces[tile]
+             : make_int4((tile % grid_x) * kTileX, (tile / grid_x) * kTileY,
+                         kTileX, kTileY);
+  const int ox = piece.x;
+  const int oy = piece.y;
   const int2 in_tile = footprint::pixel_in_tile<kWarpW, kWarpH>(t);
   const int px = ox + in_tile.x;
   const int py = oy + in_tile.y;
-  const bool inside = px < width && py < height;
+  bool inside = px < width && py < height;
+  if constexpr (PIECES) {
+    inside = inside && in_tile.x < piece.z && in_tile.y < piece.w &&
+             px >= 0 && py >= 0;
+  }
   const float pfx = static_cast<float>(px);
   const float pfy = static_cast<float>(py);
 
@@ -180,8 +198,29 @@ global_blend_fwd_kernel(const int* __restrict__ point_list,
   }
 }
 
+template <bool PIECES>
+int run(const void* point_list, const void* starts, const void* ends,
+        const void* xy, const void* conic_opacity, const void* rgb,
+        const void* depth, const void* pieces, int num_tiles, int grid_x,
+        int width, int height, void* out_color, void* out_final_t,
+        void* out_n_contrib, void* out_depth, void* stream) {
+  if (num_tiles > 0) {
+    global_blend_fwd_kernel<PIECES><<<num_tiles, kBlock, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(point_list), static_cast<const int*>(starts),
+        static_cast<const int*>(ends), static_cast<const float2*>(xy),
+        static_cast<const float4*>(conic_opacity),
+        static_cast<const float*>(rgb), static_cast<const float*>(depth),
+        static_cast<const int4*>(pieces), grid_x, width, height,
+        static_cast<float*>(out_color), static_cast<float*>(out_final_t),
+        static_cast<int*>(out_n_contrib), static_cast<float*>(out_depth));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// One block a 16x16 tile of the grid_x x grid_y image grid.
 extern "C" int stp_global_blend_fwd(const void* point_list, const void* starts,
                                     const void* ends, const void* xy,
                                     const void* conic_opacity, const void* rgb,
@@ -189,30 +228,34 @@ extern "C" int stp_global_blend_fwd(const void* point_list, const void* starts,
                                     int width, int height, void* out_color,
                                     void* out_final_t, void* out_n_contrib,
                                     void* out_depth, void* stream) {
-  const int num_tiles = grid_x * grid_y;
-  if (num_tiles > 0) {
-    global_blend_fwd_kernel<<<num_tiles, kBlock, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(point_list), static_cast<const int*>(starts),
-        static_cast<const int*>(ends), static_cast<const float2*>(xy),
-        static_cast<const float4*>(conic_opacity),
-        static_cast<const float*>(rgb), static_cast<const float*>(depth),
-        grid_x, width, height, static_cast<float*>(out_color),
-        static_cast<float*>(out_final_t), static_cast<int*>(out_n_contrib),
-        static_cast<float*>(out_depth));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run<false>(point_list, starts, ends, xy, conic_opacity, rgb, depth,
+                    nullptr, grid_x * grid_y, grid_x, width, height, out_color,
+                    out_final_t, out_n_contrib, out_depth, stream);
+}
+
+// One block a piece: pieces [num_pieces] int4 (x0, y0, w, h), 16-byte
+// aligned; starts/ends [num_pieces], each piece's parent range.
+extern "C" int stp_global_blend_fwd_pieces(
+    const void* point_list, const void* starts, const void* ends,
+    const void* xy, const void* conic_opacity, const void* rgb,
+    const void* depth, const void* pieces, int num_pieces, int width,
+    int height, void* out_color, void* out_final_t, void* out_n_contrib,
+    void* out_depth, void* stream) {
+  return run<true>(point_list, starts, ends, xy, conic_opacity, rgb, depth,
+                   pieces, num_pieces, 1, width, height, out_color,
+                   out_final_t, out_n_contrib, out_depth, stream);
 }
 
 // K1 on this device: out[0] resident blocks per SM, out[1] registers a
 // thread, out[2] local (spill) bytes a thread, out[3] shared bytes a block.
 extern "C" int stp_global_blend_fwd_occupancy(int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, global_blend_fwd_kernel);
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, global_blend_fwd_kernel<false>);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[1] = attr.numRegs;
   out[2] = static_cast<int>(attr.localSizeBytes);
   out[3] = static_cast<int>(attr.sharedSizeBytes);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, global_blend_fwd_kernel, kBlock, 0));
+      out, global_blend_fwd_kernel<false>, kBlock, 0));
 }

@@ -115,8 +115,11 @@ struct Grad {
   __device__ __forceinline__ void step_end() { router.step_end(); }
 };
 
-template <int MID_MAX, int HEAD_MAX>
-__global__ void __launch_bounds__(kBlock, (min_blocks<MID_MAX, HEAD_MAX>()))
+// The batched cascade at one block an SM: at two, the default sizes spill
+// (PERF.md).
+template <int MID_MAX, int HEAD_MAX, bool BATCHED>
+__global__ void __launch_bounds__(
+    kBlock, (BATCHED ? 1 : min_blocks<MID_MAX, HEAD_MAX, false>()))
 hier_blend_bwd_kernel(Args a, const float* __restrict__ color,
                       const float* __restrict__ final_t,
                       const int* __restrict__ n_contrib,
@@ -169,7 +172,8 @@ hier_blend_bwd_kernel(Args a, const float* __restrict__ color,
   }
   // Outside pixels have n_target 0 too. The replay's first barrier comes
   // before its first routing: the rows are zeroed and the features written.
-  replay<MID_MAX, HEAD_MAX>(a, p, sh, s_tail, hook, hook.n_target == 0);
+  replay<MID_MAX, HEAD_MAX, BATCHED>(a, p, sh, s_tail, hook,
+                                     hook.n_target == 0);
 
   __syncthreads();
   for (int idx = t; idx < count * kCols; idx += kBlock) {
@@ -180,16 +184,16 @@ hier_blend_bwd_kernel(Args a, const float* __restrict__ color,
   }
 }
 
-template <int MID_MAX, int HEAD_MAX>
+template <int MID_MAX, int HEAD_MAX, bool BATCHED>
 cudaError_t launch(const Args& a, int num_tiles, const void* color,
                    const void* final_t, const void* n_contrib,
                    const void* grad_color, const void* grad_final_t,
                    const void* sub_tile, int num_pairs, void* scratch,
                    void* d_pair, cudaStream_t stream) {
   cudaError_t err =
-      set_tail(hier_blend_bwd_kernel<MID_MAX, HEAD_MAX>, a.kt);
+      set_tail(hier_blend_bwd_kernel<MID_MAX, HEAD_MAX, BATCHED>, a.kt);
   if (err != cudaSuccess) return err;
-  hier_blend_bwd_kernel<MID_MAX, HEAD_MAX>
+  hier_blend_bwd_kernel<MID_MAX, HEAD_MAX, BATCHED>
       <<<num_tiles, kBlock, tail_bytes(a.kt), stream>>>(
           a, static_cast<const float*>(color),
           static_cast<const float*>(final_t),
@@ -201,8 +205,6 @@ cudaError_t launch(const Args& a, int num_tiles, const void* color,
   return cudaGetLastError();
 }
 
-}  // namespace
-
 #define STP_INSTANCES(X) \
   X(8, 4) X(8, 8) X(8, 16) X(12, 4) X(12, 8) X(12, 16) X(20, 4) X(20, 8) \
   X(20, 16)
@@ -213,15 +215,16 @@ cudaError_t launch(const Args& a, int num_tiles, const void* color,
 // rows of a plane. scratch: [S, N, 80] float32, one row of features and
 // per-warp sums a pair (written before it is read; no initial value
 // needed); d_pair: [S, N, 9].
-extern "C" int stp_hier_blend_bwd(
-    const void* point_list, const void* starts, const void* ends,
-    const void* xy, const void* conic_opacity, const void* rgb,
-    const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
-    float ndc_sy, int kt, int km, int kh, int mid_max, int head_max,
-    int culling, const void* color, const void* final_t,
-    const void* n_contrib, const void* grad_color, const void* grad_final_t,
-    int grid_x, int grid_y, int width, int height, const void* sub_tile,
-    int num_pairs, void* scratch, void* d_pair, void* stream) {
+template <bool BATCHED>
+int run(const void* point_list, const void* starts, const void* ends,
+        const void* xy, const void* conic_opacity, const void* rgb,
+        const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
+        float ndc_sy, int kt, int km, int kh, int mid_max, int head_max,
+        int culling, const void* color, const void* final_t,
+        const void* n_contrib, const void* grad_color,
+        const void* grad_final_t, int grid_x, int grid_y, int width,
+        int height, const void* sub_tile, int num_pairs, void* scratch,
+        void* d_pair, void* stream) {
   const int num_tiles = grid_x * grid_y;
   if (kt < 1 || kt > kTailMax || km < 1 || km > mid_max || kh < 1 ||
       kh > head_max) {
@@ -241,10 +244,9 @@ extern "C" int stp_hier_blend_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define STP_LAUNCH(M, H)                                                    \
   if (mid_max == M && head_max == H)                                        \
-    return static_cast<int>(launch<M, H>(a, num_tiles, color, final_t,      \
-                                         n_contrib, grad_color,             \
-                                         grad_final_t, sub_tile, num_pairs, \
-                                         scratch, d_pair, st));
+    return static_cast<int>(launch<M, H, BATCHED>(                          \
+        a, num_tiles, color, final_t, n_contrib, grad_color, grad_final_t,  \
+        sub_tile, num_pairs, scratch, d_pair, st));
   STP_INSTANCES(STP_LAUNCH)
 #undef STP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
@@ -253,13 +255,58 @@ extern "C" int stp_hier_blend_bwd(
 // The instantiation (mid_max, head_max) at tail size kt on this device:
 // out[0] resident blocks per SM, out[1] registers a thread, out[2] local
 // (spill) bytes a thread, out[3] shared bytes a block.
-extern "C" int stp_hier_blend_bwd_occupancy(int kt, int mid_max, int head_max,
-                                            int* out) {
-#define STP_OCC(M, H)                                        \
-  if (mid_max == M && head_max == H)                         \
-    return static_cast<int>(                                 \
-        occupancy(hier_blend_bwd_kernel<M, H>, kt, out));
+template <bool BATCHED>
+int query(int kt, int mid_max, int head_max, int* out) {
+#define STP_OCC(M, H)                                              \
+  if (mid_max == M && head_max == H)                               \
+    return static_cast<int>(                                       \
+        occupancy(hier_blend_bwd_kernel<M, H, BATCHED>, kt, out));
   STP_INSTANCES(STP_OCC)
 #undef STP_OCC
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// K6 with the per-entry cascade, and with the batched one (same interface).
+extern "C" int stp_hier_blend_bwd(
+    const void* point_list, const void* starts, const void* ends,
+    const void* xy, const void* conic_opacity, const void* rgb,
+    const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
+    float ndc_sy, int kt, int km, int kh, int mid_max, int head_max,
+    int culling, const void* color, const void* final_t,
+    const void* n_contrib, const void* grad_color, const void* grad_final_t,
+    int grid_x, int grid_y, int width, int height, const void* sub_tile,
+    int num_pairs, void* scratch, void* d_pair, void* stream) {
+  return run<false>(point_list, starts, ends, xy, conic_opacity, rgb, inv9,
+                    power_thr, cam, ndc_sx, ndc_sy, kt, km, kh, mid_max,
+                    head_max, culling, color, final_t, n_contrib, grad_color,
+                    grad_final_t, grid_x, grid_y, width, height, sub_tile,
+                    num_pairs, scratch, d_pair, stream);
+}
+
+extern "C" int stp_hier_blend_bwd_batched(
+    const void* point_list, const void* starts, const void* ends,
+    const void* xy, const void* conic_opacity, const void* rgb,
+    const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
+    float ndc_sy, int kt, int km, int kh, int mid_max, int head_max,
+    int culling, const void* color, const void* final_t,
+    const void* n_contrib, const void* grad_color, const void* grad_final_t,
+    int grid_x, int grid_y, int width, int height, const void* sub_tile,
+    int num_pairs, void* scratch, void* d_pair, void* stream) {
+  return run<true>(point_list, starts, ends, xy, conic_opacity, rgb, inv9,
+                   power_thr, cam, ndc_sx, ndc_sy, kt, km, kh, mid_max,
+                   head_max, culling, color, final_t, n_contrib, grad_color,
+                   grad_final_t, grid_x, grid_y, width, height, sub_tile,
+                   num_pairs, scratch, d_pair, stream);
+}
+
+extern "C" int stp_hier_blend_bwd_occupancy(int kt, int mid_max, int head_max,
+                                            int* out) {
+  return query<false>(kt, mid_max, head_max, out);
+}
+
+extern "C" int stp_hier_blend_bwd_batched_occupancy(int kt, int mid_max,
+                                                    int head_max, int* out) {
+  return query<true>(kt, mid_max, head_max, out);
 }

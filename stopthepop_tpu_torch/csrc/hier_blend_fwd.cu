@@ -60,8 +60,9 @@ struct Blend {
   __device__ __forceinline__ void step_end() {}
 };
 
-template <int MID_MAX, int HEAD_MAX>
-__global__ void __launch_bounds__(kBlock, (min_blocks<MID_MAX, HEAD_MAX>()))
+template <int MID_MAX, int HEAD_MAX, bool BATCHED>
+__global__ void __launch_bounds__(kBlock,
+                                  (min_blocks<MID_MAX, HEAD_MAX, BATCHED>()))
 hier_blend_fwd_kernel(Args a, float* __restrict__ out_color,
                       float* __restrict__ out_final_t,
                       int* __restrict__ out_n_contrib,
@@ -71,7 +72,7 @@ hier_blend_fwd_kernel(Args a, float* __restrict__ out_color,
   const Pixel p(a.grid_x, a.width, a.height);
   Blend hook{a.rgb};
   const float T =
-      replay<MID_MAX, HEAD_MAX>(a, p, sh, s_tail, hook, !p.inside);
+      replay<MID_MAX, HEAD_MAX, BATCHED>(a, p, sh, s_tail, hook, !p.inside);
   if (p.inside) {
     const int pix = p.py * a.width + p.px;
     const int plane = a.width * a.height;
@@ -84,21 +85,19 @@ hier_blend_fwd_kernel(Args a, float* __restrict__ out_color,
   }
 }
 
-template <int MID_MAX, int HEAD_MAX>
+template <int MID_MAX, int HEAD_MAX, bool BATCHED>
 cudaError_t launch(const Args& a, int num_tiles, void* out_color,
                    void* out_final_t, void* out_n_contrib, void* out_depth,
                    cudaStream_t stream) {
   cudaError_t err =
-      set_tail(hier_blend_fwd_kernel<MID_MAX, HEAD_MAX>, a.kt);
+      set_tail(hier_blend_fwd_kernel<MID_MAX, HEAD_MAX, BATCHED>, a.kt);
   if (err != cudaSuccess) return err;
-  hier_blend_fwd_kernel<MID_MAX, HEAD_MAX>
+  hier_blend_fwd_kernel<MID_MAX, HEAD_MAX, BATCHED>
       <<<num_tiles, kBlock, tail_bytes(a.kt), stream>>>(
           a, static_cast<float*>(out_color), static_cast<float*>(out_final_t),
           static_cast<int*>(out_n_contrib), static_cast<float*>(out_depth));
   return cudaGetLastError();
 }
-
-}  // namespace
 
 #define STP_INSTANCES(X) \
   X(8, 4) X(8, 8) X(8, 16) X(12, 4) X(12, 8) X(12, 16) X(20, 4) X(20, 8) \
@@ -106,14 +105,14 @@ cudaError_t launch(const Args& a, int num_tiles, void* out_color,
 
 // mid_max / head_max: the instantiation (mid in 8, 12, 20; head in 4, 8, 16),
 // km <= mid_max, kh <= head_max; kt in 1..512.
-extern "C" int stp_hier_blend_fwd(
-    const void* point_list, const void* starts, const void* ends,
-    const void* xy, const void* conic_opacity, const void* rgb,
-    const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
-    float ndc_sy, int kt, int km, int kh, int mid_max, int head_max,
-    int culling, int grid_x, int grid_y, int width, int height,
-    void* out_color, void* out_final_t, void* out_n_contrib, void* out_depth,
-    void* stream) {
+template <bool BATCHED>
+int run(const void* point_list, const void* starts, const void* ends,
+        const void* xy, const void* conic_opacity, const void* rgb,
+        const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
+        float ndc_sy, int kt, int km, int kh, int mid_max, int head_max,
+        int culling, int grid_x, int grid_y, int width, int height,
+        void* out_color, void* out_final_t, void* out_n_contrib,
+        void* out_depth, void* stream) {
   const int num_tiles = grid_x * grid_y;
   if (kt < 1 || kt > kTailMax || km < 1 || km > mid_max || kh < 1 ||
       kh > head_max) {
@@ -133,9 +132,9 @@ extern "C" int stp_hier_blend_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define STP_LAUNCH(M, H)                                                   \
   if (mid_max == M && head_max == H)                                       \
-    return static_cast<int>(launch<M, H>(a, num_tiles, out_color,          \
-                                         out_final_t, out_n_contrib,       \
-                                         out_depth, st));
+    return static_cast<int>(launch<M, H, BATCHED>(                         \
+        a, num_tiles, out_color, out_final_t, out_n_contrib, out_depth,    \
+        st));
   STP_INSTANCES(STP_LAUNCH)
 #undef STP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
@@ -144,13 +143,54 @@ extern "C" int stp_hier_blend_fwd(
 // The instantiation (mid_max, head_max) at tail size kt on this device:
 // out[0] resident blocks per SM, out[1] registers a thread, out[2] local
 // (spill) bytes a thread, out[3] shared bytes a block.
-extern "C" int stp_hier_blend_fwd_occupancy(int kt, int mid_max, int head_max,
-                                            int* out) {
-#define STP_OCC(M, H)                                        \
-  if (mid_max == M && head_max == H)                         \
-    return static_cast<int>(                                 \
-        occupancy(hier_blend_fwd_kernel<M, H>, kt, out));
+template <bool BATCHED>
+int query(int kt, int mid_max, int head_max, int* out) {
+#define STP_OCC(M, H)                                              \
+  if (mid_max == M && head_max == H)                               \
+    return static_cast<int>(                                       \
+        occupancy(hier_blend_fwd_kernel<M, H, BATCHED>, kt, out));
   STP_INSTANCES(STP_OCC)
 #undef STP_OCC
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// K5 with the per-entry cascade, and with the batched one (same interface).
+extern "C" int stp_hier_blend_fwd(
+    const void* point_list, const void* starts, const void* ends,
+    const void* xy, const void* conic_opacity, const void* rgb,
+    const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
+    float ndc_sy, int kt, int km, int kh, int mid_max, int head_max,
+    int culling, int grid_x, int grid_y, int width, int height,
+    void* out_color, void* out_final_t, void* out_n_contrib, void* out_depth,
+    void* stream) {
+  return run<false>(point_list, starts, ends, xy, conic_opacity, rgb, inv9,
+                    power_thr, cam, ndc_sx, ndc_sy, kt, km, kh, mid_max,
+                    head_max, culling, grid_x, grid_y, width, height,
+                    out_color, out_final_t, out_n_contrib, out_depth, stream);
+}
+
+extern "C" int stp_hier_blend_fwd_batched(
+    const void* point_list, const void* starts, const void* ends,
+    const void* xy, const void* conic_opacity, const void* rgb,
+    const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
+    float ndc_sy, int kt, int km, int kh, int mid_max, int head_max,
+    int culling, int grid_x, int grid_y, int width, int height,
+    void* out_color, void* out_final_t, void* out_n_contrib, void* out_depth,
+    void* stream) {
+  return run<true>(point_list, starts, ends, xy, conic_opacity, rgb, inv9,
+                   power_thr, cam, ndc_sx, ndc_sy, kt, km, kh, mid_max,
+                   head_max, culling, grid_x, grid_y, width, height,
+                   out_color, out_final_t, out_n_contrib, out_depth, stream);
+}
+
+extern "C" int stp_hier_blend_fwd_occupancy(int kt, int mid_max, int head_max,
+                                            int* out) {
+  return query<false>(kt, mid_max, head_max, out);
+}
+
+extern "C" int stp_hier_blend_fwd_batched_occupancy(int kt, int mid_max,
+                                                    int head_max, int* out) {
+  return query<true>(kt, mid_max, head_max, out);
 }

@@ -54,6 +54,25 @@
 //     three blocks an SM (80 registers), the other sizes up to (12, 8) for
 //     two, the rest for one; kt = 512 fits one block.
 //
+// The batched cascade (BATCHED, JAX render/naive.py's batched_cascade): the
+// tail is the same; its 64 emitted entries of a round enter the mid window
+// in 8 sub-batches of kCasc = 8, ghosts and drain pads among them keyed
+// -inf. Each mid round is the stable sort of the hold (km entries,
+// ascending, first all -inf "bubbles") and the sub-batch in emission order:
+// each entry goes behind every entry of equal or smaller key, one after the
+// other, in a register window of MID_MAX + 8 slots; the first 8 are emitted
+// and the last km kept. The emitted entries, keyed by their head depth
+// where the mid key is finite (else by that key, with alpha 0), run the
+// same round through a head window of HEAD_MAX + 8 slots (kh held), and
+// the head's 8 emitted entries blend in order, a step each. After the
+// tail's drain, ceil(km / 8) mid rounds of +inf pads, then the kh held
+// head entries blend in order. An entry of alpha 0 (bubble, ghost, pad, or
+// a real entry that gives the pixel nothing) changes nothing and is
+// skipped; so is a warp's sub-batch in which neither of its sub-tiles
+// emits a finite key (it changes nothing). The wider windows take
+// registers: the batched instantiations are built for fewer blocks an SM
+// (min_blocks).
+//
 // Numerics: accurate expf, IEEE division and square root, and built with
 // -fmad=false, so that each product and sum rounds as in the plain PyTorch
 // versions (kernels/hier_blend.py).
@@ -71,6 +90,7 @@ constexpr int kBlock = kTileX * kTileY;
 constexpr int kSub = 16;    // 4x4 sub-tiles of a tile
 constexpr int kQuads = 4;   // 2x2 quads of a sub-tile
 constexpr int kBatch = 64;  // TAIL_BATCH
+constexpr int kCasc = 8;    // CASC_BATCH: the batched cascade's sub-batch
 constexpr int kTailMax = 512;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaThreshold = 1.0f / 255.0f;
@@ -79,10 +99,13 @@ constexpr float kDenFloor = 1.0e-5f;
 constexpr float kPatch = 3.0f;  // the sub-tile rect's patch width
 
 // Blocks of 256 threads an SM should hold (__launch_bounds__): three at the
-// default window sizes, two up to (12, 8), one for the widest windows.
-template <int MID_MAX, int HEAD_MAX>
+// default window sizes, two up to (12, 8), one for the widest windows; for
+// the batched cascade two at the default sizes (K5; K6 takes one, which
+// ran faster on an H100 than two with spills, PERF.md) and one above.
+template <int MID_MAX, int HEAD_MAX, bool BATCHED>
 constexpr int min_blocks() {
-  return (MID_MAX == 8 && HEAD_MAX == 4) ? 3
+  return BATCHED ? ((MID_MAX == 8 && HEAD_MAX == 4) ? 2 : 1)
+         : (MID_MAX == 8 && HEAD_MAX == 4) ? 3
          : (MID_MAX <= 12 && HEAD_MAX <= 8) ? 2
                                            : 1;
 }
@@ -412,6 +435,24 @@ __device__ __forceinline__ bool finite_key(float k) {
   return k > -CUDART_INF_F && k < CUDART_INF_F;
 }
 
+// The batched cascade's windows: the slot of a new entry among the first n
+// (behind every entry of equal or smaller key), and the window after its
+// first kCasc entries leave.
+template <int N>
+__device__ __forceinline__ int win_pos_n(const float (&k)[N], int n,
+                                         float key) {
+  int pos = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) pos += (i < n && k[i] <= key) ? 1 : 0;
+  return pos;
+}
+
+template <int N, typename V>
+__device__ __forceinline__ void win_drop_casc(V (&w)[N]) {
+#pragma unroll
+  for (int i = 0; i + kCasc < N; ++i) w[i] = w[i + kCasc];
+}
+
 // The replay of one tile (the notes at the top). `done` is the pixel's latch
 // to start from (true outside the image, and in K6 where the pixel made no
 // commit). Hook:
@@ -421,9 +462,11 @@ __device__ __forceinline__ bool finite_key(float k) {
 //                        a head pop that commits (U >= 1e-4, the pixel not
 //                        done); true where the pixel's replay ends there;
 //   void step_end()      after every step (each emitted entry, each drain
-//                        step), called by every thread of the warp.
+//                        step; in the batched cascade each head blend and
+//                        each drain blend), called by every thread of the
+//                        warp.
 // Returns the pixel's final transmittance.
-template <int MID_MAX, int HEAD_MAX, class Hook>
+template <int MID_MAX, int HEAD_MAX, bool BATCHED, class Hook>
 __device__ __forceinline__ float replay(const Args& a, const Pixel& p,
                                         Smem<Hook::kByPosition>& sh,
                                         float* s_tail, Hook& hook,
@@ -467,21 +510,25 @@ __device__ __forceinline__ float replay(const Args& a, const Pixel& p,
 
   // Each lane keeps its own copy of its quad's mid window (mid key,
   // payload; empty slots +inf, -1) and its pixel's head window (head depth,
-  // alpha, payload; empty slots +inf, 0, 0).
-  float mk[MID_MAX];
-  int mp[MID_MAX];
+  // alpha, payload; empty slots +inf, 0, 0). The batched cascade's windows
+  // have 8 more slots and start as -inf bubbles (payload -1).
+  constexpr int MW = BATCHED ? MID_MAX + kCasc : MID_MAX;
+  constexpr int HW = BATCHED ? HEAD_MAX + kCasc : HEAD_MAX;
+  const float empty_key = BATCHED ? -kInf : kInf;
+  float mk[MW];
+  int mp[MW];
 #pragma unroll
-  for (int i = 0; i < MID_MAX; ++i) {
-    mk[i] = kInf;
+  for (int i = 0; i < MW; ++i) {
+    mk[i] = empty_key;
     mp[i] = -1;
   }
-  float hk[HEAD_MAX], ha[HEAD_MAX];
-  int hp[HEAD_MAX];
+  float hk[HW], ha[HW];
+  int hp[HW];
 #pragma unroll
-  for (int i = 0; i < HEAD_MAX; ++i) {
-    hk[i] = kInf;
+  for (int i = 0; i < HW; ++i) {
+    hk[i] = empty_key;
     ha[i] = 0.0f;
-    hp[i] = 0;
+    hp[i] = BATCHED ? -1 : 0;
   }
   // The Gaussian id of a payload.
   auto gid_of = [&](int pay) {
@@ -543,6 +590,55 @@ __device__ __forceinline__ float replay(const Args& a, const Pixel& p,
     }
   };
 
+  // The batched cascade's blend of an entry of alpha a0 > 0 and head depth
+  // d0 (0 where not finite) at a pixel that is not done.
+  auto casc_blend = [&](float a0, float d0, int pay) {
+    const float U = T * (1.0f - a0);
+    if (U < kTThreshold) {
+      done = true;
+    } else {
+      if (hook.commit(a0, T, finite_key(d0) ? d0 : 0.0f, gid_of(pay), pay)) {
+        done = true;
+      }
+      T = U;
+    }
+  };
+
+  // The batched cascade, once 8 entries have gone into the mid window (km
+  // + 8 held): its first 8 go into the head window in order, and the
+  // head's first 8 blend, a step each.
+  auto casc_emit = [&]() {
+    if (!done) {
+#pragma unroll
+      for (int j = 0; j < kCasc; ++j) {
+        const int pay = mp[j];
+        float key = mk[j], a_eff = 0.0f;
+        if (pay >= 0) {
+          Rows w;
+          load_rows(w, gid_of(pay), a);
+          float d_head;
+          eval_pixel(w, sh.vh[0][t], sh.vh[1][t], sh.vh[2][t], pfx, pfy,
+                     d_head, a_eff);
+          if (finite_key(key)) key = d_head;
+        }
+        const int pos = win_pos_n(hk, kh + j, key);
+        win_put(hk, pos, key);
+        win_put(ha, pos, a_eff);
+        win_put(hp, pos, pay);
+      }
+      win_drop_casc(mk);
+      win_drop_casc(mp);
+    }
+#pragma unroll
+    for (int j = 0; j < kCasc; ++j) {
+      if (!done && ha[j] > 0.0f) casc_blend(ha[j], hk[j], hp[j]);
+      hook.step_end();
+    }
+    win_drop_casc(hk);
+    win_drop_casc(ha);
+    win_drop_casc(hp);
+  };
+
   // Pop the mid front into the head (drain).
   auto mid_pop = [&]() {
     const int pay = mp[0];
@@ -590,6 +686,32 @@ __device__ __forceinline__ float replay(const Args& a, const Pixel& p,
     }
     __syncwarp(qmask);
 
+    if constexpr (BATCHED) {
+      // Ghosts and drain pads go into the mid window keyed -inf. A
+      // sub-batch of those alone changes nothing: it and the -inf entries
+      // at the holds' fronts (payload -1, alpha 0) trade places, and only
+      // -inf entries leave either window. So a warp whose two sub-tiles
+      // emit no finite key in a sub-batch skips it, its steps included
+      // (no lane commits there).
+      for (int e0 = 0; e0 < kBatch; e0 += kCasc) {
+        bool any = false;
+#pragma unroll
+        for (int j = 0; j < kCasc; ++j) any = any || finite_key(out_k[e0 + j]);
+        if (!__any_sync(0xffffffffu, any)) continue;
+        if (!done) {
+#pragma unroll
+          for (int j = 0; j < kCasc; ++j) {
+            const bool fin = finite_key(out_k[e0 + j]);
+            const float d = fin ? sh.mid[e0 + j][sq] : -kInf;
+            const int pos = win_pos_n(mk, km + j, d);
+            win_put(mk, pos, d);
+            win_put(mp, pos, fin ? out_p[e0 + j] : -1);
+          }
+        }
+        casc_emit();
+      }
+      return;
+    }
     for (int e = 0; e < kBatch; ++e) {
       if (!done && finite_key(out_k[e])) {
         const float d = sh.mid[e][sq];
@@ -661,13 +783,35 @@ __device__ __forceinline__ float replay(const Args& a, const Pixel& p,
       __syncthreads();
       tail_round(true);
     }
-    for (int i = 0; i < km; ++i) {
-      if (!done && fm > 0) mid_pop();
-      hook.step_end();
-    }
-    for (int i = 0; i < kh; ++i) {
-      if (!done && fh > 0) head_pop();
-      hook.step_end();
+    if constexpr (BATCHED) {
+      // ceil(km / 8) mid rounds of +inf pads, then the head hold in order.
+      for (int d = 0; d < km; d += kCasc) {
+        if (!done) {
+#pragma unroll
+          for (int j = 0; j < kCasc; ++j) {
+            const int pos = win_pos_n(mk, km + j, kInf);
+            win_put(mk, pos, kInf);
+            win_put(mp, pos, -1);
+          }
+        }
+        casc_emit();
+      }
+#pragma unroll
+      for (int j = 0; j < HEAD_MAX; ++j) {
+        if (j < kh) {
+          if (!done && ha[j] > 0.0f) casc_blend(ha[j], hk[j], hp[j]);
+          hook.step_end();
+        }
+      }
+    } else {
+      for (int i = 0; i < km; ++i) {
+        if (!done && fm > 0) mid_pop();
+        hook.step_end();
+      }
+      for (int i = 0; i < kh; ++i) {
+        if (!done && fh > 0) head_pop();
+        hook.step_end();
+      }
     }
   }
   return T;

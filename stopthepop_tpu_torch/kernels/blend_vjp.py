@@ -70,20 +70,26 @@ def _backward(ctx, grad_color, grad_final_t, run):
 
 
 class BlendSegments(NamedTuple):
-    """The pair ranges the 16x16 blend tiles read, and their planes."""
+    """The pair ranges the blend tiles read, their planes, and where the
+    binning tile's sides are not multiples of 16 the pieces they are."""
     starts: torch.Tensor              # [T] int32 per-blend-tile range start
     ends: torch.Tensor                # [T] int32 per-blend-tile range end
     sub_tile: Optional[torch.Tensor]  # [T] int32 plane of each tile, or None
     num_sub: int                      # planes: blend tiles a binning tile
+    # [T, 4] int32 (x0, y0, w, h) of each blend tile, or None for the
+    # image's 16x16 grid (GLOBAL only: K1 and K2 take it).
+    pieces: Optional[torch.Tensor] = None
 
 
 def _ranges(pairs, segs):
-    """(starts, ends, plane keywords of the backward wrappers)."""
+    """(starts, ends, plane and piece keywords of the backward wrappers)."""
     if segs is None:
         return pairs.starts, pairs.ends, {}
-    return segs.starts, segs.ends, (
-        {} if segs.sub_tile is None
-        else {"sub_tile": segs.sub_tile, "num_sub": segs.num_sub})
+    kw = {} if segs.sub_tile is None else {"sub_tile": segs.sub_tile,
+                                           "num_sub": segs.num_sub}
+    if segs.pieces is not None:
+        kw["pieces"] = segs.pieces
+    return segs.starts, segs.ends, kw
 
 
 def sum_planes(d_pair):
@@ -115,7 +121,8 @@ class BlendGlobal(torch.autograd.Function):
         kw = dict(grid_x=grid_x, grid_y=grid_y, width=width, height=height)
         starts, ends, planes = _ranges(pairs, segs)
         color, final_t, n_contrib, depth_acc = blend_global_forward(
-            pairs.gauss_id, starts, ends, xy, conic_opacity, rgb, depth, **kw)
+            pairs.gauss_id, starts, ends, xy, conic_opacity, rgb, depth, **kw,
+            pieces=planes.get("pieces"))
         ctx.save_for_backward(xy, conic_opacity, rgb, color, final_t,
                               n_contrib)
         ctx.pairs = pairs
@@ -183,15 +190,17 @@ class BlendHier(torch.autograd.Function):
     """(xy, conic_opacity, rgb, cov3d_inv9, opacity_power_threshold,
     inverse_vp, campos, pairs, queues, hier_4x4_culling, grid) -> K5's four
     outputs, differentiable in xy, conic_opacity and rgb through color and
-    final_T."""
+    final_T. A last, optional ``batched_cascade`` takes K5's and K6's
+    batched cadence."""
 
     @staticmethod
     def forward(ctx, xy, conic_opacity, rgb, cov3d_inv9,
                 opacity_power_threshold, inverse_vp, campos, pairs,
                 queue_sizes, hier_4x4_culling, grid_x, grid_y, width, height,
-                snapshot=None, segs=None):
+                snapshot=None, segs=None, batched_cascade=False):
         kw = dict(queue_sizes=queue_sizes, hier_4x4_culling=hier_4x4_culling,
-                  grid_x=grid_x, grid_y=grid_y, width=width, height=height)
+                  grid_x=grid_x, grid_y=grid_y, width=width, height=height,
+                  batched_cascade=batched_cascade)
         starts, ends, planes = _ranges(pairs, segs)
         color, final_t, n_contrib, depth_acc = blend_hier_forward(
             pairs.gauss_id, starts, ends, xy, conic_opacity, rgb,
@@ -215,4 +224,4 @@ class BlendHier(torch.autograd.Function):
                 grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw))
         d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
                               pairs.gauss_offsets)
-        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 13
+        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 14

@@ -85,6 +85,14 @@ def warp_footprint_mask(xy, conic_opacity, tile_origin, shape):
     return torch.where(cull_all, 0, mask)
 
 
+def tile_origins(grid_x: int, num_tiles: int, device):
+    """[T, 2] float32 pixel (0, 0) of each 16x16 tile of a ``grid_x``-wide
+    grid, tiles row-major."""
+    tile = torch.arange(num_tiles, device=device)
+    return torch.stack([(tile % grid_x) * TILE_X, (tile // grid_x) * TILE_X],
+                       dim=1).to(torch.float32)
+
+
 def segment_masks(point_list, starts, ends, xy, conic_opacity, grid_x,
                   shape):
     """[N] footprint masks of every sorted pair against its own tile."""
@@ -97,8 +105,7 @@ def segment_masks(point_list, starts, ends, xy, conic_opacity, grid_x,
             + torch.arange(tile.shape[0], device=dev) - first[tile])
     masks = torch.zeros(point_list.shape[0], dtype=torch.int32, device=dev)
     gid = point_list[slot].to(torch.int64)
-    origin = torch.stack([(tile % grid_x) * TILE_X, (tile // grid_x) * TILE_X],
-                         dim=1).to(torch.float32)
+    origin = tile_origins(grid_x, counts.shape[0], dev)[tile]
     masks[slot] = warp_footprint_mask(xy[gid], conic_opacity[gid], origin,
                                       shape)
     return masks
@@ -107,7 +114,9 @@ def segment_masks(point_list, starts, ends, xy, conic_opacity, grid_x,
 class WarpCounter:
     """What a kernel that culls by footprint does per (warp, pair) step of
     a replay that visits position j of every tile's segment at once
-    (states [T, 256], pixels row-major). ``counts``:
+    (states [T, 256], pixels row-major; the tiles' pixel (0, 0) at
+    ``origin`` [T, 2], so that tiles which share a segment each test it
+    against their own warps). ``counts``:
 
     * ``warp_pairs``: (warp, live pair) steps with some lane not yet done;
     * ``warp_pairs_kept``: those the footprint test keeps (the steps whose
@@ -119,14 +128,13 @@ class WarpCounter:
       most passes of one lane, summed (the rounds of K3's second phase).
     """
 
-    def __init__(self, point_list, starts, ends, xy, conic_opacity, grid_x,
-                 shape):
+    def __init__(self, point_list, xy, conic_opacity, origin, shape):
         self.perm = thread_pixels(shape).to(xy.device)
         self.warp_of = torch.empty_like(self.perm)   # each pixel's warp
         self.warp_of[self.perm] = torch.arange(TILE_PIXELS,
                                                device=xy.device) // 32
-        self.masks = segment_masks(point_list, starts, ends, xy,
-                                   conic_opacity, grid_x, shape)
+        self.rows = (point_list, xy, conic_opacity)
+        self.origin, self.shape = origin, shape
         self.chunk = None
         self.j = 0
         self.counts = dict.fromkeys(
@@ -139,7 +147,11 @@ class WarpCounter:
     def kept(self, pos):
         """[T, 256] (pixels row-major): whether each pixel's warp keeps the
         pair at sorted slot ``pos`` [T] of its tile."""
-        return ((self.masks[pos][:, None] >> self.warp_of) & 1) != 0
+        point_list, xy, conic_opacity = self.rows
+        gid = point_list[pos].to(torch.int64)
+        masks = warp_footprint_mask(xy[gid], conic_opacity[gid], self.origin,
+                                    self.shape)
+        return ((masks[:, None] >> self.warp_of) & 1) != 0
 
     def step(self, pos, active, passed):
         """Position j (``pos`` [T] the sorted slots, any value where the

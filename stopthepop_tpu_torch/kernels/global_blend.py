@@ -33,13 +33,19 @@ Binning tiles larger than 16x16 (``render/pipeline.py``) give several
 blend tiles the same segment: ``starts``/``ends`` then repeat the parent's
 range, and K2 takes ``sub_tile`` [T] int32, each blend tile's plane of a
 d_pair [S, N, 9], so that the tiles that share a segment write disjoint rows
-(``blend_vjp.sum_planes`` adds the planes in order). K1 needs nothing more.
+(``blend_vjp.sum_planes`` adds the planes in order). A binning tile whose
+sides are not multiples of 16 is cut, from its own origin, into pieces of
+at most 16x16 pixels (``render/pipeline.py::binning_pieces``): both kernels
+then take ``pieces`` [T, 4] int32, each blend tile's (x0, y0, w, h) in
+image pixels, in place of the 16x16 grid, and the lanes outside a piece
+take no part.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -52,7 +58,7 @@ from ..constants import (
     TILE_Y,
 )
 from . import build
-from .footprint import WarpCounter, thread_pixels
+from .footprint import WarpCounter, thread_pixels, tile_origins
 
 KERNEL = "global_blend_fwd"
 SOURCE = "stopthepop_tpu_torch/csrc/global_blend_fwd.cu"
@@ -67,31 +73,38 @@ GRAD_COLS = ("x", "y", "a", "b", "c", "opacity", "r", "g", "b_rgb")
 WARP_SHAPE = (8, 4)
 
 
-def bind(lib):
-    """K1's C entry point in a loaded library, typed."""
-    fn = lib.stp_global_blend_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+def bind(lib, pieces=False):
+    """K1's C entry point in a loaded library, typed: the 16x16 grid's, or
+    with ``pieces`` the piece table's (``pieces`` and their count in place
+    of grid_x and grid_y)."""
+    fn = lib.stp_global_blend_fwd_pieces if pieces else lib.stp_global_blend_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7
+                   + ([ctypes.c_void_p] + [ctypes.c_int] * 3 if pieces
+                      else [ctypes.c_int] * 4) + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _bind():
-    return bind(build.load(KERNEL))
+def _bind(pieces=False):
+    return bind(build.load(KERNEL), pieces)
 
 
-def bind_bwd(lib):
-    """K2's C entry point in a loaded library, typed."""
-    fn = lib.stp_global_blend_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+def bind_bwd(lib, pieces=False):
+    """K2's C entry point in a loaded library, typed (``pieces`` as in
+    ``bind``)."""
+    fn = lib.stp_global_blend_bwd_pieces if pieces else lib.stp_global_blend_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 11
+                   + ([ctypes.c_void_p] + [ctypes.c_int] * 3 if pieces
+                      else [ctypes.c_int] * 4)
                    + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _bind_bwd():
-    return bind_bwd(build.load(BWD_KERNEL))
+def _bind_bwd(pieces=False):
+    return bind_bwd(build.load(BWD_KERNEL), pieces)
 
 
 def _occupancy(kernel, lib):
@@ -118,12 +131,12 @@ def occupancy_bwd(lib=None) -> dict:
 
 
 def _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, depth,
-                  grid_x, grid_y, width, height):
+                  grid_x, grid_y, width, height, pieces=None):
     if grid_x != (width + TILE_X - 1) // TILE_X or grid_y != (height + TILE_Y - 1) // TILE_Y:
         raise ValueError(
             f"grid ({grid_x}, {grid_y}) does not tile a {width}x{height} image"
         )
-    num_tiles = grid_x * grid_y
+    num_tiles = grid_x * grid_y if pieces is None else pieces.shape[0]
     P = xy.shape[0]
     expect = {
         "point_list": (point_list, torch.int32, None),
@@ -135,6 +148,8 @@ def _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, depth,
     }
     if depth is not None:
         expect["depth"] = (depth, torch.float32, (P,))
+    if pieces is not None:
+        expect["pieces"] = (pieces, torch.int32, (num_tiles, 4))
     dev = xy.device
     for name, (t, dtype, shape) in expect.items():
         if t.device != dev:
@@ -192,28 +207,45 @@ def _check_backward_inputs(color, final_t, n_contrib, grad_color,
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_aligned(xy, conic_opacity, pieces):
+    if (xy.data_ptr() % 8 or conic_opacity.data_ptr() % 16
+            or (pieces is not None and pieces.data_ptr() % 16)):
+        raise ValueError("xy must be 8-byte and conic_opacity and pieces "
+                         "16-byte aligned")
+
+
+def _grid_args(grid_x, grid_y, pieces):
+    """The C arguments that place the blocks: the grid, or the pieces."""
+    if pieces is None:
+        return (grid_x, grid_y)
+    return (pieces.data_ptr(), pieces.shape[0])
+
+
 def blend_global_forward(point_list, starts, ends, xy, conic_opacity, rgb,
                          depth, *, grid_x: int, grid_y: int, width: int,
-                         height: int):
+                         height: int, pieces=None):
     """Blend every tile's sorted segment front to back.
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] int32,
-    depth_acc [H, W]). CUDA tensors go to kernel K1 (counted in
-    ``blend_global_forward.launches``); CPU tensors to the plain version.
+    depth_acc [H, W]). ``grid_x`` x ``grid_y`` is the image's 16x16 grid;
+    with ``pieces`` [T, 4] int32 (module notes) the blend tiles are those
+    pieces, and ``starts``/``ends`` are [T]. CUDA tensors go to kernel K1
+    (counted in ``blend_global_forward.launches``); CPU tensors to the
+    plain version.
     """
     _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, depth,
-                  grid_x, grid_y, width, height)
+                  grid_x, grid_y, width, height, pieces)
     dev = xy.device
     if dev.type == "cpu":
         return blend_global_forward_plain(
             point_list, starts, ends, xy, conic_opacity, rgb, depth,
             grid_x=grid_x, grid_y=grid_y, width=width, height=height,
+            pieces=pieces,
         )
     if dev.type != "cuda":
         raise ValueError(f"no blend kernel for device {dev}")
-    if xy.data_ptr() % 8 or conic_opacity.data_ptr() % 16:
-        raise ValueError("xy must be 8-byte and conic_opacity 16-byte aligned")
-    fn = _bind()
+    _check_aligned(xy, conic_opacity, pieces)
+    fn = _bind(pieces is not None)
     color = torch.empty((3, height, width), dtype=torch.float32, device=dev)
     final_t = torch.empty((height, width), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -222,7 +254,7 @@ def blend_global_forward(point_list, starts, ends, xy, conic_opacity, rgb,
     err = fn(
         point_list.data_ptr(), starts.data_ptr(), ends.data_ptr(),
         xy.data_ptr(), conic_opacity.data_ptr(), rgb.data_ptr(),
-        depth.data_ptr(), grid_x, grid_y, width, height,
+        depth.data_ptr(), *_grid_args(grid_x, grid_y, pieces), width, height,
         color.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
         depth_acc.data_ptr(), stream,
     )
@@ -235,6 +267,14 @@ def blend_global_forward(point_list, starts, ends, xy, conic_opacity, rgb,
 blend_global_forward.launches = 0
 
 
+def _origins(grid_x: int, pieces, num_tiles: int, device):
+    """[T, 2] float32 pixel (0, 0) of each blend tile: the grid's, or the
+    pieces' origins."""
+    if pieces is None:
+        return tile_origins(grid_x, num_tiles, device)
+    return pieces[:, :2].to(torch.float32)
+
+
 def _tile_pixel_coords(grid_x: int, grid_y: int, device):
     """(pix_x, pix_y) [T, 256] float32 in the kernel's in-tile row-major order."""
     tiles = torch.arange(grid_x * grid_y, device=device)
@@ -242,6 +282,47 @@ def _tile_pixel_coords(grid_x: int, grid_y: int, device):
     pix_x = (tiles[:, None] % grid_x) * TILE_X + j[None, :] % TILE_X
     pix_y = (tiles[:, None] // grid_x) * TILE_Y + j[None, :] // TILE_X
     return pix_x.to(torch.float32), pix_y.to(torch.float32)
+
+
+class BlendPixels(NamedTuple):
+    """Each blend tile's 256 pixels in the kernels' in-tile row-major order:
+    coordinates ``x``, ``y`` [T, 256] float32, ``inside`` [T, 256] (on the
+    tile or piece and on the image) and ``flat`` [T, 256] int64, the index
+    into an image's H * W pixels (0 where not inside)."""
+    x: torch.Tensor
+    y: torch.Tensor
+    inside: torch.Tensor
+    flat: torch.Tensor
+
+    def pack(self, img):
+        """[..., H, W] image -> [..., T, 256], zero where not inside."""
+        v = img.reshape(*img.shape[:-2], -1)[..., self.flat]
+        return torch.where(self.inside, v, torch.zeros((), dtype=v.dtype))
+
+    def unpack(self, tiles, width: int, height: int):
+        """[..., T, 256] -> [..., H, W] image of the inside pixels."""
+        out = tiles.new_zeros((*tiles.shape[:-2], height * width))
+        out[..., self.flat[self.inside]] = tiles[..., self.inside]
+        return out.reshape(*tiles.shape[:-2], height, width)
+
+
+def blend_pixels(grid_x: int, grid_y: int, width: int, height: int,
+                 pieces=None, device=None) -> BlendPixels:
+    """The pixels of the image's 16x16 tiles, or of ``pieces`` [T, 4]
+    (x0, y0, w, h)."""
+    j = torch.arange(TILE_PIXELS, device=device)
+    jx, jy = j % TILE_X, j // TILE_X
+    if pieces is None:
+        x, y = _tile_pixel_coords(grid_x, grid_y, device)
+        x, y = x.to(torch.int64), y.to(torch.int64)
+        inside = torch.ones_like(x, dtype=torch.bool)
+    else:
+        pc = pieces.to(torch.int64)
+        x, y = pc[:, 0:1] + jx, pc[:, 1:2] + jy
+        inside = (jx < pc[:, 2:3]) & (jy < pc[:, 3:4]) & (x >= 0) & (y >= 0)
+    inside = inside & (x < width) & (y < height)
+    flat = torch.where(inside, y * width + x, 0)
+    return BlendPixels(x.to(torch.float32), y.to(torch.float32), inside, flat)
 
 
 def pack_image(img, grid_x: int, grid_y: int):
@@ -265,13 +346,13 @@ def unpack_image(tiles, grid_x: int, grid_y: int, width: int, height: int):
 
 def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
                                rgb, depth, *, grid_x: int, grid_y: int,
-                               width: int, height: int,
+                               width: int, height: int, pieces=None,
                                count_evaluations: bool = False,
                                warp_counts: dict | None = None,
                                footprint_cull: bool = False):
     """Plain PyTorch version of kernel K1, same signature and outputs.
 
-    Pixels outside the image start done, as in K1. With
+    Pixels outside the image (or the piece) start done, as in K1. With
     ``count_evaluations`` it also returns (evaluations, blends): how many
     (pixel, pair) alphas the kernel evaluates on these inputs and how many
     of those it blends, over the pixels of the whole tile grid. A dict
@@ -281,20 +362,20 @@ def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
     bits.
     """
     dev = xy.device
-    T_tiles = grid_x * grid_y
+    T_tiles = starts.shape[0]
     counts = (ends - starts).to(torch.int64)
     max_count = int(counts.max()) if T_tiles else 0
-    pix_x, pix_y = _tile_pixel_coords(grid_x, grid_y, dev)
+    px = blend_pixels(grid_x, grid_y, width, height, pieces, dev)
+    pix_x, pix_y = px.x, px.y
     T = torch.ones((T_tiles, TILE_PIXELS), dtype=torch.float32, device=dev)
     C = torch.zeros((4, T_tiles, TILE_PIXELS), dtype=torch.float32, device=dev)
     n_contrib = torch.zeros((T_tiles, TILE_PIXELS), dtype=torch.int32, device=dev)
-    done = ~pack_image(torch.ones((height, width), dtype=torch.bool,
-                                  device=dev), grid_x, grid_y)
+    done = ~px.inside
     feats = torch.cat([rgb, depth[:, None]], dim=1).T  # [4, P]
     evaluations = blends = 0
     if warp_counts is not None or footprint_cull:
-        warps = WarpCounter(point_list, starts, ends, xy, conic_opacity,
-                            grid_x, WARP_SHAPE)
+        warps = WarpCounter(point_list, xy, conic_opacity,
+                            _origins(grid_x, pieces, T_tiles, dev), WARP_SHAPE)
     for k in range(max_count):
         live = k < counts  # [T]
         pos = torch.where(live, starts.to(torch.int64) + k, 0)
@@ -325,12 +406,8 @@ def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
     if warp_counts is not None:
         warps.close()
         warp_counts.update(warps.counts)
-    color = unpack_image(C[:3], grid_x, grid_y, width, height)
-    final_t = unpack_image(T, grid_x, grid_y, width, height)
-    n_img = unpack_image(n_contrib, grid_x, grid_y, width, height)
-    depth_acc = unpack_image(C[3], grid_x, grid_y, width, height)
-    out = (color.contiguous(), final_t.contiguous(), n_img.contiguous(),
-           depth_acc.contiguous())
+    out = tuple(px.unpack(x, width, height)
+                for x in (C[:3], T, n_contrib, C[3]))
     if count_evaluations:
         return out + (evaluations, blends)
     return out
@@ -339,7 +416,8 @@ def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
 def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
                           color, final_t, n_contrib, grad_color, grad_final_t,
                           *, grid_x: int, grid_y: int, width: int,
-                          height: int, sub_tile=None, num_sub: int = 1):
+                          height: int, sub_tile=None, num_sub: int = 1,
+                          pieces=None):
     """Per-pair gradients of K1's color and final_T (kernel K2).
 
     Takes K1's inputs (without depth), its saved outputs ``color`` (raw,
@@ -351,27 +429,27 @@ def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
     contributor are zero. With ``sub_tile`` [T] int32 (tiles that share a
     segment, see the module notes) it returns [num_sub, N, 9]: tile t's
     sums in plane ``sub_tile[t]``, zero where no tile of a plane reads a
-    segment. CUDA tensors go to kernel K2 (counted in
-    ``blend_global_backward.launches``); CPU tensors to the plain version.
+    segment. ``pieces`` as in ``blend_global_forward``. CUDA tensors go to
+    kernel K2 (counted in ``blend_global_backward.launches``); CPU tensors
+    to the plain version.
     """
     _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, None,
-                  grid_x, grid_y, width, height)
+                  grid_x, grid_y, width, height, pieces)
     dev = xy.device
     _check_backward_inputs(color, final_t, n_contrib, grad_color,
                            grad_final_t, width, height, dev)
-    check_planes(sub_tile, num_sub, grid_x * grid_y, dev)
+    check_planes(sub_tile, num_sub, starts.shape[0], dev)
     if dev.type == "cpu":
         return blend_global_backward_plain(
             point_list, starts, ends, xy, conic_opacity, rgb, color, final_t,
             n_contrib, grad_color, grad_final_t,
             grid_x=grid_x, grid_y=grid_y, width=width, height=height,
-            sub_tile=sub_tile, num_sub=num_sub,
+            sub_tile=sub_tile, num_sub=num_sub, pieces=pieces,
         )
     if dev.type != "cuda":
         raise ValueError(f"no blend kernel for device {dev}")
-    if xy.data_ptr() % 8 or conic_opacity.data_ptr() % 16:
-        raise ValueError("xy must be 8-byte and conic_opacity 16-byte aligned")
-    fn = _bind_bwd()
+    _check_aligned(xy, conic_opacity, pieces)
+    fn = _bind_bwd(pieces is not None)
     n_pairs = point_list.shape[0]
     d_pair = torch.zeros((num_sub, n_pairs, len(GRAD_COLS)),
                          dtype=torch.float32, device=dev)
@@ -381,7 +459,7 @@ def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
         xy.data_ptr(), conic_opacity.data_ptr(), rgb.data_ptr(),
         color.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
         grad_color.data_ptr(), grad_final_t.data_ptr(),
-        grid_x, grid_y, width, height,
+        *_grid_args(grid_x, grid_y, pieces), width, height,
         None if sub_tile is None else sub_tile.data_ptr(), n_pairs,
         d_pair.data_ptr(), stream,
     )
@@ -415,6 +493,7 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
                                 grad_final_t, *, grid_x: int, grid_y: int,
                                 width: int, height: int,
                                 sub_tile=None, num_sub: int = 1,
+                                pieces=None,
                                 count_evaluations: bool = False,
                                 warp_counts: dict | None = None,
                                 footprint_cull: bool = False):
@@ -429,31 +508,29 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
     culls, as K2 does; the outputs stay the same bits.
     """
     dev = xy.device
-    T_tiles = grid_x * grid_y
+    T_tiles = starts.shape[0]
     n_pairs = point_list.shape[0]
     d_pair = torch.zeros((num_sub, n_pairs, len(GRAD_COLS)),
                          dtype=torch.float32, device=dev)
     plane = (torch.zeros(T_tiles, dtype=torch.int64, device=dev)
              if sub_tile is None else sub_tile.to(torch.int64))
-    inside = pack_image(torch.ones((height, width), dtype=torch.bool,
-                                   device=dev), grid_x, grid_y)
-    g = pack_image(grad_color, grid_x, grid_y)          # [3, T, 256]
-    c = pack_image(color, grid_x, grid_y)
+    px = blend_pixels(grid_x, grid_y, width, height, pieces, dev)
+    g = px.pack(grad_color)                             # [3, T, 256]
+    c = px.pack(color)
     s_tot = c[0] * g[0] + c[1] * g[1] + c[2] * g[2]
-    kt = pack_image(grad_final_t, grid_x, grid_y) * pack_image(
-        final_t, grid_x, grid_y)
-    last = pack_image(n_contrib, grid_x, grid_y).amax(dim=1).to(torch.int64)
+    kt = px.pack(grad_final_t) * px.pack(final_t)
+    last = px.pack(n_contrib).amax(dim=1).to(torch.int64)
     counts = torch.minimum((ends - starts).to(torch.int64), last)
     max_count = int(counts.max()) if T_tiles else 0
-    pix_x, pix_y = _tile_pixel_coords(grid_x, grid_y, dev)
+    pix_x, pix_y = px.x, px.y
     T = torch.ones((T_tiles, TILE_PIXELS), dtype=torch.float32, device=dev)
     prefix = torch.zeros_like(T)
-    done = ~inside
+    done = ~px.inside
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     evaluations = blends = 0
     if warp_counts is not None or footprint_cull:
-        warps = WarpCounter(point_list, starts, ends, xy, conic_opacity,
-                            grid_x, WARP_SHAPE)
+        warps = WarpCounter(point_list, xy, conic_opacity,
+                            _origins(grid_x, pieces, T_tiles, dev), WARP_SHAPE)
     for k in range(max_count):
         live = k < counts  # [T]
         pos = torch.where(live, starts.to(torch.int64) + k, 0)

@@ -2,7 +2,7 @@
 (backward) and their plain PyTorch versions.
 
 K5 replaces ``stopthepop_tpu/kernels/hier_blend.py::blend_hier_forward``
-(the Pallas ``_fwd_kernel``, per-entry cascade) and K6 its
+(the Pallas ``_fwd_kernel``, per-entry and batched cascade) and K6 its
 ``blend_hier_backward``. Both run one cascade (``csrc/hier_common.cuh``):
 one block of 256 threads per 16x16 tile, batches of the tile's (tile,
 depth)-sorted pairs staged in shared memory, each quad's mid keys computed
@@ -45,12 +45,28 @@ or d_head < 0): the fill counts and every pop decision are the same for the
 16 pixels of a sub-tile. After the tail's drain, ``km`` mid steps pop every
 mid entry into the head, then ``kh`` head steps blend what is left.
 
+``batched_cascade=True`` takes the batched cadence (JAX
+``render_hierarchical_naive`` with ``batched_cascade=True``; its stable
+argsort, not the Pallas kernel's bitonic merge). The tail is the same; each
+tail round's 64 emitted entries enter the mid window keyed by d_mid where
+their tail key is finite, ghosts and drain pads keyed -inf with alpha 0, in
+8 sub-batches of ``CASC_BATCH`` = 8. A mid round sorts the hold (``km``
+entries, ascending, first all -inf "bubbles") and the sub-batch stably
+(hold first, then the sub-batch in emission order), emits the first 8 and
+keeps the last ``km``. The emitted entries, keyed by d_head where their mid
+key is finite (else by that key), run the same round through the head
+window (``kh``, first all -inf bubbles), and the head's 8 emitted entries
+blend in order. After the tail's drain, ``ceil(km / 8)`` mid rounds of +inf
+pads, then the head hold blends in order. Non-finite head depths add 0 to
+depth_acc (the Pallas batched path's rule).
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors, and nothing else: on a CUDA tensor it launches the kernel
 or raises. The plain versions share one replay (``_replay``): it holds the
 tail of all tiles as [T, 16, kt + 64] and sorts it with
 ``torch.sort(stable=True)``, holds the mid and head windows as
-[km | kh, T, 256], and repeats K5's arithmetic operation by operation; the
+[km | kh, T, 256] (the batched cadence sorts [km + 8 | kh + 8, T, 256]
+stably), and repeats K5's arithmetic operation by operation; the
 forward blends at each head pop (in differentiable torch operations, so
 autograd through it checks the plain backward), the backward forms and
 routes the commit's gradient terms in K6's order of summation.
@@ -77,6 +93,7 @@ import torch
 from ..constants import (
     ALPHA_MAX,
     ALPHA_THRESHOLD,
+    CASC_BATCH,
     T_THRESHOLD,
     TAIL_BATCH,
     TILE_PIXELS,
@@ -143,16 +160,18 @@ def _instance(k: int, sizes) -> int:
     return next(m for m in sizes if m >= k)
 
 
-def bind(lib, backward=False):
-    """K5's (or K6's) C entry point in a loaded library, typed."""
+def bind(lib, backward=False, batched=False):
+    """K5's (or K6's) C entry point in a loaded library, typed: the
+    per-entry cascade's, or with ``batched`` the batched cascade's (the
+    same interface)."""
+    name = "stp_hier_blend_bwd" if backward else "stp_hier_blend_fwd"
+    fn = getattr(lib, name + ("_batched" if batched else ""))
     if backward:
-        fn = lib.stp_hier_blend_bwd
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 2
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * 3)
     else:
-        fn = lib.stp_hier_blend_fwd
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 2
                        + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
@@ -160,21 +179,23 @@ def bind(lib, backward=False):
 
 
 @functools.lru_cache(maxsize=None)
-def _bind():
-    return bind(build.load(KERNEL))
+def _bind(batched=False):
+    return bind(build.load(KERNEL), batched=batched)
 
 
 @functools.lru_cache(maxsize=None)
-def _bind_bwd():
-    return bind(build.load(BWD_KERNEL), backward=True)
+def _bind_bwd(batched=False):
+    return bind(build.load(BWD_KERNEL), backward=True, batched=batched)
 
 
-def occupancy(kernel: str, kt: int, mid_max: int, head_max: int) -> dict:
+def occupancy(kernel: str, kt: int, mid_max: int, head_max: int,
+              batched: bool = False) -> dict:
     """What instantiation (mid_max, head_max) of K5 (``KERNEL``) or K6
-    (``BWD_KERNEL``) reaches at tail size ``kt`` on the current device:
-    resident blocks per SM, registers and local (spill) bytes a thread,
-    shared bytes a block."""
-    fn = getattr(build.load(kernel), f"stp_{kernel}_occupancy")
+    (``BWD_KERNEL``), with the batched cascade where ``batched``, reaches
+    at tail size ``kt`` on the current device: resident blocks per SM,
+    registers and local (spill) bytes a thread, shared bytes a block."""
+    fn = getattr(build.load(kernel),
+                 f"stp_{kernel}{'_batched' if batched else ''}_occupancy")
     out = (ctypes.c_int * 4)()
     err = fn(kt, mid_max, head_max, out)
     if err != 0:
@@ -198,11 +219,13 @@ def _check_hier_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
 def blend_hier_forward(point_list, starts, ends, xy, conic_opacity, rgb,
                        cov3d_inv9, opacity_power_threshold, inverse_vp, campos,
                        *, queue_sizes, hier_4x4_culling: bool, grid_x: int,
-                       grid_y: int, width: int, height: int):
+                       grid_y: int, width: int, height: int,
+                       batched_cascade: bool = False):
     """HIERARCHICAL blend of every tile's sorted segment (kernel K5).
 
     Returns (color [3, H, W] raw, final_T [H, W], n_contrib [H, W] int32,
-    depth_acc [H, W]). CUDA tensors go to kernel K5 (counted in
+    depth_acc [H, W]). ``batched_cascade`` takes the batched cadence (the
+    module notes). CUDA tensors go to kernel K5 (counted in
     ``blend_hier_forward.launches``); CPU tensors to the plain version.
     """
     kt, km, kh = check_hier_queues(*queue_sizes)
@@ -216,10 +239,11 @@ def blend_hier_forward(point_list, starts, ends, xy, conic_opacity, rgb,
             opacity_power_threshold, inverse_vp, campos,
             queue_sizes=(kt, km, kh), hier_4x4_culling=hier_4x4_culling,
             grid_x=grid_x, grid_y=grid_y, width=width, height=height,
+            batched_cascade=batched_cascade,
         )
     cam, sx, sy = _cuda_prelude(xy, conic_opacity, inverse_vp, campos, width,
                                 height)
-    fn = _bind()
+    fn = _bind(bool(batched_cascade))
     color = torch.empty((3, height, width), dtype=torch.float32, device=dev)
     final_t = torch.empty((height, width), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -263,10 +287,10 @@ def thread_pixel(device):
 
 
 def _gids(point_list, starts, src):
-    """Gaussian ids of stream positions ``src`` [T, ...] of each tile's
-    segment (positions past the list are clamped: they are never read)."""
-    idx = starts.to(torch.int64).reshape(-1, *([1] * (src.dim() - 1))) + src
-    return point_list[idx.clamp(max=point_list.shape[0] - 1)].to(torch.int64)
+    """Gaussian ids of stream positions ``src`` [..., T, 256] of each tile's
+    segment (positions outside the list are clamped: they are never read)."""
+    idx = starts.to(torch.int64)[:, None] + src
+    return point_list[idx.clamp(0, point_list.shape[0] - 1)].to(torch.int64)
 
 
 def _quads(mask):
@@ -276,13 +300,14 @@ def _quads(mask):
 
 def _replay(point_list, starts, ends, xy, conic_opacity, cov3d_inv9,
             opacity_power_threshold, inverse_vp, campos, *, queue_sizes,
-            hier_4x4_culling, grid_x, grid_y, width, height, done, pop,
-            skip_done, n):
+            hier_4x4_culling, batched_cascade, grid_x, grid_y, width, height,
+            done, pop, skip_done, n):
     """K5's cascade over every tile (the module docstring), the windows
-    carrying each entry's position ``src`` in its tile's segment. Each head
-    pop calls ``pop(pop_h, a0, d0, src, done)`` ([T, 256] each; ``done`` the
-    pixels' latch), which blends (K5) or replays the blend's gradient (K6)
-    and returns the new latch; ``done`` is the latch to start from. ``n``,
+    carrying each entry's position ``src`` in its tile's segment (-1 for
+    the batched cascade's bubbles, ghosts and pads). Each head pop calls
+    ``pop(pop_h, a0, d0, src, done)`` ([T, 256] each; ``done`` the pixels'
+    latch), which blends (K5) or replays the blend's gradient (K6) and
+    returns the new latch; ``done`` is the latch to start from. ``n``,
     where given, takes the counts of ``blend_hier_forward_plain``; with
     ``skip_done`` a done pixel does no per-pixel work (K6), else every pixel
     of a live tile does (K5). The point list is not empty."""
@@ -361,18 +386,9 @@ def _replay(point_list, starts, ends, xy, conic_opacity, cov3d_inv9,
         and head windows of its 16 pixels."""
         v = torch.isfinite(key_sub)[:, sub_of_pix]                # [T, 256]
         src = src_sub[:, sub_of_pix]
-        gid = _gids(point_list, starts, src)
-        inv = cov3d_inv9[gid]
-        d_mid = depth_along_ray(inv, vd_mid)
-        d_head = depth_along_ray(inv, vd_head)
-        co = conic_opacity[gid]
-        dx = xy[gid, 0] - pix_x
-        dy = xy[gid, 1] - pix_y
-        a, b, c, o = co.unbind(-1)
-        power = 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
-        alpha = torch.clamp(o * torch.exp(-power), max=ALPHA_MAX)
-        ok = (power >= 0.0) & (alpha >= ALPHA_THRESHOLD) & (d_head >= 0.0)
-        a_eff = torch.where(ok, alpha, 0.0)
+        d_mid = depth_along_ray(cov3d_inv9[_gids(point_list, starts, src)],
+                                vd_mid)
+        d_head, a_eff = evaluate(src)
         if n is not None:
             busy = work(v)
             n["evaluations"] += int(busy.sum())
@@ -381,6 +397,80 @@ def _replay(point_list, starts, ends, xy, conic_opacity, cov3d_inv9,
         st["mid"] = _insert(st["mid"], v, d_mid,
                             {"d": d_mid, "dh": d_head, "a": a_eff, "src": src})
         st["fm"] = st["fm"] + v.to(torch.int64)
+
+    def evaluate(src):
+        """The head depth and alpha ([..., T, 256]) of the entries at
+        stream positions ``src`` for every pixel."""
+        gid = _gids(point_list, starts, src)
+        d_head = depth_along_ray(cov3d_inv9[gid], vd_head)
+        co = conic_opacity[gid]
+        dx = xy[gid, 0] - pix_x
+        dy = xy[gid, 1] - pix_y
+        a, b, c, o = co.unbind(-1)
+        power = 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
+        alpha = torch.clamp(o * torch.exp(-power), max=ALPHA_MAX)
+        ok = (power >= 0.0) & (alpha >= ALPHA_THRESHOLD) & (d_head >= 0.0)
+        return d_head, torch.where(ok, alpha, 0.0)
+
+    # The batched cascade's windows hold their entries ascending by key,
+    # first all -inf bubbles (src -1).
+    bst = None if not batched_cascade else {
+        "mid": {"d": torch.full((km, *shape), -inf, device=dev),
+                "src": torch.full((km, *shape), -1, dtype=torch.int64,
+                                  device=dev)},
+        "head": {"d": torch.full((kh, *shape), -inf, device=dev),
+                 "a": torch.zeros((kh, *shape), device=dev),
+                 "src": torch.full((kh, *shape), -1, dtype=torch.int64,
+                                   device=dev)}}
+
+    def win_round(name, batch):
+        """Sort the window ``name`` and a sub-batch ([CASC_BATCH, T, 256]
+        each) stably by key, hold first; keep the last entries, return the
+        first CASC_BATCH."""
+        win = bst[name]
+        cat = {f: torch.cat([win[f], batch[f]], dim=0) for f in win}
+        order = torch.sort(cat["d"], dim=0, stable=True).indices
+        srt = {f: torch.gather(x, 0, order) for f, x in cat.items()}
+        bst[name] = {f: x[CASC_BATCH:] for f, x in srt.items()}
+        return {f: x[:CASC_BATCH] for f, x in srt.items()}
+
+    def blend_rows(rows):
+        """Head pops of rows [j, T, 256], j in order: entries of alpha 0
+        (bubbles, ghosts, pads included) change nothing and are skipped."""
+        for j in range(rows["a"].shape[0]):
+            a0 = rows["a"][j]
+            d0 = rows["d"][j]
+            st["done"] = pop(a0 > 0.0, a0,
+                             torch.where(torch.isfinite(d0), d0, 0.0),
+                             rows["src"][j], st["done"])
+
+    def mid_round(batch):
+        """One mid round, its head round and the head's blends."""
+        emit = win_round("mid", batch)
+        real = emit["src"] >= 0
+        d_head, a_eff = evaluate(emit["src"])
+        if n is not None:
+            busy = int(work(real).sum())
+            n["evaluations"] += busy
+            n["head_inserts"] += busy
+        blend_rows(win_round("head", {
+            "d": torch.where(torch.isfinite(emit["d"]), d_head, emit["d"]),
+            "a": torch.where(real, a_eff, 0.0), "src": emit["src"]}))
+
+    def batched_rounds(emit_k, emit_s):
+        """The 64 entries a tail round emits ([T, 16, 64]) through the mid
+        window in sub-batches of CASC_BATCH; ghosts and pads keyed -inf."""
+        for e0 in range(0, B, CASC_BATCH):
+            ks = emit_k[..., e0:e0 + CASC_BATCH][:, sub_of_pix].permute(2, 0, 1)
+            srcs = emit_s[..., e0:e0 + CASC_BATCH][:, sub_of_pix].permute(2, 0, 1)
+            fin = torch.isfinite(ks)                       # [8, T, 256]
+            d_mid = depth_along_ray(
+                cov3d_inv9[_gids(point_list, starts, srcs)], vd_mid)
+            if n is not None:
+                n["mid_inserts"] += sum(int(_quads(work(f)).sum())
+                                        for f in fin)
+            mid_round({"d": torch.where(fin, d_mid, -inf),
+                       "src": torch.where(fin, srcs, -1)})
 
     hold_k = torch.full((T_tiles, SUBTILES, kt), -inf, dtype=torch.float32,
                         device=dev)
@@ -425,9 +515,20 @@ def _replay(point_list, starts, ends, xy, conic_opacity, cov3d_inv9,
         srt_s = torch.gather(torch.cat([hold_s, srcs], dim=-1), -1, order)
         hold_k, hold_s = srt_k[..., B:], srt_s[..., B:]
         emit_k, emit_s = srt_k[..., :B], srt_s[..., :B]
+        if batched_cascade:
+            batched_rounds(emit_k, emit_s)
+            continue
         # Steps where no sub-tile emits a real entry change nothing.
         for e in torch.isfinite(emit_k).any(dim=1).any(dim=0).nonzero().flatten().tolist():
             cascade(emit_k[..., e], emit_s[..., e])
+    if batched_cascade:
+        # ceil(km / 8) mid rounds of +inf pads, then the head hold in place.
+        for _ in range(-(-km // CASC_BATCH)):
+            mid_round({"d": torch.full((CASC_BATCH, *shape), inf, device=dev),
+                       "src": torch.full((CASC_BATCH, *shape), -1,
+                                         dtype=torch.int64, device=dev)})
+        blend_rows(bst["head"])
+        return
     for _ in range(km):
         push_head(st["fm"] > 0)
     for _ in range(kh):
@@ -443,6 +544,7 @@ def blend_hier_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
                              cov3d_inv9, opacity_power_threshold, inverse_vp,
                              campos, *, queue_sizes, hier_4x4_culling: bool,
                              grid_x: int, grid_y: int, width: int, height: int,
+                             batched_cascade: bool = False,
                              count_evaluations: bool = False):
     """Plain PyTorch version of kernel K5, same signature and outputs.
 
@@ -489,7 +591,8 @@ def blend_hier_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
     _replay(point_list, starts, ends, xy, conic_opacity, cov3d_inv9,
             opacity_power_threshold, inverse_vp, campos,
             queue_sizes=queue_sizes, hier_4x4_culling=hier_4x4_culling,
-            grid_x=grid_x, grid_y=grid_y, width=width, height=height,
+            batched_cascade=batched_cascade, grid_x=grid_x, grid_y=grid_y,
+            width=width, height=height,
             done=~pack_image(torch.ones((height, width), dtype=torch.bool,
                                         device=dev), grid_x, grid_y),
             pop=pop, skip_done=False, n=n if count_evaluations else None)
@@ -503,7 +606,8 @@ def blend_hier_backward(point_list, starts, ends, xy, conic_opacity, rgb,
                         campos, color, final_t, n_contrib, grad_color,
                         grad_final_t, *, queue_sizes, hier_4x4_culling: bool,
                         grid_x: int, grid_y: int, width: int, height: int,
-                        sub_tile=None, num_sub: int = 1):
+                        sub_tile=None, num_sub: int = 1,
+                        batched_cascade: bool = False):
     """Per-pair gradients of K5's color and final_T (kernel K6).
 
     Takes K5's inputs, its saved outputs ``color`` (raw, before the
@@ -514,9 +618,9 @@ def blend_hier_backward(point_list, starts, ends, xy, conic_opacity, rgb,
     summed over the pixels that committed it. No gradient flows to
     ``cov3d_inv9``, the camera or ``opacity_power_threshold``: they only
     choose the cascade's order and validity. ``sub_tile`` and ``num_sub``
-    as in ``global_blend.blend_global_backward``. CUDA tensors go to kernel
-    K6 (counted in ``blend_hier_backward.launches``); CPU tensors to the
-    plain version.
+    as in ``global_blend.blend_global_backward``; ``batched_cascade`` as
+    K5 was called. CUDA tensors go to kernel K6 (counted in
+    ``blend_hier_backward.launches``); CPU tensors to the plain version.
     """
     kt, km, kh = check_hier_queues(*queue_sizes)
     _check_hier_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
@@ -533,10 +637,11 @@ def blend_hier_backward(point_list, starts, ends, xy, conic_opacity, rgb,
             n_contrib, grad_color, grad_final_t, queue_sizes=(kt, km, kh),
             hier_4x4_culling=hier_4x4_culling, grid_x=grid_x, grid_y=grid_y,
             width=width, height=height, sub_tile=sub_tile, num_sub=num_sub,
+            batched_cascade=batched_cascade,
         )
     cam, sx, sy = _cuda_prelude(xy, conic_opacity, inverse_vp, campos, width,
                                 height)
-    fn = _bind_bwd()
+    fn = _bind_bwd(bool(batched_cascade))
     n_pairs = point_list.shape[0]
     scratch, d_pair = backward_buffers(num_sub, n_pairs, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -566,7 +671,7 @@ def blend_hier_backward_plain(point_list, starts, ends, xy, conic_opacity,
                               grad_color, grad_final_t, *, queue_sizes,
                               hier_4x4_culling: bool, grid_x: int, grid_y: int,
                               width: int, height: int, sub_tile=None,
-                              num_sub: int = 1,
+                              num_sub: int = 1, batched_cascade: bool = False,
                               count_evaluations: bool = False):
     """Plain PyTorch version of kernel K6, same signature and outputs.
 
@@ -638,8 +743,8 @@ def blend_hier_backward_plain(point_list, starts, ends, xy, conic_opacity,
     _replay(point_list, starts, ends, xy, conic_opacity, cov3d_inv9,
             opacity_power_threshold, inverse_vp, campos,
             queue_sizes=queue_sizes, hier_4x4_culling=hier_4x4_culling,
-            grid_x=grid_x, grid_y=grid_y, width=width, height=height,
-            done=target == 0, pop=pop, skip_done=True,
+            batched_cascade=batched_cascade, grid_x=grid_x, grid_y=grid_y,
+            width=width, height=height, done=target == 0, pop=pop, skip_done=True,
             n=n if count_evaluations else None)
     _pair_sums(rows, starts, counts, d_pair, sub_tile)
     d_pair = plane_rows(d_pair, sub_tile)

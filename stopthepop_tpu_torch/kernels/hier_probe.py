@@ -1,13 +1,15 @@
 """Time other builds of a family of kernels against the checkout's, on one card.
 
     python3 -m stopthepop_tpu_torch.kernels.hier_probe NAME=DIR [NAME=DIR ...]
-        [--family hier|kbuffer|full|global] [--out FILE]
+        [--family hier|kbuffer|full|global] [--batched] [--out FILE]
 
 A family is the kernels of one sort mode whose sources a redesign touches:
 
 * ``hier`` (the default): K5 and K6. Each DIR holds a ``hier_blend_fwd.cu``,
   a ``hier_blend_bwd.cu`` and the headers they include (``hier_common.cuh``,
-  ``route_common.cuh``), with the C interfaces of the checkout's.
+  ``route_common.cuh``), with the C interfaces of the checkout's. With
+  ``--batched`` both run the batched cascade (every DIR needs its entry
+  points, ``stp_hier_blend_{fwd,bwd}_batched``).
 * ``kbuffer``: K3 and K4 at k = 4, from ``kbuffer_blend_fwd.cu``,
   ``kbuffer_blend_bwd.cu`` and the headers they include; K4's input is the
   plain K3's output.
@@ -72,9 +74,12 @@ KB_K = 4
 WIDTH, HEIGHT, GAUSSIANS = 1920, 1080, 500_000
 ITERS = 20
 # The instantiation whose registers a family reports.
-_ENTRY = {"hier": r"\S*Li8ELi4E\S*", "kbuffer": r"\S*ILi4EE\S*",
+# (The piece table's K1/K2, Lb1E, are not reported; "hier_batched" is the
+# batched cascade's K5/K6.)
+_ENTRY = {"hier": r"\S*Li8ELi4E(?!Lb1E)\S*", "kbuffer": r"\S*ILi4EE\S*",
+          "hier_batched": r"\S*Li8ELi4ELb1E\S*",
           "full": r"\S*full_blend_fwd_kernel\S*",
-          "global": r"\S*global_blend_(?:fwd|bwd)_kernel\S*"}
+          "global": r"\S*global_blend_(?:fwd|bwd)_kernel(?!ILb1E)\S*"}
 _SOURCES = {"hier": ("hier_blend_fwd", "hier_blend_bwd"),
             "kbuffer": ("kbuffer_blend_fwd", "kbuffer_blend_bwd"),
             "full": ("full_blend_fwd",),
@@ -88,7 +93,7 @@ def _ptxas(family, log):
     return (int(m.group(2)), int(m.group(1))) if m else None
 
 
-def _build(family, variants):
+def _build(family, variants, entry=None):
     """{name: ({source stem: loaded library}, {source stem: (registers,
     spill stores)})}."""
     out_root = build.BUILD_DIR.parent / f"{family}_probe"
@@ -113,7 +118,7 @@ def _build(family, variants):
         found[stem]._stp_one_plane = (
             stem.endswith("_bwd")
             and "sub_tile" not in (Path(variants[name]) / f"{stem}.cu").read_text())
-        regs[stem] = _ptxas(family, log)
+        regs[stem] = _ptxas(entry or family, log)
     return libs
 
 
@@ -208,22 +213,28 @@ class _SameAsFirst:
 
 
 class _Hier(_SameAsFirst):
-    """K5 and K6 (the probe's first family; its keys are unchanged)."""
+    """K5 and K6 (the probe's first family; its keys are unchanged), with
+    the batched cascade where ``batched``."""
     module, timed = hb, ("k5", "k6")
 
-    def __init__(self, dev):
+    def __init__(self, dev, batched=False):
         args, kw, _ = _bench_frame(dev)
+        self.batched = batched
         self.args, self.kw = args, {**kw, "queue_sizes": QUEUES,
-                                    "hier_4x4_culling": False}
+                                    "hier_4x4_culling": False,
+                                    "batched_cascade": batched}
         with torch.no_grad():
             self.ref = hb.blend_hier_forward_plain(*self.args, **self.kw)
             self.bwd_args = (*self.args, *self.ref[:3], *_cotangents(dev))
             self.ref_d = hb.blend_hier_backward_plain(*self.bwd_args, **self.kw)
 
     def bind(self, libs):
-        hb._bind = lambda f=hb.bind(libs["hier_blend_fwd"]): f
+        b = self.batched
+        hb._bind = lambda batched=False, f=hb.bind(libs["hier_blend_fwd"],
+                                                   batched=b): f
         lib = libs["hier_blend_bwd"]
-        hb._bind_bwd = lambda f=_bwd(hb.bind(lib, backward=True), lib, 3): f
+        hb._bind_bwd = (lambda batched=False, f=_bwd(
+            hb.bind(lib, backward=True, batched=b), lib, 3): f)
 
     def run(self):
         return {"k5": lambda: hb.blend_hier_forward(*self.args, **self.kw),
@@ -346,9 +357,10 @@ class _Global(_SameAsFirst):
                        **bwd}}
 
     def bind(self, libs):
-        gb._bind = lambda f=gb.bind(libs["global_blend_fwd"]): f
+        gb._bind = lambda pieces=False, f=gb.bind(libs["global_blend_fwd"]): f
         lib = libs["global_blend_bwd"]
-        gb._bind_bwd = lambda f=_bwd(gb.bind_bwd(lib), lib, 2): f
+        gb._bind_bwd = (lambda pieces=False,
+                        f=_bwd(gb.bind_bwd(lib), lib, 2): f)
 
     def run(self):
         return {"k1": lambda: gb.blend_global_forward(*self.args, **self.kw),
@@ -443,6 +455,9 @@ def main(argv=None) -> int:
     ap.add_argument("variants", nargs="+", metavar="NAME=DIR")
     ap.add_argument("--family", choices=sorted(FAMILIES), default="hier")
     ap.add_argument("--out")
+    ap.add_argument("--batched", action="store_true",
+                    help="hier: K5 and K6 with the batched cascade (every "
+                         "variant must have its entry points)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("hier_probe: no CUDA device", file=sys.stderr)
@@ -452,8 +467,10 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    libs = _build(opts.family, variants)
-    fam = FAMILIES[opts.family](torch.device("cuda"))
+    batched = opts.batched and opts.family == "hier"
+    libs = _build(opts.family, variants, "hier_batched" if batched else None)
+    fam = (_Hier(torch.device("cuda"), batched=True) if batched
+           else FAMILIES[opts.family](torch.device("cuda")))
     mod = fam.module
     saved = {n: getattr(mod, n) for n in ("_bind", "_bind_bwd")
              if hasattr(mod, n)}

@@ -51,7 +51,7 @@ from ..constants import ALPHA_MAX, ALPHA_THRESHOLD, T_THRESHOLD, TILE_PIXELS
 from ..ops.stopthepop import depth_along_ray
 from ..ops.transforms import compute_view_ray
 from . import build
-from .footprint import WarpCounter
+from .footprint import WarpCounter, tile_origins
 from .global_blend import (
     GRAD_COLS,
     _check_backward_inputs,
@@ -308,8 +308,9 @@ def blend_kbuffer_forward_plain(point_list, starts, ends, xy, conic_opacity,
                                   device=dev), grid_x, grid_y)
     n = {"evaluations": 0, "depths": 0, "inserts": 0, "commits": 0}
     if count_evaluations or footprint_cull:
-        warps = WarpCounter(point_list, starts, ends, xy, conic_opacity,
-                            grid_x, WARP_SHAPE)
+        warps = WarpCounter(point_list, xy, conic_opacity,
+                            tile_origins(grid_x, grid_x * grid_y, dev),
+                            WARP_SHAPE)
 
     def pop(win, fill, T, C, D, nc, done, popm):
         a0 = win["a"][0]

@@ -114,13 +114,16 @@ def sort_error_maps(prep: PreprocessOutput, width: int, height: int, campos,
     return err_op.reshape(height, width), err_dist.reshape(height, width)
 
 
-def tile_count_map(pair_counts, width: int, height: int):
-    """Per-pixel value = pair count of the pixel's tile. [H, W] float32."""
-    grid_x = (width + TILE_X - 1) // TILE_X
-    grid_y = (height + TILE_Y - 1) // TILE_Y
+def tile_count_map(pair_counts, width: int, height: int,
+                   tile=(TILE_X, TILE_Y)):
+    """Per-pixel value = pair count of the pixel's binning tile of ``tile``
+    = (tile_x, tile_y) pixels. [H, W] float32."""
+    tile_x, tile_y = tile
+    grid_x = (width + tile_x - 1) // tile_x
+    grid_y = (height + tile_y - 1) // tile_y
     per_tile = pair_counts.reshape(grid_y, grid_x).to(torch.float32)
-    full = per_tile.repeat_interleave(TILE_Y, dim=0).repeat_interleave(
-        TILE_X, dim=1)
+    full = per_tile.repeat_interleave(tile_y, dim=0).repeat_interleave(
+        tile_x, dim=1)
     return full[:height, :width]
 
 
@@ -129,8 +132,8 @@ def debug_field(mode: DebugVisualization, *, final_t, n_contrib,
                 inverse_vp=None, width: int = 0, height: int = 0,
                 tile=(TILE_X, TILE_Y)):
     """The scalar field [H, W] of a debug mode, and its colormap table.
-    ``pair_counts`` [T] are the 16x16 blend tiles' and ``tile`` is the
-    binning tile ``prep`` was made for."""
+    ``tile`` is the binning tile ``prep`` was made for, and
+    ``pair_counts`` are its tiles' (row-major)."""
     mode = DebugVisualization(mode)
     if mode == DebugVisualization.Depth:
         # Expected depth of the blended mass (turbo, like the reference).
@@ -140,7 +143,7 @@ def debug_field(mode: DebugVisualization, *, final_t, n_contrib,
     if mode == DebugVisualization.GaussianCountPerPixel:
         return n_contrib.to(torch.float32), MAGMA_TABLE
     if mode == DebugVisualization.GaussianCountPerTile:
-        return tile_count_map(pair_counts, width, height), MAGMA_TABLE
+        return tile_count_map(pair_counts, width, height, tile), MAGMA_TABLE
     if mode in (DebugVisualization.SortErrorOpacity,
                 DebugVisualization.SortErrorDistance):
         err_op, err_dist = sort_error_maps(prep, width, height, campos,

@@ -4,9 +4,9 @@ Port of ``stopthepop_tpu/render/naive.py``: ``render_global_naive`` (one
 global depth order), ``render_full_sort_naive`` (PER_PIXEL_FULL),
 ``render_global_order_naive`` (GLOBAL under any stream order),
 ``render_kbuffer_naive`` (PER_PIXEL_KBUFFER) and
-``render_hierarchical_naive`` (HIERARCHICAL, the per-entry cascade), with
-the reference's sort-error accumulation (``sort_error=True``) in the resort
-modes' pop order. They render in O(P x pixels) memory with no tiling, so
+``render_hierarchical_naive`` (HIERARCHICAL, the per-entry or the batched
+cascade), with the reference's sort-error accumulation (``sort_error=True``)
+in the resort modes' pop order. They render in O(P x pixels) memory with no tiling, so
 they serve small scenes only. ``render/rasterize.py`` takes the FULL oracle
 for PER_PIXEL_FULL while P·W·H <= 2**26; the others are held against the
 kernels' plain versions and the JAX oracles by the tests.
@@ -17,9 +17,6 @@ exit (T < 1e-4 -> done) is the mask [U_k >= 1e-4], since U never rises.
 The resort modes step through the stream one entry at a time over [K, N]
 windows, as the JAX oracles do. Masks and thresholds are constants for the
 gradient, as in the reference's CUDA backward.
-
-The JAX HIER oracle's ``batched_cascade`` is not ported: the port's API
-does not expose the batched cascade.
 """
 
 from __future__ import annotations
@@ -30,6 +27,7 @@ from ..config import GlobalSortOrder
 from ..constants import (
     ALPHA_MAX,
     ALPHA_THRESHOLD,
+    CASC_BATCH,
     T_THRESHOLD,
     TAIL_BATCH,
     TILE_X,
@@ -454,16 +452,93 @@ def quad_center(pix):
     return torch.floor(pix / 2.0) * 2.0 + 0.5
 
 
+def _batched_cascade(stream, hold, empty, queue_sizes, N, dev):
+    """The batched cascade of ``render_hierarchical_naive``: (T, C, nc).
+
+    Each tail round's 64 emitted entries enter the mid window keyed by
+    d_mid where their tail key is finite; ghosts and drain pads get -inf and
+    alpha 0. They go in sub-batches of ``CASC_BATCH``: the hold (``km``
+    entries, ascending, first all -inf "bubbles") and the sub-batch are
+    sorted stably (hold first, then the sub-batch in order); the first
+    ``CASC_BATCH`` are emitted and the last ``km`` kept. The emitted
+    entries, keyed by d_head where their mid key is finite (else that key),
+    run the same round through the head window (``kh``), and its emitted
+    entries are blended in order. After the tail's drain, ``ceil(km / 8)``
+    mid rounds of +inf pads, then the head hold blended in place."""
+    kt, km, kh = queue_sizes
+    B, Bc = TAIL_BATCH, CASC_BATCH
+    mid, head = empty(km, _MID_FIELDS, -INF), empty(kh, _HEAD_FIELDS, -INF)
+    s = {"T": torch.ones((N,), device=dev), "C": torch.zeros((N, 3), device=dev),
+         "nc": torch.zeros((N,), dtype=torch.int32, device=dev),
+         "done": torch.zeros((N,), dtype=torch.bool, device=dev)}
+    every = torch.ones((N,), dtype=torch.bool, device=dev)
+
+    def win_round(win, batch):
+        cat = {f: torch.cat([win[f], batch[f]], dim=0) for f in win}
+        o = torch.sort(cat["key"], dim=0, stable=True).indices
+        srt = {f: torch.gather(v, 0, o) for f, v in cat.items()}
+        return ({f: v[:Bc] for f, v in srt.items()},
+                {f: v[Bc:] for f, v in srt.items()})
+
+    def blend(rows):
+        for j in range(rows["a"].shape[0]):
+            s["T"], s["C"], s["nc"], s["done"], _ = _blend_one(
+                s["T"], s["C"], s["nc"], s["done"], every, rows["a"][j],
+                torch.stack([rows[f][j] for f in "rgb"], dim=-1),
+                count_zero_alpha=False)
+
+    def mid_round(mid, head, batch):
+        emit_m, mid = win_round(mid, batch)
+        key_h = torch.where(torch.isfinite(emit_m["key"]), emit_m["dh"],
+                            emit_m["key"])
+        emit_h, head = win_round(head, {"key": key_h, **{
+            f: emit_m[f] for f in _HEAD_FIELDS}})
+        blend(emit_h)
+        return mid, head
+
+    def tail_batch(hold, mid, head, batch):
+        cat = {f: torch.cat([hold[f], batch[f]], dim=0) for f in hold}
+        o = torch.sort(cat["key"], dim=0, stable=True).indices
+        srt = {f: torch.gather(v, 0, o) for f, v in cat.items()}
+        v = torch.isfinite(srt["key"][:B])
+        into_mid = {"key": torch.where(v, srt["dm"][:B], -INF),
+                    "a": torch.where(v, srt["a"][:B], 0.0),
+                    **{f: srt[f][:B] for f in ("dh", "r", "g", "b")}}
+        for sb in range(0, B, Bc):
+            mid, head = mid_round(mid, head, {f: x[sb:sb + Bc]
+                                              for f, x in into_mid.items()})
+        return {f: x[B:] for f, x in srt.items()}, mid, head
+
+    for start in range(0, stream["key"].shape[0], B):
+        batch = {f: v[start:start + B] for f, v in stream.items()}
+        hold, mid, head = tail_batch(hold, mid, head, batch)
+    drain = empty(B, _TAIL_FIELDS, INF)
+    for _ in range(-(-kt // B)):
+        hold, mid, head = tail_batch(hold, mid, head, drain)
+    for _ in range(-(-km // Bc)):
+        mid, head = mid_round(mid, head, empty(Bc, _MID_FIELDS, INF))
+    blend(head)
+    return s["T"], s["C"], s["nc"]
+
+
 def render_hierarchical_naive(prep: PreprocessOutput, bg, width: int,
                               height: int, campos, inverse_vp,
                               queue_sizes=(64, 8, 4),
                               sort_order=GlobalSortOrder.Z_DEPTH,
                               tile_based_culling: bool = False,
                               hier_4x4_culling: bool = False,
+                              batched_cascade: bool = False,
                               sort_error: bool = False):
-    """HIERARCHICAL oracle (the per-entry cascade). Returns (color [3,H,W],
-    final_T, n_contrib); ``sort_error=True`` appends the reference's
-    (err_opacity, err_distance) [H,W] maps accumulated in head-pop order."""
+    """HIERARCHICAL oracle. Returns (color [3,H,W], final_T, n_contrib);
+    ``sort_error=True`` (per-entry cascade only) appends the reference's
+    (err_opacity, err_distance) [H,W] maps accumulated in head-pop order.
+
+    ``batched_cascade`` moves the tail's emitted entries through the mid and
+    head windows in sorted sub-batches of ``CASC_BATCH`` (``_batched_cascade``)
+    instead of one pop-then-insert step per entry."""
+    if batched_cascade and sort_error:
+        raise NotImplementedError(
+            "sort_error maps: per-entry cascade only (batched_cascade=True)")
     kt, km, kh = queue_sizes
     dev = prep.mean2d.device
     N = width * height
@@ -529,6 +604,9 @@ def render_hierarchical_naive(prep: PreprocessOutput, bg, width: int,
         return w
 
     hold = empty(kt, _TAIL_FIELDS, -INF)
+    if batched_cascade:
+        T, C, nc = _batched_cascade(stream, hold, empty, queue_sizes, N, dev)
+        return _finalize(C, T, bg, width, height), T, nc
     mid = empty(km, _MID_FIELDS, INF)
     head = empty(kh, _HEAD_FIELDS, INF)
     zi = torch.zeros((N,), dtype=torch.int32, device=dev)

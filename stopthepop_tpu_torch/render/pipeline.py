@@ -29,18 +29,21 @@ K3 / K5 is called directly.
 
 The binning tile (``tile_x`` x ``tile_y``, 16x16 by default, as the
 reference) sets the pairs: preprocess, expansion and sort work on its grid.
-The kernels always blend 16x16 tiles: a binning tile of (16 sx) x (16 sy)
-pixels covers sx * sy of them, and each reads its parent's whole segment
-(``split_binning_segments``, as the JAX package's resort modes do), and
-the kernels' footprint tests drop most of the pairs that cannot reach a
-warp before they are evaluated. With tight-opacity bounding a pair's rect
-bounds its alpha >= 1/255 extent, so the pairs of the parent's segment
-that miss a blend tile never pass the alpha threshold there: every pixel
-blends what it blends at 16x16. Without it the rect is 3 sigma wide and a
-pair may still pass the threshold just outside it, where a larger bin
-keeps it: the JAX package's semantics at that bin. GLOBAL takes any
-multiple of 16 on each side; the resort modes take 16x16 and 32x16, as in
-the JAX package.
+The kernels blend tiles of at most 16x16 pixels: each binning tile is cut,
+from its own origin, into ceil(tile_x / 16) x ceil(tile_y / 16) pieces, the
+last column and row tile_x mod 16 and tile_y mod 16 wide, and each piece on
+the image reads its parent's whole segment (``split_binning_segments``, as
+the JAX package's resort modes do) and writes its gradients into the plane
+of its index in the parent; the kernels' footprint tests drop most of the
+pairs that cannot reach a warp before they are evaluated. Where both sides
+are multiples of 16 the pieces are the image's 16x16 grid. With
+tight-opacity bounding a pair's rect bounds its alpha >= 1/255 extent, so
+the pairs of the parent's segment that miss a piece never pass the alpha
+threshold there: every pixel blends what it blends at 16x16. Without it the
+rect is 3 sigma wide and a pair may still pass the threshold just outside
+it, where a larger bin keeps it: the JAX package's semantics at that bin.
+GLOBAL takes any binning tile, as the JAX package's GLOBAL kernels do; the
+resort modes take 16x16 and 32x16, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -64,13 +67,12 @@ def tile_grid(width: int, height: int, tile_x: int = TILE_X,
 
 
 def global_subdivision(tile_x: int, tile_y: int):
-    """(sx, sy): the 16x16 blend tiles a GLOBAL binning tile spans along
-    x and y. NotImplementedError unless both sides are multiples of 16."""
-    if tile_x < TILE_X or tile_y < TILE_Y or tile_x % TILE_X or tile_y % TILE_Y:
-        raise NotImplementedError(
-            f"GLOBAL binning tile {tile_x}x{tile_y}: the port blends 16x16 "
-            "tiles, so a binning tile's sides must be multiples of 16")
-    return tile_x // TILE_X, tile_y // TILE_Y
+    """(sx, sy): the pieces of at most 16x16 pixels a GLOBAL binning tile is
+    cut into along x and y. ValueError unless both sides are positive."""
+    if tile_x < 1 or tile_y < 1:
+        raise ValueError(f"GLOBAL binning tile {tile_x}x{tile_y}: both "
+                         "sides must be positive")
+    return -(-tile_x // TILE_X), -(-tile_y // TILE_Y)
 
 
 def resort_subdivision(tile_x: int, tile_y: int):
@@ -87,55 +89,68 @@ def resort_subdivision(tile_x: int, tile_y: int):
         "support 16x16 (reference parity) and 32x16 only")
 
 
-def blend_tile_parents(width: int, height: int, sx: int, sy: int, device):
-    """(parent [T] int64, sub [T] int32) of the T 16x16 blend tiles of a
-    ``width`` x ``height`` image under (16 sx) x (16 sy) binning tiles.
+def binning_pieces(width: int, height: int, tile_x: int, tile_y: int,
+                   device):
+    """The pieces of the ``tile_x`` x ``tile_y`` binning tiles of a
+    ``width`` x ``height`` image: (parent [T] int64, plane [T] int32,
+    pieces [T, 4] int32 (x0, y0, w, h)), ordered by (y0, x0).
 
-    Blend tile (bx, by) of the ``tile_grid(width, height)`` grid lies in
-    binning tile parent = (bx // sx, by // sy) as its sub-tile
-    s = (bx % sx) + sx (by % sy). Only the blend tiles on the image are
-    mapped: a binning tile at the right or bottom edge may have fewer than
-    sx * sy of them.
+    Piece (i, j) of binning tile (bx, by) has its origin at
+    (bx tile_x + 16 i, by tile_y + 16 j), is min(16, tile_x - 16 i) x
+    min(16, tile_y - 16 j) pixels and writes plane i + sx j
+    (``global_subdivision``); only the pieces whose origin lies on the
+    image are mapped. Where both sides are multiples of 16 the pieces are
+    the image's 16x16 tiles, row-major.
     """
-    gx, gy = tile_grid(width, height)
-    bin_gx = (gx + sx - 1) // sx
-    bx = torch.arange(gx, device=device)
-    by = torch.arange(gy, device=device)[:, None]
-    parent = ((by // sy) * bin_gx + bx // sx).reshape(-1)
-    sub = ((bx % sx) + sx * (by % sy)).reshape(-1).to(torch.int32)
-    return parent, sub
+    sx, sy = global_subdivision(tile_x, tile_y)
+    bin_gx, bin_gy = tile_grid(width, height, tile_x, tile_y)
+    by, j, bx, i = (g.reshape(-1) for g in torch.meshgrid(
+        *(torch.arange(n, device=device) for n in (bin_gy, sy, bin_gx, sx)),
+        indexing="ij"))
+    x0 = bx * tile_x + TILE_X * i
+    y0 = by * tile_y + TILE_Y * j
+    keep = (x0 < width) & (y0 < height)
+    pieces = torch.stack([x0, y0, torch.clamp(tile_x - TILE_X * i, max=TILE_X),
+                          torch.clamp(tile_y - TILE_Y * j, max=TILE_Y)],
+                         dim=1)[keep]
+    parent = (by * bin_gx + bx)[keep]
+    plane = (i + sx * j)[keep]
+    return parent, plane.to(torch.int32), pieces.to(torch.int32).contiguous()
 
 
-def split_binning_segments(starts, ends, width: int, height: int, sx: int,
-                           sy: int) -> BlendSegments:
-    """Map the segments of (16 sx) x (16 sy) binning tiles to the 16x16
-    blend tiles of a ``width`` x ``height`` image: each blend tile reads
-    its parent's range and writes its gradients into the plane of its
-    sub-tile (``blend_tile_parents``). The planes of a parent's missing
-    blend tiles are written by no tile.
-    """
-    if (sx, sy) == (1, 1):
+def split_binning_segments(starts, ends, width: int, height: int,
+                           tile_x: int, tile_y: int) -> BlendSegments:
+    """Map the segments of ``tile_x`` x ``tile_y`` binning tiles to the
+    blend tiles of a ``width`` x ``height`` image (``binning_pieces``):
+    each reads its parent's range and writes its gradients into the plane
+    of its index in the parent. The planes of a parent's missing pieces are
+    written by no tile. The piece table is kept only where a side is not a
+    multiple of 16; else the blend tiles are the image's 16x16 grid."""
+    if (tile_x, tile_y) == (TILE_X, TILE_Y):
         return BlendSegments(starts, ends, None, 1)
-    parent, sub = blend_tile_parents(width, height, sx, sy, starts.device)
+    parent, plane, pieces = binning_pieces(width, height, tile_x, tile_y,
+                                           starts.device)
+    sx, sy = global_subdivision(tile_x, tile_y)
+    even = tile_x % TILE_X == 0 and tile_y % TILE_Y == 0
     return BlendSegments(starts[parent].contiguous(),
-                         ends[parent].contiguous(), sub, sx * sy)
+                         ends[parent].contiguous(), plane, sx * sy,
+                         None if even else pieces)
 
 
-def _binned_pairs(prep, subdivision, *, image_width, image_height,
+def _binned_pairs(prep, tile_x, tile_y, *, image_width, image_height,
                   sort_order, tile_based_culling, campos, inverse_vp):
-    """Build the pairs on the binning grid of ``subdivision`` (sx, sy) and
-    split them over the 16x16 blend grid: (pairs, segs, blend grid)."""
-    sx, sy = subdivision
-    bin_gx, bin_gy = tile_grid(image_width, image_height, TILE_X * sx,
-                               TILE_Y * sy)
+    """Build the pairs on the binning grid of ``tile_x`` x ``tile_y`` and
+    split them over the blend tiles: (pairs, segs, the image's 16x16
+    grid)."""
+    bin_gx, bin_gy = tile_grid(image_width, image_height, tile_x, tile_y)
     pairs = build_pairs(prep, grid_x=bin_gx, grid_y=bin_gy,
                         sort_order=sort_order,
                         tile_based_culling=tile_based_culling, campos=campos,
                         inverse_vp=inverse_vp, image_width=image_width,
-                        image_height=image_height, tile_x=TILE_X * sx,
-                        tile_y=TILE_Y * sy)
+                        image_height=image_height, tile_x=tile_x,
+                        tile_y=tile_y)
     segs = split_binning_segments(pairs.starts, pairs.ends, image_width,
-                                  image_height, sx, sy)
+                                  image_height, tile_x, tile_y)
     return pairs, segs, tile_grid(image_width, image_height)
 
 
@@ -170,10 +185,11 @@ def render_tiled(
     the (host arrays, settings) of a ``debug=True`` render, goes to the
     blend Function, whose backward dumps it on failure. ``tile_x`` x
     ``tile_y`` is the binning tile (``prep`` must be made for it): any
-    multiple of 16 on each side; ``pairs`` is on its grid.
+    positive size; ``pairs`` is on its grid.
     """
+    global_subdivision(tile_x, tile_y)
     pairs, segs, (grid_x, grid_y) = _binned_pairs(
-        prep, global_subdivision(tile_x, tile_y), image_width=image_width,
+        prep, tile_x, tile_y, image_width=image_width,
         image_height=image_height, sort_order=sort_order,
         tile_based_culling=tile_based_culling, campos=campos,
         inverse_vp=inverse_vp)
@@ -187,7 +203,8 @@ def render_tiled(
             snapshot, segs)
     else:
         color, final_t, n_contrib, depth_acc = blend_global_forward(
-            pairs.gauss_id, segs.starts, segs.ends, *rows, depth, **kw)
+            pairs.gauss_id, segs.starts, segs.ends, *rows, depth, **kw,
+            pieces=segs.pieces)
     # Background composite outside the kernel, as in the JAX package: autograd
     # gives d_bg and folds the background into the final_T cotangent.
     color = color + final_t[None, :, :] * bg[:, None, None]
@@ -217,8 +234,9 @@ def render_tiled_kbuffer(
     pairs, depth_acc [H, W]), as the JAX package's ``render_tiled_kbuffer``
     does. ``snapshot`` as in ``render_tiled``; binning tile 16x16 or 32x16.
     """
+    resort_subdivision(tile_x, tile_y)
     pairs, segs, (grid_x, grid_y) = _binned_pairs(
-        prep, resort_subdivision(tile_x, tile_y), image_width=image_width,
+        prep, tile_x, tile_y, image_width=image_width,
         image_height=image_height, sort_order=sort_order,
         tile_based_culling=tile_based_culling, campos=campos,
         inverse_vp=inverse_vp)
@@ -250,6 +268,7 @@ def render_tiled_hier(
     sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
     tile_based_culling: bool = False,
     hier_4x4_culling: bool = False,
+    batched_cascade: bool = False,
     snapshot=None,
     tile_x: int = TILE_X,
     tile_y: int = TILE_Y,
@@ -257,15 +276,18 @@ def render_tiled_hier(
     """HIERARCHICAL tiled render: every 16x16 tile's stream cascades
     through the tail (4x4 sub-tile), mid (2x2 quad) and head (pixel)
     windows of ``queue_sizes`` = (tile_4x4, tile_2x2, per_pixel) entries, and
-    a head pop blends (kernel K5; its backward K6).
+    a head pop blends (kernel K5; its backward K6). ``batched_cascade``
+    moves the entries through the mid and head windows in sorted
+    sub-batches of 8 (``kernels/hier_blend.py``).
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits with
     alpha > 0), pairs, depth_acc [H, W]), as the JAX package's
     ``render_tiled_hier`` does. ``snapshot`` as in ``render_tiled``; binning
     tile 16x16 or 32x16.
     """
+    resort_subdivision(tile_x, tile_y)
     pairs, segs, (grid_x, grid_y) = _binned_pairs(
-        prep, resort_subdivision(tile_x, tile_y), image_width=image_width,
+        prep, tile_x, tile_y, image_width=image_width,
         image_height=image_height, sort_order=sort_order,
         tile_based_culling=tile_based_culling, campos=campos,
         inverse_vp=inverse_vp)
@@ -279,13 +301,13 @@ def render_tiled_hier(
     if _needs_grad(rows):
         color, final_t, n_contrib, depth_acc = BlendHier.apply(
             *rows, *cam, pairs, queues, hier_4x4_culling, grid_x, grid_y,
-            image_width, image_height, snapshot, segs)
+            image_width, image_height, snapshot, segs, batched_cascade)
     else:
         color, final_t, n_contrib, depth_acc = blend_hier_forward(
             pairs.gauss_id, segs.starts, segs.ends, *rows, *cam,
             queue_sizes=queues, hier_4x4_culling=hier_4x4_culling,
             grid_x=grid_x, grid_y=grid_y, width=image_width,
-            height=image_height)
+            height=image_height, batched_cascade=batched_cascade)
     color = color + final_t[None, :, :] * bg[:, None, None]
     return color, final_t, n_contrib, pairs, depth_acc
 
@@ -312,8 +334,9 @@ def render_tiled_full(
     pairs, depth_acc [H, W]), as the JAX package's ``render_tiled_full``
     does.
     """
+    resort_subdivision(tile_x, tile_y)
     pairs, segs, (grid_x, grid_y) = _binned_pairs(
-        prep, resort_subdivision(tile_x, tile_y), image_width=image_width,
+        prep, tile_x, tile_y, image_width=image_width,
         image_height=image_height, sort_order=sort_order,
         tile_based_culling=tile_based_culling, campos=campos,
         inverse_vp=inverse_vp)

@@ -51,7 +51,6 @@ from .debug_viz import DebugVisualizationData, apply_debug_visualization
 from .duplicate import rect_histogram
 from .naive import render_full_sort_naive
 from .pipeline import (
-    blend_tile_parents,
     global_subdivision,
     render_tiled,
     render_tiled_full,
@@ -155,11 +154,15 @@ def rasterize_gaussians(
     debug_visualization: DebugVisualization = DebugVisualization.Disabled,
     debug_data: Optional[DebugVisualizationData] = None,
     tile_shape: Optional[tuple] = None,
+    batched_cascade: bool = False,
 ):
     """Render. Returns (color, radii) like the reference, or RenderOutput.
 
     ``tile_shape`` = (tile_x, tile_y) is the binning tile (module notes);
-    ``None`` is 16x16.
+    ``None`` is 16x16. ``batched_cascade`` takes HIERARCHICAL's batched
+    cadence (mid and head windows in sorted sub-batches of 8,
+    ``kernels/hier_blend.py``); the other sort modes ignore it, as the JAX
+    package's do.
 
     ``full_mode`` chooses PER_PIXEL_FULL's backend: "naive", the dense
     differentiable oracle (render/naive.py); "tiled", kernel K7, forward
@@ -182,7 +185,7 @@ def rasterize_gaussians(
             rotations, cov3Ds_precomp, raster_settings)
     kw = dict(full_output=full_output, full_mode=full_mode,
               debug_visualization=debug_visualization, debug_data=debug_data,
-              tile_shape=tile_shape)
+              tile_shape=tile_shape, batched_cascade=batched_cascade)
     rs = raster_settings
     if not rs.debug:
         return _rasterize_impl(*args, **kw)
@@ -219,6 +222,7 @@ def _rasterize_impl(
     debug_visualization: DebugVisualization,
     debug_data: Optional[DebugVisualizationData],
     tile_shape: Optional[tuple],
+    batched_cascade: bool,
     snapshot=None,
 ):
     rs = raster_settings
@@ -316,7 +320,7 @@ def _rasterize_impl(
         color, final_t, n_contrib, pairs, depth_acc = render_tiled_hier(
             prep, bg, queue_sizes=queues,
             hier_4x4_culling=ext.culling_settings.hierarchical_4x4_culling,
-            snapshot=snapshot, **kw)
+            batched_cascade=batched_cascade, snapshot=snapshot, **kw)
     else:
         color, final_t, n_contrib, pairs, depth_acc = render_tiled(
             prep, bg, snapshot=snapshot, **kw)
@@ -325,16 +329,13 @@ def _rasterize_impl(
     if rs.render_depth and viz_mode == DebugVisualization.Disabled:
         viz_mode = DebugVisualization.Depth
     if viz_mode != DebugVisualization.Disabled:
-        # The pairs each 16x16 blend tile reads: its binning tile's. The
-        # dense FULL oracle builds no pair list: its counts are those its
-        # rects imply.
+        # The pairs of each binning tile. The dense FULL oracle builds no
+        # pair list: its counts are those its rects imply.
         counts = (pairs.ends - pairs.starts if pairs is not None else
                   rect_histogram(prep, *tile_grid(W, H, tile_x, tile_y)))
-        parent, _ = blend_tile_parents(W, H, tile_x // TILE_X,
-                                       tile_y // TILE_Y, dev)
         color = apply_debug_visualization(
             viz_mode, final_t=final_t, n_contrib=n_contrib,
-            depth_acc=depth_acc, pair_counts=counts[parent], prep=prep,
+            depth_acc=depth_acc, pair_counts=counts, prep=prep,
             campos=campos, inverse_vp=inverse_vp, width=W, height=H,
             data=debug_data, tile=(tile_x, tile_y))
     if full_output:

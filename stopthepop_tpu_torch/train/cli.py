@@ -17,8 +17,9 @@ K1 and K2) or with ``--sort-mode PPX_KBUFFER`` the k-buffer pipeline
 (kernels K3 and K4, window ``SortQueueSizes.per_pixel`` = 4). Rasterization
 uses rect, tight-opacity and tile-based culling, as the JAX CLI does.
 ``--tile`` sets the binning tile of training and evaluation: ``auto`` (the
-default, as in the JAX CLI) is 32x16 in GLOBAL and 16x16 otherwise;
-``--tile 16x16`` is reference parity. The JAX CLI's TPU flags (pair
+default, as in the JAX CLI) is 32x16 in GLOBAL and 16x16 otherwise; GLOBAL
+takes any WxH, the other modes 16x16 and 32x16; ``--tile 16x16`` is
+reference parity. The JAX CLI's TPU flags (pair
 capacity, segment cap, bf16 carriers, rank key, interpret mode) have no
 counterpart: the pair count is dynamic here. A ``--data`` directory with a ``sparse/`` subdirectory is a COLMAP
 capture: every 8th view (sorted by name) is held out for evaluation, the
