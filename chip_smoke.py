@@ -1431,8 +1431,6 @@ def compare_planes(phase, name, wrapper, plain, bwd_args, kw, segs, *,
     from stopthepop_tpu_torch.kernels.global_blend import GRAD_COLS
 
     planes = {"sub_tile": segs.sub_tile, "num_sub": segs.num_sub}
-    if segs.pieces is not None:
-        planes["pieces"] = segs.pieces
     before = wrapper.launches
     got = wrapper(*bwd_args, **kw, **planes)
     again = wrapper(*bwd_args, **kw, **planes)
@@ -1587,10 +1585,10 @@ def tile_phase(model, bench_cam, cams, small, static, target, cotangents,
     S = segs.num_sub
     k1 = bench["k1"]
     bounds = {
-        "k1": bound_ms(4 * (N + 2 * T + P * 10 + WIDTH * HEIGHT * 6),
+        "k1": bound_ms(4 * (N + 6 * T + P * 10 + WIDTH * HEIGHT * 6),
                        OPS_PER_EVAL * k1["evaluations_kept"]
                        + OPS_PER_BLEND * k1["blends"]),
-        "k2": bound_ms(4 * (N + 3 * T + P * 9 + WIDTH * HEIGHT * 9
+        "k2": bound_ms(4 * (N + 7 * T + P * 9 + WIDTH * HEIGHT * 9
                             + S * N * 9),
                        OPS_PER_EVAL * bench["k2"]["evaluations_kept"]
                        + OPS_PER_BLEND_BWD * bench["k2"]["blends"]),
@@ -1751,8 +1749,6 @@ def odd_bins(model, bench_cam, small, static, cam, img16, cotangents, dev):
                 name = f"{case} {tile[0]}x{tile[1]}"
                 prep, pairs, view, segs, kw = prepare_binned(arrays, ccam, w,
                                                              h, tile)
-                check(segs.pieces is not None, "tile",
-                      f"{name}: no piece table")
                 pkw = {**kw, "pieces": segs.pieces}
                 args = blend_args(prep, view)
                 st = {"pairs": pairs.num_rendered,
@@ -1769,7 +1765,7 @@ def odd_bins(model, bench_cam, small, static, cam, img16, cotangents, dev):
                 warps = {}
                 st["k2"], extra = compare_planes(
                     "tile", f"{name} K2", gb.blend_global_backward,
-                    gb.blend_global_backward_plain, k2_args, kw, segs,
+                    gb.blend_global_backward_plain, k2_args, pkw, segs,
                     bitwise=False,
                     plain_kw={"count_evaluations": True,
                               "warp_counts": warps} if bench else None)
@@ -2492,17 +2488,16 @@ def ptxas_summary(log: str):
     """{instantiation: {registers, spill_stores, spill_loads, smem}} from
     nvcc's -Xptxas -v output; a template's key is its MAX_K, or its
     (MID_MAX, HEAD_MAX) for K5 and K6 ("batched" added for the batched
-    cascade's), or "kernel" for K1 and K2 ("pieces" for the piece
-    table's)."""
+    cascade's), or "kernel" for K1 and K2."""
     out, key = {}, None
     for line in log.splitlines():
         m = _ENTRY.search(line)
         if m:
             k = re.findall(r"Li(\d+)E", m.group(1))
-            flag = "Lb1E" in m.group(1)
             key = (f"MAX_K={k[0]}" if len(k) == 1 else
-                   f"MID,HEAD={','.join(k)}" + (" batched" if flag else "")
-                   if len(k) == 2 else "pieces" if flag else "kernel")
+                   f"MID,HEAD={','.join(k)}"
+                   + (" batched" if "Lb1E" in m.group(1) else "")
+                   if len(k) == 2 else "kernel")
             out[key] = {}
         elif key and (m := _SPILL.search(line)):
             out[key]["spill_stores"], out[key]["spill_loads"] = map(int, m.groups())
@@ -2592,7 +2587,7 @@ def main(argv=None) -> int:
         plain_ms = cuda_ms(
             lambda: global_blend.blend_global_forward_plain(*bargs, **kw), 2, 1)
     P, N, T = NUM_GAUSSIANS, pairs.num_rendered, kw["grid_x"] * kw["grid_y"]
-    bytes_moved = 4 * (N + 2 * T + P * (2 + 4 + 3 + 1) + WIDTH * HEIGHT * 6)
+    bytes_moved = 4 * (N + 6 * T + P * (2 + 4 + 3 + 1) + WIDTH * HEIGHT * 6)
     # The evaluations K1 needs: those in the warps its footprint test keeps
     # (the bound over all of them beside it).
     ops = (OPS_PER_EVAL * full_stats["evaluations_kept"]
@@ -2671,7 +2666,7 @@ def main(argv=None) -> int:
             *rows, prep.depth.detach().contiguous(), pairs, kw["grid_x"],
             kw["grid_y"], kw["width"], kw["height"]), cot)
     N = pairs.num_rendered
-    k2_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3) + WIDTH * HEIGHT * 9 + N * 9)
+    k2_bytes = 4 * (N + 6 * T + P * (2 + 4 + 3) + WIDTH * HEIGHT * 9 + N * 9)
     # The evaluations K2 needs: those in the warps its footprint test keeps.
     k2_ops = (OPS_PER_EVAL * full_bwd["evaluations_kept"]
               + OPS_PER_BLEND_BWD * full_bwd["blends"])
@@ -3203,12 +3198,13 @@ def main(argv=None) -> int:
                 "bound_by": odd["bound_by"][key]})
         return rows
 
-    def batched(key, launches):
+    def batched(key, kernel, launches):
         """K5's or K6's numbers with the batched cascade (phase 25)."""
         bench = cascade["bench"]
         errs = [c[key].get("max_abs_err", c[key].get("max_abs_err_color"))
                 for c in (*cascade["cases"], bench)]
-        return {"ms": bench["ms"][f"{key}_batched"],
+        return {"source": hb.source(kernel, batched=True),
+                "ms": bench["ms"][f"{key}_batched"],
                 "plain_ms": bench["ms"][f"{key}_plain"],
                 "launches": launches, "max_abs_err": max(errs),
                 "bound_ms": bench["bound_ms"][key],
@@ -3270,7 +3266,8 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if k5_bytes_ms >= k5_ops_ms else "operations",
         "library_ms": None,
         "at_tile": at_tile("k5", tile["train_HIER_32x16"]["launches"]["k5"]),
-        "batched": batched("k5", cascade["frames_batched"]["launches"]["k5"]),
+        "batched": batched("k5", hb.KERNEL,
+                           cascade["frames_batched"]["launches"]["k5"]),
     }, {
         "name": hb.BWD_KERNEL, "route": "cuda", "source": hb.BWD_SOURCE,
         "replaces": hb.BWD_REPLACES, "launches": train_hier["launches"]["k6"],
@@ -3281,7 +3278,7 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if k6_bytes_ms >= k6_ops_ms else "operations",
         "library_ms": None,
         "at_tile": at_tile("k6", tile["train_HIER_32x16"]["launches"]["k6"]),
-        "batched": batched("k6",
+        "batched": batched("k6", hb.BWD_KERNEL,
                            cascade["train_batched"]["launches"]["k6"]),
     }, {
         "name": fb.KERNEL, "route": "cuda", "source": fb.SOURCE,

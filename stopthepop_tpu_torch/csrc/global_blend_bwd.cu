@@ -36,15 +36,14 @@
 //     has a gradient. Its rows stay as the caller allocated them (zeros).
 //
 // Output: d_pair [S, N, 9] float32 in sorted-slot order, columns
-// (d_x, d_y, d_a, d_b, d_c, d_opacity, d_r, d_g, d_b). With a binning tile
-// of S 16x16 blend tiles (render/pipeline.py::split_binning_segments) the S
-// blocks of a binning tile replay the same segment, and block b writes
-// plane sub_tile[b], so no two blocks write one row; the caller sums the
-// planes in a fixed order. Without sub_tile (16x16 bins) S = 1. A binning
-// tile whose sides are not multiples of 16 is cut into pieces of at most
-// 16x16, one block each (the PIECES instantiation, as in K1): a piece's
-// origin and extent come from the piece table, the lanes outside it start
-// done, and its plane is its index in the parent.
+// (d_x, d_y, d_a, d_b, d_c, d_opacity, d_r, d_g, d_b). The blocks are K1's:
+// one a blend tile, a piece of at most 16x16 pixels of a binning tile
+// (render/pipeline.py::binning_pieces), its origin and extent from the
+// piece table, the lanes outside it done from the start. With a binning
+// tile of S pieces the S blocks of a binning tile replay the same segment,
+// and block b writes plane sub_tile[b] (its index in the parent), so no two
+// blocks write one row; the caller sums the planes in a fixed order.
+// Without sub_tile (16x16 bins) S = 1.
 //
 // What bounds it on an H100: the same (pixel, pair) evaluations as K1, each
 // now about 3-4x K1's FP32 operations (replay, the alpha gradient and its
@@ -103,7 +102,6 @@ __device__ __forceinline__ void scatter_step(float (&v)[10], int off,
   }
 }
 
-template <bool PIECES>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 global_blend_bwd_kernel(const int* __restrict__ point_list,
                         const int* __restrict__ starts,
@@ -116,8 +114,8 @@ global_blend_bwd_kernel(const int* __restrict__ point_list,
                         const int* __restrict__ n_contrib,
                         const float* __restrict__ grad_color,
                         const float* __restrict__ grad_final_t,
-                        const int4* __restrict__ pieces,
-                        int grid_x, int width, int height,
+                        const int4* __restrict__ pieces, int width,
+                        int height,
                         const int* __restrict__ sub_tile,
                         long long plane_floats,
                         float* __restrict__ d_pair) {
@@ -132,20 +130,14 @@ global_blend_bwd_kernel(const int* __restrict__ point_list,
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int4 piece =
-      PIECES ? pieces[tile]
-             : make_int4((tile % grid_x) * kTileX, (tile / grid_x) * kTileY,
-                         kTileX, kTileY);
+  const int4 piece = pieces[tile];  // x0, y0, w, h
   const int ox = piece.x;
   const int oy = piece.y;
   const int2 in_tile = footprint::pixel_in_tile<kWarpW, kWarpH>(t);
   const int px = ox + in_tile.x;
   const int py = oy + in_tile.y;
-  bool inside = px < width && py < height;
-  if constexpr (PIECES) {
-    inside = inside && in_tile.x < piece.z && in_tile.y < piece.w &&
-             px >= 0 && py >= 0;
-  }
+  const bool inside = in_tile.x < piece.z && in_tile.y < piece.w &&
+                      px < width && py < height;
   const float pfx = static_cast<float>(px);
   const float pfy = static_cast<float>(py);
 
@@ -287,16 +279,27 @@ global_blend_bwd_kernel(const int* __restrict__ point_list,
   }
 }
 
-template <bool PIECES>
-int run(const void* point_list, const void* starts, const void* ends,
-        const void* xy, const void* conic_opacity, const void* rgb,
-        const void* color, const void* final_t, const void* n_contrib,
-        const void* grad_color, const void* grad_final_t, const void* pieces,
-        int num_tiles, int grid_x, int width, int height,
-        const void* sub_tile, int num_pairs, void* d_pair, void* stream) {
-  if (num_tiles > 0) {
-    global_blend_bwd_kernel<PIECES><<<num_tiles, kBlock, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
+}  // namespace
+
+// pieces: [num_pieces] int4 (x0, y0, w, h), 16-byte aligned, one block
+// each; starts/ends [num_pieces], each blend tile's range (its binning
+// tile's); sub_tile: [num_pieces] int32, each blend tile's plane of d_pair,
+// or null for one plane; num_pairs: N, the rows of a plane; d_pair:
+// [S, N, 9] float32, zeroed by the caller.
+extern "C" int stp_global_blend_bwd(const void* point_list, const void* starts,
+                                    const void* ends, const void* xy,
+                                    const void* conic_opacity, const void* rgb,
+                                    const void* color, const void* final_t,
+                                    const void* n_contrib,
+                                    const void* grad_color,
+                                    const void* grad_final_t,
+                                    const void* pieces, int num_pieces,
+                                    int width, int height,
+                                    const void* sub_tile, int num_pairs,
+                                    void* d_pair, void* stream) {
+  if (num_pieces > 0) {
+    global_blend_bwd_kernel<<<num_pieces, kBlock, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(point_list), static_cast<const int*>(starts),
         static_cast<const int*>(ends), static_cast<const float2*>(xy),
         static_cast<const float4*>(conic_opacity),
@@ -305,7 +308,7 @@ int run(const void* point_list, const void* starts, const void* ends,
         static_cast<const int*>(n_contrib),
         static_cast<const float*>(grad_color),
         static_cast<const float*>(grad_final_t),
-        static_cast<const int4*>(pieces), grid_x, width, height,
+        static_cast<const int4*>(pieces), width, height,
         static_cast<const int*>(sub_tile),
         static_cast<long long>(num_pairs) * kCols,
         static_cast<float*>(d_pair));
@@ -313,52 +316,15 @@ int run(const void* point_list, const void* starts, const void* ends,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// sub_tile: [grid_x * grid_y] int32, each blend tile's plane of d_pair, or
-// null for one plane; num_pairs: N, the rows of a plane.
-extern "C" int stp_global_blend_bwd(const void* point_list, const void* starts,
-                                    const void* ends, const void* xy,
-                                    const void* conic_opacity, const void* rgb,
-                                    const void* color, const void* final_t,
-                                    const void* n_contrib,
-                                    const void* grad_color,
-                                    const void* grad_final_t, int grid_x,
-                                    int grid_y, int width, int height,
-                                    const void* sub_tile, int num_pairs,
-                                    void* d_pair, void* stream) {
-  return run<false>(point_list, starts, ends, xy, conic_opacity, rgb, color,
-                    final_t, n_contrib, grad_color, grad_final_t, nullptr,
-                    grid_x * grid_y, grid_x, width, height, sub_tile,
-                    num_pairs, d_pair, stream);
-}
-
-// One block a piece: pieces [num_pieces] int4 (x0, y0, w, h), 16-byte
-// aligned; starts/ends and sub_tile [num_pieces] (sub_tile: each piece's
-// plane, its index in its parent).
-extern "C" int stp_global_blend_bwd_pieces(
-    const void* point_list, const void* starts, const void* ends,
-    const void* xy, const void* conic_opacity, const void* rgb,
-    const void* color, const void* final_t, const void* n_contrib,
-    const void* grad_color, const void* grad_final_t, const void* pieces,
-    int num_pieces, int width, int height, const void* sub_tile,
-    int num_pairs, void* d_pair, void* stream) {
-  return run<true>(point_list, starts, ends, xy, conic_opacity, rgb, color,
-                   final_t, n_contrib, grad_color, grad_final_t, pieces,
-                   num_pieces, 1, width, height, sub_tile, num_pairs, d_pair,
-                   stream);
-}
-
 // K2 on this device: out[0] resident blocks per SM, out[1] registers a
 // thread, out[2] local (spill) bytes a thread, out[3] shared bytes a block.
 extern "C" int stp_global_blend_bwd_occupancy(int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err =
-      cudaFuncGetAttributes(&attr, global_blend_bwd_kernel<false>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, global_blend_bwd_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[1] = attr.numRegs;
   out[2] = static_cast<int>(attr.localSizeBytes);
   out[3] = static_cast<int>(attr.sharedSizeBytes);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, global_blend_bwd_kernel<false>, kBlock, 0));
+      out, global_blend_bwd_kernel, kBlock, 0));
 }

@@ -4,8 +4,9 @@
 // Pallas _fwd_kernel). Its shape is the reference's renderCUDA
 // (forward.cu:234-366), which the Pallas kernel re-architected for the TPU:
 //
-//   * one block of 256 threads per 16x16 tile, one thread per pixel, each
-//     warp an 8x4 block of pixels (footprint_common.cuh, as in K2);
+//   * one block of 256 threads per blend tile of at most 16x16 pixels, one
+//     thread per pixel, each warp an 8x4 block of pixels
+//     (footprint_common.cuh, as in K2);
 //   * the block reads its own [start, end) range of the (tile, depth)-sorted
 //     Gaussian id list and stages batches of 256 Gaussians in shared memory
 //     (xy, conic+opacity, rgb, depth: 40 bytes each, and a one-byte
@@ -18,13 +19,14 @@
 //   * pixels outside the image start done and are not written; the block
 //     leaves its loop when __syncthreads_count says that every pixel is done.
 //
-// Binning tiles whose sides are not multiples of 16 (render/pipeline.py::
-// split_binning_segments) are cut, from their own origin, into pieces of at
-// most 16x16 pixels; the PIECES instantiation runs one block a piece, which
-// reads its origin and extent from the piece table, its parent's range
-// from starts/ends, and starts the lanes outside the piece done, as those
-// outside the image. The footprint masks use the block's whole 16x16 rect:
-// a larger rect only keeps more pairs, and no bit changes.
+// The blend tiles are the pieces of the binning tiles (render/pipeline.py::
+// binning_pieces): each binning tile is cut, from its own origin, into
+// pieces of at most 16x16 pixels, which are the image's 16x16 grid where
+// both of its sides are multiples of 16. A block reads its piece's origin
+// and extent from the piece table and its parent's range from starts/ends,
+// and starts the lanes outside the piece done, as those outside the image.
+// The footprint masks use the block's whole 16x16 rect: a larger rect only
+// keeps more pairs, and no bit changes.
 //
 // Outputs, written straight into the image layout: color [3, H, W] (raw,
 // the background is composited by the caller), final_T [H, W], n_contrib
@@ -85,7 +87,6 @@ constexpr int kWarpH = 4;
 // (PERF.md).
 constexpr int kMinBlocks = 6;
 
-template <bool PIECES>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 global_blend_fwd_kernel(const int* __restrict__ point_list,
                         const int* __restrict__ starts,
@@ -94,8 +95,8 @@ global_blend_fwd_kernel(const int* __restrict__ point_list,
                         const float4* __restrict__ conic_opacity,
                         const float* __restrict__ rgb,
                         const float* __restrict__ depth,
-                        const int4* __restrict__ pieces,
-                        int grid_x, int width, int height,
+                        const int4* __restrict__ pieces, int width,
+                        int height,
                         float* __restrict__ out_color,
                         float* __restrict__ out_final_t,
                         int* __restrict__ out_n_contrib,
@@ -109,20 +110,14 @@ global_blend_fwd_kernel(const int* __restrict__ point_list,
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int4 piece =
-      PIECES ? pieces[tile]
-             : make_int4((tile % grid_x) * kTileX, (tile / grid_x) * kTileY,
-                         kTileX, kTileY);
+  const int4 piece = pieces[tile];  // x0, y0, w, h
   const int ox = piece.x;
   const int oy = piece.y;
   const int2 in_tile = footprint::pixel_in_tile<kWarpW, kWarpH>(t);
   const int px = ox + in_tile.x;
   const int py = oy + in_tile.y;
-  bool inside = px < width && py < height;
-  if constexpr (PIECES) {
-    inside = inside && in_tile.x < piece.z && in_tile.y < piece.w &&
-             px >= 0 && py >= 0;
-  }
+  const bool inside = in_tile.x < piece.z && in_tile.y < piece.w &&
+                      px < width && py < height;
   const float pfx = static_cast<float>(px);
   const float pfy = static_cast<float>(py);
 
@@ -198,64 +193,42 @@ global_blend_fwd_kernel(const int* __restrict__ point_list,
   }
 }
 
-template <bool PIECES>
-int run(const void* point_list, const void* starts, const void* ends,
-        const void* xy, const void* conic_opacity, const void* rgb,
-        const void* depth, const void* pieces, int num_tiles, int grid_x,
-        int width, int height, void* out_color, void* out_final_t,
-        void* out_n_contrib, void* out_depth, void* stream) {
-  if (num_tiles > 0) {
-    global_blend_fwd_kernel<PIECES><<<num_tiles, kBlock, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
+}  // namespace
+
+// One block a blend tile: pieces [num_pieces] int4 (x0, y0, w, h), 16-byte
+// aligned; starts/ends [num_pieces], each blend tile's range (its binning
+// tile's).
+extern "C" int stp_global_blend_fwd(const void* point_list, const void* starts,
+                                    const void* ends, const void* xy,
+                                    const void* conic_opacity, const void* rgb,
+                                    const void* depth, const void* pieces,
+                                    int num_pieces, int width, int height,
+                                    void* out_color, void* out_final_t,
+                                    void* out_n_contrib, void* out_depth,
+                                    void* stream) {
+  if (num_pieces > 0) {
+    global_blend_fwd_kernel<<<num_pieces, kBlock, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(point_list), static_cast<const int*>(starts),
         static_cast<const int*>(ends), static_cast<const float2*>(xy),
         static_cast<const float4*>(conic_opacity),
         static_cast<const float*>(rgb), static_cast<const float*>(depth),
-        static_cast<const int4*>(pieces), grid_x, width, height,
+        static_cast<const int4*>(pieces), width, height,
         static_cast<float*>(out_color), static_cast<float*>(out_final_t),
         static_cast<int*>(out_n_contrib), static_cast<float*>(out_depth));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// One block a 16x16 tile of the grid_x x grid_y image grid.
-extern "C" int stp_global_blend_fwd(const void* point_list, const void* starts,
-                                    const void* ends, const void* xy,
-                                    const void* conic_opacity, const void* rgb,
-                                    const void* depth, int grid_x, int grid_y,
-                                    int width, int height, void* out_color,
-                                    void* out_final_t, void* out_n_contrib,
-                                    void* out_depth, void* stream) {
-  return run<false>(point_list, starts, ends, xy, conic_opacity, rgb, depth,
-                    nullptr, grid_x * grid_y, grid_x, width, height, out_color,
-                    out_final_t, out_n_contrib, out_depth, stream);
-}
-
-// One block a piece: pieces [num_pieces] int4 (x0, y0, w, h), 16-byte
-// aligned; starts/ends [num_pieces], each piece's parent range.
-extern "C" int stp_global_blend_fwd_pieces(
-    const void* point_list, const void* starts, const void* ends,
-    const void* xy, const void* conic_opacity, const void* rgb,
-    const void* depth, const void* pieces, int num_pieces, int width,
-    int height, void* out_color, void* out_final_t, void* out_n_contrib,
-    void* out_depth, void* stream) {
-  return run<true>(point_list, starts, ends, xy, conic_opacity, rgb, depth,
-                   pieces, num_pieces, 1, width, height, out_color,
-                   out_final_t, out_n_contrib, out_depth, stream);
-}
-
 // K1 on this device: out[0] resident blocks per SM, out[1] registers a
 // thread, out[2] local (spill) bytes a thread, out[3] shared bytes a block.
 extern "C" int stp_global_blend_fwd_occupancy(int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err =
-      cudaFuncGetAttributes(&attr, global_blend_fwd_kernel<false>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, global_blend_fwd_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[1] = attr.numRegs;
   out[2] = static_cast<int>(attr.localSizeBytes);
   out[3] = static_cast<int>(attr.sharedSizeBytes);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, global_blend_fwd_kernel<false>, kBlock, 0));
+      out, global_blend_fwd_kernel, kBlock, 0));
 }

@@ -1,7 +1,8 @@
 // HIERARCHICAL sort-mode tile blend, backward (kernel K6 of the port).
 //
 // Replaces stopthepop_tpu/kernels/hier_blend.py::blend_hier_backward (the
-// Pallas _bwd_kernel, per-entry cascade). It computes what that kernel
+// Pallas _bwd_kernel; the batched cascade where built from
+// hier_blend_bwd_batched.cu). It computes what that kernel
 // computes — one replay of K5's cascade per pixel from the saved forward
 // output, each committed head pop's gradient sent to the pair that sourced
 // it — with no atomics:
@@ -59,6 +60,17 @@
 // interface, loaded with ctypes.
 
 #include "hier_common.cuh"
+
+// The cadence this library is built for. hier_blend_bwd_batched.cu defines
+// STP_HIER_BATCHED and includes this file, so that the batched
+// instantiations compile in an nvcc process of their own, beside these.
+#ifdef STP_HIER_BATCHED
+#define STP_ENTRY(suffix) stp_hier_blend_bwd_batched##suffix
+constexpr bool kBatched = true;
+#else
+#define STP_ENTRY(suffix) stp_hier_blend_bwd##suffix
+constexpr bool kBatched = false;
+#endif
 #include "route_common.cuh"
 
 namespace {
@@ -215,7 +227,6 @@ cudaError_t launch(const Args& a, int num_tiles, const void* color,
 // rows of a plane. scratch: [S, N, 80] float32, one row of features and
 // per-warp sums a pair (written before it is read; no initial value
 // needed); d_pair: [S, N, 9].
-template <bool BATCHED>
 int run(const void* point_list, const void* starts, const void* ends,
         const void* xy, const void* conic_opacity, const void* rgb,
         const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
@@ -244,7 +255,7 @@ int run(const void* point_list, const void* starts, const void* ends,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define STP_LAUNCH(M, H)                                                    \
   if (mid_max == M && head_max == H)                                        \
-    return static_cast<int>(launch<M, H, BATCHED>(                          \
+    return static_cast<int>(launch<M, H, kBatched>(                         \
         a, num_tiles, color, final_t, n_contrib, grad_color, grad_final_t,  \
         sub_tile, num_pairs, scratch, d_pair, st));
   STP_INSTANCES(STP_LAUNCH)
@@ -255,12 +266,11 @@ int run(const void* point_list, const void* starts, const void* ends,
 // The instantiation (mid_max, head_max) at tail size kt on this device:
 // out[0] resident blocks per SM, out[1] registers a thread, out[2] local
 // (spill) bytes a thread, out[3] shared bytes a block.
-template <bool BATCHED>
 int query(int kt, int mid_max, int head_max, int* out) {
 #define STP_OCC(M, H)                                              \
   if (mid_max == M && head_max == H)                               \
     return static_cast<int>(                                       \
-        occupancy(hier_blend_bwd_kernel<M, H, BATCHED>, kt, out));
+        occupancy(hier_blend_bwd_kernel<M, H, kBatched>, kt, out));
   STP_INSTANCES(STP_OCC)
 #undef STP_OCC
   return static_cast<int>(cudaErrorInvalidValue);
@@ -268,8 +278,10 @@ int query(int kt, int mid_max, int head_max, int* out) {
 
 }  // namespace
 
-// K6 with the per-entry cascade, and with the batched one (same interface).
-extern "C" int stp_hier_blend_bwd(
+// K6 with the per-entry cascade (stp_hier_blend_bwd), or, built from
+// hier_blend_bwd_batched.cu, with the batched one
+// (stp_hier_blend_bwd_batched, the same interface).
+extern "C" int STP_ENTRY()(
     const void* point_list, const void* starts, const void* ends,
     const void* xy, const void* conic_opacity, const void* rgb,
     const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
@@ -278,35 +290,14 @@ extern "C" int stp_hier_blend_bwd(
     const void* n_contrib, const void* grad_color, const void* grad_final_t,
     int grid_x, int grid_y, int width, int height, const void* sub_tile,
     int num_pairs, void* scratch, void* d_pair, void* stream) {
-  return run<false>(point_list, starts, ends, xy, conic_opacity, rgb, inv9,
-                    power_thr, cam, ndc_sx, ndc_sy, kt, km, kh, mid_max,
-                    head_max, culling, color, final_t, n_contrib, grad_color,
-                    grad_final_t, grid_x, grid_y, width, height, sub_tile,
-                    num_pairs, scratch, d_pair, stream);
+  return run(point_list, starts, ends, xy, conic_opacity, rgb, inv9, power_thr,
+             cam, ndc_sx, ndc_sy, kt, km, kh, mid_max, head_max, culling,
+             color, final_t, n_contrib, grad_color, grad_final_t, grid_x,
+             grid_y, width, height, sub_tile, num_pairs, scratch, d_pair,
+             stream);
 }
 
-extern "C" int stp_hier_blend_bwd_batched(
-    const void* point_list, const void* starts, const void* ends,
-    const void* xy, const void* conic_opacity, const void* rgb,
-    const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
-    float ndc_sy, int kt, int km, int kh, int mid_max, int head_max,
-    int culling, const void* color, const void* final_t,
-    const void* n_contrib, const void* grad_color, const void* grad_final_t,
-    int grid_x, int grid_y, int width, int height, const void* sub_tile,
-    int num_pairs, void* scratch, void* d_pair, void* stream) {
-  return run<true>(point_list, starts, ends, xy, conic_opacity, rgb, inv9,
-                   power_thr, cam, ndc_sx, ndc_sy, kt, km, kh, mid_max,
-                   head_max, culling, color, final_t, n_contrib, grad_color,
-                   grad_final_t, grid_x, grid_y, width, height, sub_tile,
-                   num_pairs, scratch, d_pair, stream);
-}
-
-extern "C" int stp_hier_blend_bwd_occupancy(int kt, int mid_max, int head_max,
-                                            int* out) {
-  return query<false>(kt, mid_max, head_max, out);
-}
-
-extern "C" int stp_hier_blend_bwd_batched_occupancy(int kt, int mid_max,
-                                                    int head_max, int* out) {
-  return query<true>(kt, mid_max, head_max, out);
+extern "C" int STP_ENTRY(_occupancy)(int kt, int mid_max, int head_max,
+                                      int* out) {
+  return query(kt, mid_max, head_max, out);
 }

@@ -1,9 +1,10 @@
 // HIERARCHICAL sort-mode tile blend, forward (kernel K5 of the port).
 //
 // Replaces stopthepop_tpu/kernels/hier_blend.py::blend_hier_forward (the
-// Pallas _fwd_kernel, per-entry cascade). Semantics: JAX
-// render/naive.py::render_hierarchical_naive with batched_cascade=False,
-// restated in stopthepop_tpu_torch/kernels/hier_blend.py. One block of 256
+// Pallas _fwd_kernel). Semantics: JAX render/naive.py::
+// render_hierarchical_naive with batched_cascade=False (True where built
+// from hier_blend_fwd_batched.cu), restated in
+// stopthepop_tpu_torch/kernels/hier_blend.py. One block of 256
 // threads per 16x16 tile runs the cascade of hier_common.cuh (the staging,
 // the tail, the mid keys computed once a quad, the mid and head windows and
 // the drain), which K6 replays. K5's hook is the blend: a commit
@@ -34,6 +35,17 @@
 // interface, loaded with ctypes.
 
 #include "hier_common.cuh"
+
+// The cadence this library is built for. hier_blend_fwd_batched.cu defines
+// STP_HIER_BATCHED and includes this file, so that the batched
+// instantiations compile in an nvcc process of their own, beside these.
+#ifdef STP_HIER_BATCHED
+#define STP_ENTRY(suffix) stp_hier_blend_fwd_batched##suffix
+constexpr bool kBatched = true;
+#else
+#define STP_ENTRY(suffix) stp_hier_blend_fwd##suffix
+constexpr bool kBatched = false;
+#endif
 
 namespace {
 
@@ -105,7 +117,6 @@ cudaError_t launch(const Args& a, int num_tiles, void* out_color,
 
 // mid_max / head_max: the instantiation (mid in 8, 12, 20; head in 4, 8, 16),
 // km <= mid_max, kh <= head_max; kt in 1..512.
-template <bool BATCHED>
 int run(const void* point_list, const void* starts, const void* ends,
         const void* xy, const void* conic_opacity, const void* rgb,
         const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
@@ -132,7 +143,7 @@ int run(const void* point_list, const void* starts, const void* ends,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define STP_LAUNCH(M, H)                                                   \
   if (mid_max == M && head_max == H)                                       \
-    return static_cast<int>(launch<M, H, BATCHED>(                         \
+    return static_cast<int>(launch<M, H, kBatched>(                        \
         a, num_tiles, out_color, out_final_t, out_n_contrib, out_depth,    \
         st));
   STP_INSTANCES(STP_LAUNCH)
@@ -143,12 +154,11 @@ int run(const void* point_list, const void* starts, const void* ends,
 // The instantiation (mid_max, head_max) at tail size kt on this device:
 // out[0] resident blocks per SM, out[1] registers a thread, out[2] local
 // (spill) bytes a thread, out[3] shared bytes a block.
-template <bool BATCHED>
 int query(int kt, int mid_max, int head_max, int* out) {
 #define STP_OCC(M, H)                                              \
   if (mid_max == M && head_max == H)                               \
     return static_cast<int>(                                       \
-        occupancy(hier_blend_fwd_kernel<M, H, BATCHED>, kt, out));
+        occupancy(hier_blend_fwd_kernel<M, H, kBatched>, kt, out));
   STP_INSTANCES(STP_OCC)
 #undef STP_OCC
   return static_cast<int>(cudaErrorInvalidValue);
@@ -156,8 +166,10 @@ int query(int kt, int mid_max, int head_max, int* out) {
 
 }  // namespace
 
-// K5 with the per-entry cascade, and with the batched one (same interface).
-extern "C" int stp_hier_blend_fwd(
+// K5 with the per-entry cascade (stp_hier_blend_fwd), or, built from
+// hier_blend_fwd_batched.cu, with the batched one
+// (stp_hier_blend_fwd_batched, the same interface).
+extern "C" int STP_ENTRY()(
     const void* point_list, const void* starts, const void* ends,
     const void* xy, const void* conic_opacity, const void* rgb,
     const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
@@ -165,32 +177,13 @@ extern "C" int stp_hier_blend_fwd(
     int culling, int grid_x, int grid_y, int width, int height,
     void* out_color, void* out_final_t, void* out_n_contrib, void* out_depth,
     void* stream) {
-  return run<false>(point_list, starts, ends, xy, conic_opacity, rgb, inv9,
-                    power_thr, cam, ndc_sx, ndc_sy, kt, km, kh, mid_max,
-                    head_max, culling, grid_x, grid_y, width, height,
-                    out_color, out_final_t, out_n_contrib, out_depth, stream);
+  return run(point_list, starts, ends, xy, conic_opacity, rgb, inv9, power_thr,
+             cam, ndc_sx, ndc_sy, kt, km, kh, mid_max, head_max, culling,
+             grid_x, grid_y, width, height, out_color, out_final_t,
+             out_n_contrib, out_depth, stream);
 }
 
-extern "C" int stp_hier_blend_fwd_batched(
-    const void* point_list, const void* starts, const void* ends,
-    const void* xy, const void* conic_opacity, const void* rgb,
-    const void* inv9, const void* power_thr, const void* cam, float ndc_sx,
-    float ndc_sy, int kt, int km, int kh, int mid_max, int head_max,
-    int culling, int grid_x, int grid_y, int width, int height,
-    void* out_color, void* out_final_t, void* out_n_contrib, void* out_depth,
-    void* stream) {
-  return run<true>(point_list, starts, ends, xy, conic_opacity, rgb, inv9,
-                   power_thr, cam, ndc_sx, ndc_sy, kt, km, kh, mid_max,
-                   head_max, culling, grid_x, grid_y, width, height,
-                   out_color, out_final_t, out_n_contrib, out_depth, stream);
-}
-
-extern "C" int stp_hier_blend_fwd_occupancy(int kt, int mid_max, int head_max,
-                                            int* out) {
-  return query<false>(kt, mid_max, head_max, out);
-}
-
-extern "C" int stp_hier_blend_fwd_batched_occupancy(int kt, int mid_max,
-                                                    int head_max, int* out) {
-  return query<true>(kt, mid_max, head_max, out);
+extern "C" int STP_ENTRY(_occupancy)(int kt, int mid_max, int head_max,
+                                      int* out) {
+  return query(kt, mid_max, head_max, out);
 }

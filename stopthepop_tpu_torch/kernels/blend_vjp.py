@@ -36,8 +36,8 @@ cotangents to the host before the kernel launches, and a backward that
 raises writes them with the arrays to snapshot_bw.npz
 (``utils/snapshot.py``) before re-raising.
 
-And a last, optional ``segs`` (``BlendSegments``): the 16x16 blend tiles'
-ranges when the binning tile is larger (render/pipeline.py::
+And a last, optional ``segs`` (``BlendSegments``): the blend tiles' ranges
+and pieces under the binning tile (render/pipeline.py::
 split_binning_segments). Blend tiles that share their binning tile's
 segment then write their per-pair gradients into planes of their own
 (kernels K2, K4 and K6 take the sub-tile map), and ``sum_planes`` adds the
@@ -70,26 +70,24 @@ def _backward(ctx, grad_color, grad_final_t, run):
 
 
 class BlendSegments(NamedTuple):
-    """The pair ranges the blend tiles read, their planes, and where the
-    binning tile's sides are not multiples of 16 the pieces they are."""
+    """The pair ranges the blend tiles read, their planes, and the pieces
+    they are."""
     starts: torch.Tensor              # [T] int32 per-blend-tile range start
     ends: torch.Tensor                # [T] int32 per-blend-tile range end
     sub_tile: Optional[torch.Tensor]  # [T] int32 plane of each tile, or None
     num_sub: int                      # planes: blend tiles a binning tile
-    # [T, 4] int32 (x0, y0, w, h) of each blend tile, or None for the
-    # image's 16x16 grid (GLOBAL only: K1 and K2 take it).
-    pieces: Optional[torch.Tensor] = None
+    # [T, 4] int32 (x0, y0, w, h) of each blend tile (K1 and K2 take it;
+    # the resort modes' blend tiles are the image's 16x16 grid).
+    pieces: torch.Tensor
 
 
 def _ranges(pairs, segs):
-    """(starts, ends, plane and piece keywords of the backward wrappers)."""
+    """(starts, ends, plane keywords of the backward wrappers)."""
     if segs is None:
         return pairs.starts, pairs.ends, {}
-    kw = {} if segs.sub_tile is None else {"sub_tile": segs.sub_tile,
-                                           "num_sub": segs.num_sub}
-    if segs.pieces is not None:
-        kw["pieces"] = segs.pieces
-    return segs.starts, segs.ends, kw
+    return segs.starts, segs.ends, (
+        {} if segs.sub_tile is None
+        else {"sub_tile": segs.sub_tile, "num_sub": segs.num_sub})
 
 
 def sum_planes(d_pair):
@@ -118,11 +116,11 @@ class BlendGlobal(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xy, conic_opacity, rgb, depth, pairs, grid_x, grid_y,
                 width, height, snapshot=None, segs=None):
-        kw = dict(grid_x=grid_x, grid_y=grid_y, width=width, height=height)
+        kw = dict(grid_x=grid_x, grid_y=grid_y, width=width, height=height,
+                  pieces=None if segs is None else segs.pieces)
         starts, ends, planes = _ranges(pairs, segs)
         color, final_t, n_contrib, depth_acc = blend_global_forward(
-            pairs.gauss_id, starts, ends, xy, conic_opacity, rgb, depth, **kw,
-            pieces=planes.get("pieces"))
+            pairs.gauss_id, starts, ends, xy, conic_opacity, rgb, depth, **kw)
         ctx.save_for_backward(xy, conic_opacity, rgb, color, final_t,
                               n_contrib)
         ctx.pairs = pairs

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -53,8 +54,13 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built. Its name hashes
-    every header too, so an edited header rebuilds every kernel."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    every header and the ``.cu`` sources it includes (a batched cascade's
+    source includes its per-entry one) too, so an edited header rebuilds
+    every kernel."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src)
+    for included in re.findall(rb'#include "(\w+\.cu)"', src):
+        h.update((CSRC / included.decode()).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -93,24 +93,6 @@ def tile_origins(grid_x: int, num_tiles: int, device):
                        dim=1).to(torch.float32)
 
 
-def segment_masks(point_list, starts, ends, xy, conic_opacity, grid_x,
-                  shape):
-    """[N] footprint masks of every sorted pair against its own tile."""
-    dev = xy.device
-    counts = (ends - starts).to(torch.int64)
-    tile = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev),
-                                   counts)
-    first = torch.cumsum(counts, 0) - counts
-    slot = (starts.to(torch.int64)[tile]
-            + torch.arange(tile.shape[0], device=dev) - first[tile])
-    masks = torch.zeros(point_list.shape[0], dtype=torch.int32, device=dev)
-    gid = point_list[slot].to(torch.int64)
-    origin = tile_origins(grid_x, counts.shape[0], dev)[tile]
-    masks[slot] = warp_footprint_mask(xy[gid], conic_opacity[gid], origin,
-                                      shape)
-    return masks
-
-
 class WarpCounter:
     """What a kernel that culls by footprint does per (warp, pair) step of
     a replay that visits position j of every tile's segment at once

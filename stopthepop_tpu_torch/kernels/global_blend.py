@@ -29,16 +29,17 @@ tile's segment of the last pair blended), depth_acc [H, W]. K2 takes the same ro
 its cotangents, and returns d_pair [N, 9] in sorted-slot order (see
 ``blend_global_backward``).
 
-Binning tiles larger than 16x16 (``render/pipeline.py``) give several
-blend tiles the same segment: ``starts``/``ends`` then repeat the parent's
-range, and K2 takes ``sub_tile`` [T] int32, each blend tile's plane of a
-d_pair [S, N, 9], so that the tiles that share a segment write disjoint rows
-(``blend_vjp.sum_planes`` adds the planes in order). A binning tile whose
-sides are not multiples of 16 is cut, from its own origin, into pieces of
-at most 16x16 pixels (``render/pipeline.py::binning_pieces``): both kernels
-then take ``pieces`` [T, 4] int32, each blend tile's (x0, y0, w, h) in
-image pixels, in place of the 16x16 grid, and the lanes outside a piece
-take no part.
+The blend tiles are the pieces of the binning tiles (``binning_pieces``):
+each binning tile is cut, from its own origin, into pieces of at most 16x16
+pixels, and both kernels take the piece table ``pieces`` [T, 4] int32, each
+blend tile's (x0, y0, w, h) in image pixels; the lanes outside a piece take
+no part. Where both sides of the binning tile are multiples of 16 the
+pieces are the image's 16x16 grid, the table the wrappers build when given
+none. A binning tile of several pieces gives them the same segment:
+``starts``/``ends`` then repeat the parent's range, and K2 takes
+``sub_tile`` [T] int32, each blend tile's plane of a d_pair [S, N, 9], so
+that the tiles that share a segment write disjoint rows
+(``blend_vjp.sum_planes`` adds the planes in order).
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ from ..constants import (
     TILE_Y,
 )
 from . import build
-from .footprint import WarpCounter, thread_pixels, tile_origins
+from .footprint import WarpCounter, thread_pixels
 
 KERNEL = "global_blend_fwd"
 SOURCE = "stopthepop_tpu_torch/csrc/global_blend_fwd.cu"
@@ -73,38 +74,32 @@ GRAD_COLS = ("x", "y", "a", "b", "c", "opacity", "r", "g", "b_rgb")
 WARP_SHAPE = (8, 4)
 
 
-def bind(lib, pieces=False):
-    """K1's C entry point in a loaded library, typed: the 16x16 grid's, or
-    with ``pieces`` the piece table's (``pieces`` and their count in place
-    of grid_x and grid_y)."""
-    fn = lib.stp_global_blend_fwd_pieces if pieces else lib.stp_global_blend_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7
-                   + ([ctypes.c_void_p] + [ctypes.c_int] * 3 if pieces
-                      else [ctypes.c_int] * 4) + [ctypes.c_void_p] * 5)
+def bind(lib):
+    """K1's C entry point in a loaded library, typed."""
+    fn = lib.stp_global_blend_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _bind(pieces=False):
-    return bind(build.load(KERNEL), pieces)
+def _bind():
+    return bind(build.load(KERNEL))
 
 
-def bind_bwd(lib, pieces=False):
-    """K2's C entry point in a loaded library, typed (``pieces`` as in
-    ``bind``)."""
-    fn = lib.stp_global_blend_bwd_pieces if pieces else lib.stp_global_blend_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 11
-                   + ([ctypes.c_void_p] + [ctypes.c_int] * 3 if pieces
-                      else [ctypes.c_int] * 4)
+def bind_bwd(lib):
+    """K2's C entry point in a loaded library, typed."""
+    fn = lib.stp_global_blend_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _bind_bwd(pieces=False):
-    return bind_bwd(build.load(BWD_KERNEL), pieces)
+def _bind_bwd():
+    return bind_bwd(build.load(BWD_KERNEL))
 
 
 def _occupancy(kernel, lib):
@@ -209,16 +204,47 @@ def _check_backward_inputs(color, final_t, n_contrib, grad_color,
 
 def _check_aligned(xy, conic_opacity, pieces):
     if (xy.data_ptr() % 8 or conic_opacity.data_ptr() % 16
-            or (pieces is not None and pieces.data_ptr() % 16)):
+            or pieces.data_ptr() % 16):
         raise ValueError("xy must be 8-byte and conic_opacity and pieces "
                          "16-byte aligned")
 
 
-def _grid_args(grid_x, grid_y, pieces):
-    """The C arguments that place the blocks: the grid, or the pieces."""
+@functools.lru_cache(maxsize=None)
+def binning_pieces(width: int, height: int, tile_x: int, tile_y: int,
+                   device):
+    """The blend tiles of the ``tile_x`` x ``tile_y`` binning tiles of a
+    ``width`` x ``height`` image: (parent [T] int64, plane [T] int32,
+    pieces [T, 4] int32 (x0, y0, w, h)), ordered by (y0, x0); cached per
+    image size, bin and device.
+
+    Binning tile (bx, by) is cut into sx x sy = ceil(tile_x / 16) x
+    ceil(tile_y / 16) pieces: piece (i, j) has its origin at
+    (bx tile_x + 16 i, by tile_y + 16 j), is min(16, tile_x - 16 i) x
+    min(16, tile_y - 16 j) pixels and writes plane i + sx j; only the
+    pieces whose origin lies on the image are mapped. Where both sides are
+    multiples of 16 the pieces are the image's 16x16 tiles, row-major.
+    """
+    sx, sy = -(-tile_x // TILE_X), -(-tile_y // TILE_Y)
+    bin_gx, bin_gy = -(-width // tile_x), -(-height // tile_y)
+    by, j, bx, i = (g.reshape(-1) for g in torch.meshgrid(
+        *(torch.arange(n, device=device) for n in (bin_gy, sy, bin_gx, sx)),
+        indexing="ij"))
+    x0 = bx * tile_x + TILE_X * i
+    y0 = by * tile_y + TILE_Y * j
+    keep = (x0 < width) & (y0 < height)
+    pieces = torch.stack([x0, y0, torch.clamp(tile_x - TILE_X * i, max=TILE_X),
+                          torch.clamp(tile_y - TILE_Y * j, max=TILE_Y)],
+                         dim=1)[keep]
+    parent = (by * bin_gx + bx)[keep]
+    plane = (i + sx * j)[keep]
+    return parent, plane.to(torch.int32), pieces.to(torch.int32).contiguous()
+
+
+def _grid_pieces(pieces, width: int, height: int, device):
+    """``pieces``, or where None the image's 16x16 grid as a piece table."""
     if pieces is None:
-        return (grid_x, grid_y)
-    return (pieces.data_ptr(), pieces.shape[0])
+        return binning_pieces(width, height, TILE_X, TILE_Y, device)[2]
+    return pieces
 
 
 def blend_global_forward(point_list, starts, ends, xy, conic_opacity, rgb,
@@ -228,11 +254,12 @@ def blend_global_forward(point_list, starts, ends, xy, conic_opacity, rgb,
 
     Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] int32,
     depth_acc [H, W]). ``grid_x`` x ``grid_y`` is the image's 16x16 grid;
-    with ``pieces`` [T, 4] int32 (module notes) the blend tiles are those
-    pieces, and ``starts``/``ends`` are [T]. CUDA tensors go to kernel K1
-    (counted in ``blend_global_forward.launches``); CPU tensors to the
-    plain version.
+    the blend tiles are ``pieces`` [T, 4] int32 (module notes), the grid's
+    tiles where None, and ``starts``/``ends`` are [T]. CUDA tensors go to
+    kernel K1 (counted in ``blend_global_forward.launches``); CPU tensors
+    to the plain version.
     """
+    pieces = _grid_pieces(pieces, width, height, xy.device)
     _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, depth,
                   grid_x, grid_y, width, height, pieces)
     dev = xy.device
@@ -245,7 +272,7 @@ def blend_global_forward(point_list, starts, ends, xy, conic_opacity, rgb,
     if dev.type != "cuda":
         raise ValueError(f"no blend kernel for device {dev}")
     _check_aligned(xy, conic_opacity, pieces)
-    fn = _bind(pieces is not None)
+    fn = _bind()
     color = torch.empty((3, height, width), dtype=torch.float32, device=dev)
     final_t = torch.empty((height, width), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -254,7 +281,7 @@ def blend_global_forward(point_list, starts, ends, xy, conic_opacity, rgb,
     err = fn(
         point_list.data_ptr(), starts.data_ptr(), ends.data_ptr(),
         xy.data_ptr(), conic_opacity.data_ptr(), rgb.data_ptr(),
-        depth.data_ptr(), *_grid_args(grid_x, grid_y, pieces), width, height,
+        depth.data_ptr(), pieces.data_ptr(), pieces.shape[0], width, height,
         color.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
         depth_acc.data_ptr(), stream,
     )
@@ -265,14 +292,6 @@ def blend_global_forward(point_list, starts, ends, xy, conic_opacity, rgb,
 
 
 blend_global_forward.launches = 0
-
-
-def _origins(grid_x: int, pieces, num_tiles: int, device):
-    """[T, 2] float32 pixel (0, 0) of each blend tile: the grid's, or the
-    pieces' origins."""
-    if pieces is None:
-        return tile_origins(grid_x, num_tiles, device)
-    return pieces[:, :2].to(torch.float32)
 
 
 def _tile_pixel_coords(grid_x: int, grid_y: int, device):
@@ -287,8 +306,8 @@ def _tile_pixel_coords(grid_x: int, grid_y: int, device):
 class BlendPixels(NamedTuple):
     """Each blend tile's 256 pixels in the kernels' in-tile row-major order:
     coordinates ``x``, ``y`` [T, 256] float32, ``inside`` [T, 256] (on the
-    tile or piece and on the image) and ``flat`` [T, 256] int64, the index
-    into an image's H * W pixels (0 where not inside)."""
+    piece and on the image) and ``flat`` [T, 256] int64, the index into an
+    image's H * W pixels (0 where not inside)."""
     x: torch.Tensor
     y: torch.Tensor
     inside: torch.Tensor
@@ -306,42 +325,44 @@ class BlendPixels(NamedTuple):
         return out.reshape(*tiles.shape[:-2], height, width)
 
 
-def blend_pixels(grid_x: int, grid_y: int, width: int, height: int,
-                 pieces=None, device=None) -> BlendPixels:
-    """The pixels of the image's 16x16 tiles, or of ``pieces`` [T, 4]
-    (x0, y0, w, h)."""
-    j = torch.arange(TILE_PIXELS, device=device)
+def blend_pixels(width: int, height: int, pieces) -> BlendPixels:
+    """The pixels of the blend tiles ``pieces`` [T, 4] int32 (x0, y0, w, h)
+    of a ``width`` x ``height`` image."""
+    j = torch.arange(TILE_PIXELS, device=pieces.device)
     jx, jy = j % TILE_X, j // TILE_X
-    if pieces is None:
-        x, y = _tile_pixel_coords(grid_x, grid_y, device)
-        x, y = x.to(torch.int64), y.to(torch.int64)
-        inside = torch.ones_like(x, dtype=torch.bool)
-    else:
-        pc = pieces.to(torch.int64)
-        x, y = pc[:, 0:1] + jx, pc[:, 1:2] + jy
-        inside = (jx < pc[:, 2:3]) & (jy < pc[:, 3:4]) & (x >= 0) & (y >= 0)
-    inside = inside & (x < width) & (y < height)
+    pc = pieces.to(torch.int64)
+    x, y = pc[:, 0:1] + jx, pc[:, 1:2] + jy
+    inside = ((jx < pc[:, 2:3]) & (jy < pc[:, 3:4]) & (x < width)
+              & (y < height))
     flat = torch.where(inside, y * width + x, 0)
     return BlendPixels(x.to(torch.float32), y.to(torch.float32), inside, flat)
 
 
+def _grid_pixels(width: int, height: int, device) -> BlendPixels:
+    """The pixels of the image's 16x16 tiles."""
+    return blend_pixels(width, height,
+                        binning_pieces(width, height, TILE_X, TILE_Y,
+                                       device)[2])
+
+
 def pack_image(img, grid_x: int, grid_y: int):
-    """[..., H, W] image -> [..., T, 256] per-tile pixels, zero past the edge
-    (the inverse of ``unpack_image``)."""
-    lead = img.shape[:-2]
+    """[..., H, W] image -> [..., T, 256] pixels of its ``grid_x`` x
+    ``grid_y`` 16x16 tiles, zero past the edge (the inverse of
+    ``unpack_image``)."""
     h, w = img.shape[-2:]
-    full = img.new_zeros((*lead, grid_y * TILE_Y, grid_x * TILE_X))
-    full[..., :h, :w] = img
-    t = full.reshape(*lead, grid_y, TILE_Y, grid_x, TILE_X).movedim(-3, -2)
-    return t.reshape(*lead, grid_x * grid_y, TILE_PIXELS)
+    if (grid_x, grid_y) != (-(-w // TILE_X), -(-h // TILE_Y)):
+        raise ValueError(f"grid ({grid_x}, {grid_y}) does not tile a "
+                         f"{w}x{h} image")
+    return _grid_pixels(w, h, img.device).pack(img)
 
 
 def unpack_image(tiles, grid_x: int, grid_y: int, width: int, height: int):
-    """[..., T, 256] per-tile pixel values -> [..., H, W] image (cropped)."""
-    lead = tiles.shape[:-2]
-    t = tiles.reshape(*lead, grid_y, grid_x, TILE_Y, TILE_X)
-    t = t.movedim(-3, -2).reshape(*lead, grid_y * TILE_Y, grid_x * TILE_X)
-    return t[..., :height, :width]
+    """[..., T, 256] per-tile pixel values of the ``grid_x`` x ``grid_y``
+    16x16 tiles -> [..., H, W] image (cropped)."""
+    if tiles.shape[-2] != grid_x * grid_y:
+        raise ValueError(f"{tiles.shape[-2]} tiles, not {grid_x}x{grid_y}")
+    return _grid_pixels(width, height, tiles.device).unpack(tiles, width,
+                                                            height)
 
 
 def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
@@ -352,7 +373,7 @@ def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
                                footprint_cull: bool = False):
     """Plain PyTorch version of kernel K1, same signature and outputs.
 
-    Pixels outside the image (or the piece) start done, as in K1. With
+    Pixels outside the image or the piece start done, as in K1. With
     ``count_evaluations`` it also returns (evaluations, blends): how many
     (pixel, pair) alphas the kernel evaluates on these inputs and how many
     of those it blends, over the pixels of the whole tile grid. A dict
@@ -362,10 +383,11 @@ def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
     bits.
     """
     dev = xy.device
+    pieces = _grid_pieces(pieces, width, height, dev)
     T_tiles = starts.shape[0]
     counts = (ends - starts).to(torch.int64)
     max_count = int(counts.max()) if T_tiles else 0
-    px = blend_pixels(grid_x, grid_y, width, height, pieces, dev)
+    px = blend_pixels(width, height, pieces)
     pix_x, pix_y = px.x, px.y
     T = torch.ones((T_tiles, TILE_PIXELS), dtype=torch.float32, device=dev)
     C = torch.zeros((4, T_tiles, TILE_PIXELS), dtype=torch.float32, device=dev)
@@ -375,7 +397,7 @@ def blend_global_forward_plain(point_list, starts, ends, xy, conic_opacity,
     evaluations = blends = 0
     if warp_counts is not None or footprint_cull:
         warps = WarpCounter(point_list, xy, conic_opacity,
-                            _origins(grid_x, pieces, T_tiles, dev), WARP_SHAPE)
+                            pieces[:, :2].to(torch.float32), WARP_SHAPE)
     for k in range(max_count):
         live = k < counts  # [T]
         pos = torch.where(live, starts.to(torch.int64) + k, 0)
@@ -433,6 +455,7 @@ def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
     kernel K2 (counted in ``blend_global_backward.launches``); CPU tensors
     to the plain version.
     """
+    pieces = _grid_pieces(pieces, width, height, xy.device)
     _check_inputs(point_list, starts, ends, xy, conic_opacity, rgb, None,
                   grid_x, grid_y, width, height, pieces)
     dev = xy.device
@@ -449,7 +472,7 @@ def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
     if dev.type != "cuda":
         raise ValueError(f"no blend kernel for device {dev}")
     _check_aligned(xy, conic_opacity, pieces)
-    fn = _bind_bwd(pieces is not None)
+    fn = _bind_bwd()
     n_pairs = point_list.shape[0]
     d_pair = torch.zeros((num_sub, n_pairs, len(GRAD_COLS)),
                          dtype=torch.float32, device=dev)
@@ -459,7 +482,7 @@ def blend_global_backward(point_list, starts, ends, xy, conic_opacity, rgb,
         xy.data_ptr(), conic_opacity.data_ptr(), rgb.data_ptr(),
         color.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
         grad_color.data_ptr(), grad_final_t.data_ptr(),
-        *_grid_args(grid_x, grid_y, pieces), width, height,
+        pieces.data_ptr(), pieces.shape[0], width, height,
         None if sub_tile is None else sub_tile.data_ptr(), n_pairs,
         d_pair.data_ptr(), stream,
     )
@@ -508,13 +531,14 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
     culls, as K2 does; the outputs stay the same bits.
     """
     dev = xy.device
+    pieces = _grid_pieces(pieces, width, height, dev)
     T_tiles = starts.shape[0]
     n_pairs = point_list.shape[0]
     d_pair = torch.zeros((num_sub, n_pairs, len(GRAD_COLS)),
                          dtype=torch.float32, device=dev)
     plane = (torch.zeros(T_tiles, dtype=torch.int64, device=dev)
              if sub_tile is None else sub_tile.to(torch.int64))
-    px = blend_pixels(grid_x, grid_y, width, height, pieces, dev)
+    px = blend_pixels(width, height, pieces)
     g = px.pack(grad_color)                             # [3, T, 256]
     c = px.pack(color)
     s_tot = c[0] * g[0] + c[1] * g[1] + c[2] * g[2]
@@ -530,7 +554,7 @@ def blend_global_backward_plain(point_list, starts, ends, xy, conic_opacity,
     evaluations = blends = 0
     if warp_counts is not None or footprint_cull:
         warps = WarpCounter(point_list, xy, conic_opacity,
-                            _origins(grid_x, pieces, T_tiles, dev), WARP_SHAPE)
+                            pieces[:, :2].to(torch.float32), WARP_SHAPE)
     for k in range(max_count):
         live = k < counts  # [T]
         pos = torch.where(live, starts.to(torch.int64) + k, 0)

@@ -58,7 +58,9 @@ key is finite (else by that key), run the same round through the head
 window (``kh``, first all -inf bubbles), and the head's 8 emitted entries
 blend in order. After the tail's drain, ``ceil(km / 8)`` mid rounds of +inf
 pads, then the head hold blends in order. Non-finite head depths add 0 to
-depth_acc (the Pallas batched path's rule).
+depth_acc (the Pallas batched path's rule). K5 and K6 take this cadence in
+libraries of their own (``library``), built from
+``csrc/hier_blend_{fwd,bwd}_batched.cu``.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors, and nothing else: on a CUDA tensor it launches the kernel
@@ -131,6 +133,10 @@ REPLACES = "stopthepop_tpu/kernels/hier_blend.py:923"
 BWD_KERNEL = "hier_blend_bwd"
 BWD_SOURCE = "stopthepop_tpu_torch/csrc/hier_blend_bwd.cu"
 BWD_REPLACES = "stopthepop_tpu/kernels/hier_blend.py:1652"
+# The suffix of the batched cascade's K5 and K6 libraries: the same kernels
+# at the batched cadence, each built from its own source (which includes
+# the per-entry one) so that nvcc compiles the two in parallel.
+BATCHED = "_batched"
 # K5 and K6 are instantiated for the reference's mid and head window sizes
 # (SURVEY.md:251-254); a run uses the smallest instantiation that holds its
 # runtime sizes. The tail lives in dynamic shared memory, 256 (kt + 64)
@@ -178,14 +184,26 @@ def bind(lib, backward=False, batched=False):
     return fn
 
 
+def library(kernel: str, batched: bool = False) -> str:
+    """The library of K5 (``KERNEL``) or K6 (``BWD_KERNEL``), with the
+    batched cascade where ``batched``: ``csrc/<library>.cu``."""
+    return kernel + (BATCHED if batched else "")
+
+
+def source(kernel: str, batched: bool = False) -> str:
+    """The source of ``library(kernel, batched)``, from the repo's root."""
+    return f"stopthepop_tpu_torch/csrc/{library(kernel, batched)}.cu"
+
+
 @functools.lru_cache(maxsize=None)
 def _bind(batched=False):
-    return bind(build.load(KERNEL), batched=batched)
+    return bind(build.load(library(KERNEL, batched)), batched=batched)
 
 
 @functools.lru_cache(maxsize=None)
 def _bind_bwd(batched=False):
-    return bind(build.load(BWD_KERNEL), backward=True, batched=batched)
+    return bind(build.load(library(BWD_KERNEL, batched)), backward=True,
+                batched=batched)
 
 
 def occupancy(kernel: str, kt: int, mid_max: int, head_max: int,
@@ -194,8 +212,8 @@ def occupancy(kernel: str, kt: int, mid_max: int, head_max: int,
     (``BWD_KERNEL``), with the batched cascade where ``batched``, reaches
     at tail size ``kt`` on the current device: resident blocks per SM,
     registers and local (spill) bytes a thread, shared bytes a block."""
-    fn = getattr(build.load(kernel),
-                 f"stp_{kernel}{'_batched' if batched else ''}_occupancy")
+    name = library(kernel, batched)
+    fn = getattr(build.load(name), f"stp_{name}_occupancy")
     out = (ctypes.c_int * 4)()
     err = fn(kt, mid_max, head_max, out)
     if err != 0:

@@ -8,8 +8,8 @@ A family is the kernels of one sort mode whose sources a redesign touches:
 * ``hier`` (the default): K5 and K6. Each DIR holds a ``hier_blend_fwd.cu``,
   a ``hier_blend_bwd.cu`` and the headers they include (``hier_common.cuh``,
   ``route_common.cuh``), with the C interfaces of the checkout's. With
-  ``--batched`` both run the batched cascade (every DIR needs its entry
-  points, ``stp_hier_blend_{fwd,bwd}_batched``).
+  ``--batched`` both run the batched cascade, built from
+  ``hier_blend_{fwd,bwd}_batched.cu`` (every DIR needs them).
 * ``kbuffer``: K3 and K4 at k = 4, from ``kbuffer_blend_fwd.cu``,
   ``kbuffer_blend_bwd.cu`` and the headers they include; K4's input is the
   plain K3's output.
@@ -17,7 +17,8 @@ A family is the kernels of one sort mode whose sources a redesign touches:
   ``K`` of the register window before it) is read from the source.
 * ``global``: K1 and K2, from ``global_blend_fwd.cu``,
   ``global_blend_bwd.cu`` and the headers they include; K2's input is the
-  plain K1's output.
+  plain K1's output. A source from before the piece table (its C entry
+  points take grid_x and grid_y) is called with the bench frame's grid.
 
 A DIR holds an earlier version of the sources (e.g. unpacked with ``git
 show``) or a step of a redesign. A backward source from before the
@@ -73,14 +74,15 @@ QUEUES = (64, 8, 4)
 KB_K = 4
 WIDTH, HEIGHT, GAUSSIANS = 1920, 1080, 500_000
 ITERS = 20
-# The instantiation whose registers a family reports.
-# (The piece table's K1/K2, Lb1E, are not reported; "hier_batched" is the
-# batched cascade's K5/K6.)
+# The instantiation whose registers a family reports ("hier_batched": the
+# batched cascade's K5/K6).
 _ENTRY = {"hier": r"\S*Li8ELi4E(?!Lb1E)\S*", "kbuffer": r"\S*ILi4EE\S*",
           "hier_batched": r"\S*Li8ELi4ELb1E\S*",
           "full": r"\S*full_blend_fwd_kernel\S*",
           "global": r"\S*global_blend_(?:fwd|bwd)_kernel(?!ILb1E)\S*"}
 _SOURCES = {"hier": ("hier_blend_fwd", "hier_blend_bwd"),
+            "hier_batched": ("hier_blend_fwd_batched",
+                             "hier_blend_bwd_batched"),
             "kbuffer": ("kbuffer_blend_fwd", "kbuffer_blend_bwd"),
             "full": ("full_blend_fwd",),
             "global": ("global_blend_fwd", "global_blend_bwd")}
@@ -93,7 +95,7 @@ def _ptxas(family, log):
     return (int(m.group(2)), int(m.group(1))) if m else None
 
 
-def _build(family, variants, entry=None):
+def _build(family, variants):
     """{name: ({source stem: loaded library}, {source stem: (registers,
     spill stores)})}."""
     out_root = build.BUILD_DIR.parent / f"{family}_probe"
@@ -115,10 +117,13 @@ def _build(family, variants, entry=None):
             raise RuntimeError(f"nvcc failed for {name} {stem}:\n{log}")
         found, regs = libs.setdefault(name, ({}, {}))
         found[stem] = ctypes.CDLL(str(so))
-        found[stem]._stp_one_plane = (
-            stem.endswith("_bwd")
-            and "sub_tile" not in (Path(variants[name]) / f"{stem}.cu").read_text())
-        regs[stem] = _ptxas(entry or family, log)
+        text = (Path(variants[name]) / f"{stem}.cu").read_text()
+        found[stem]._stp_one_plane = (stem.endswith("_bwd")
+                                      and "sub_tile" not in text)
+        entry = re.search(rf'int stp_{stem}\(([^)]*)\)', text)
+        found[stem]._stp_grid = (family == "global" and entry is not None
+                                 and "pieces" not in entry.group(1))
+        regs[stem] = _ptxas(family, log)
     return libs
 
 
@@ -230,9 +235,9 @@ class _Hier(_SameAsFirst):
 
     def bind(self, libs):
         b = self.batched
-        hb._bind = lambda batched=False, f=hb.bind(libs["hier_blend_fwd"],
-                                                   batched=b): f
-        lib = libs["hier_blend_bwd"]
+        hb._bind = lambda batched=False, f=hb.bind(
+            libs[hb.library(hb.KERNEL, b)], batched=b): f
+        lib = libs[hb.library(hb.BWD_KERNEL, b)]
         hb._bind_bwd = (lambda batched=False, f=_bwd(
             hb.bind(lib, backward=True, batched=b), lib, 3): f)
 
@@ -246,8 +251,9 @@ class _Hier(_SameAsFirst):
         again = hb.blend_hier_backward(*self.bwd_args, **self.kw)
         torch.cuda.synchronize()
         return {
-            "registers_spill_stores_8_4": {"fwd": regs["hier_blend_fwd"],
-                                           "bwd": regs["hier_blend_bwd"]},
+            "registers_spill_stores_8_4": {
+                "fwd": regs[hb.library(hb.KERNEL, self.batched)],
+                "bwd": regs[hb.library(hb.BWD_KERNEL, self.batched)]},
             "k5_bitwise": all(torch.equal(g, r) for g, r in zip(got, self.ref)),
             "k5_n_contrib_mismatches": int((got[2] != self.ref[2]).sum()),
             "k5_max_abs_err_color": float((got[0] - self.ref[0]).abs().max()),
@@ -357,10 +363,26 @@ class _Global(_SameAsFirst):
                        **bwd}}
 
     def bind(self, libs):
-        gb._bind = lambda pieces=False, f=gb.bind(libs["global_blend_fwd"]): f
-        lib = libs["global_blend_bwd"]
-        gb._bind_bwd = (lambda pieces=False,
-                        f=_bwd(gb.bind_bwd(lib), lib, 2): f)
+        gb._bind = lambda f=self._entry(libs["global_blend_fwd"], gb.bind,
+                                        7): f
+        gb._bind_bwd = lambda f=self._entry(libs["global_blend_bwd"],
+                                            gb.bind_bwd, 11): f
+
+    def _entry(self, lib, bind, at):
+        """K1's or K2's entry point in ``lib``, called with the checkout's
+        arguments. A build from before the piece table takes (grid_x,
+        grid_y) where the checkout's takes the table and its count, at
+        argument ``at``: it is typed so and called with the bench frame's
+        grid there."""
+        fn = bind(lib)
+        if lib._stp_grid:
+            fn.argtypes = [*fn.argtypes[:at], ctypes.c_int,
+                           *fn.argtypes[at + 1:]]
+        fn = _bwd(fn, lib, 2)
+        if not lib._stp_grid:
+            return fn
+        grid = (self.kw["grid_x"], self.kw["grid_y"])
+        return lambda *args: fn(*args[:at], *grid, *args[at + 2:])
 
     def run(self):
         return {"k1": lambda: gb.blend_global_forward(*self.args, **self.kw),
@@ -468,7 +490,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     batched = opts.batched and opts.family == "hier"
-    libs = _build(opts.family, variants, "hier_batched" if batched else None)
+    libs = _build("hier_batched" if batched else opts.family, variants)
     fam = (_Hier(torch.device("cuda"), batched=True) if batched
            else FAMILIES[opts.family](torch.device("cuda")))
     mod = fam.module

@@ -54,7 +54,7 @@ from ..config import GlobalSortOrder
 from ..constants import TILE_X, TILE_Y
 from ..kernels.blend_vjp import BlendGlobal, BlendHier, BlendKBuffer, BlendSegments
 from ..kernels.full_blend import blend_full_forward
-from ..kernels.global_blend import blend_global_forward
+from ..kernels.global_blend import binning_pieces, blend_global_forward
 from ..kernels.hier_blend import blend_hier_forward
 from ..kernels.kbuffer_blend import blend_kbuffer_forward
 from .duplicate import build_pairs, expand_pairs, sort_expanded
@@ -89,52 +89,21 @@ def resort_subdivision(tile_x: int, tile_y: int):
         "support 16x16 (reference parity) and 32x16 only")
 
 
-def binning_pieces(width: int, height: int, tile_x: int, tile_y: int,
-                   device):
-    """The pieces of the ``tile_x`` x ``tile_y`` binning tiles of a
-    ``width`` x ``height`` image: (parent [T] int64, plane [T] int32,
-    pieces [T, 4] int32 (x0, y0, w, h)), ordered by (y0, x0).
-
-    Piece (i, j) of binning tile (bx, by) has its origin at
-    (bx tile_x + 16 i, by tile_y + 16 j), is min(16, tile_x - 16 i) x
-    min(16, tile_y - 16 j) pixels and writes plane i + sx j
-    (``global_subdivision``); only the pieces whose origin lies on the
-    image are mapped. Where both sides are multiples of 16 the pieces are
-    the image's 16x16 tiles, row-major.
-    """
-    sx, sy = global_subdivision(tile_x, tile_y)
-    bin_gx, bin_gy = tile_grid(width, height, tile_x, tile_y)
-    by, j, bx, i = (g.reshape(-1) for g in torch.meshgrid(
-        *(torch.arange(n, device=device) for n in (bin_gy, sy, bin_gx, sx)),
-        indexing="ij"))
-    x0 = bx * tile_x + TILE_X * i
-    y0 = by * tile_y + TILE_Y * j
-    keep = (x0 < width) & (y0 < height)
-    pieces = torch.stack([x0, y0, torch.clamp(tile_x - TILE_X * i, max=TILE_X),
-                          torch.clamp(tile_y - TILE_Y * j, max=TILE_Y)],
-                         dim=1)[keep]
-    parent = (by * bin_gx + bx)[keep]
-    plane = (i + sx * j)[keep]
-    return parent, plane.to(torch.int32), pieces.to(torch.int32).contiguous()
-
-
 def split_binning_segments(starts, ends, width: int, height: int,
                            tile_x: int, tile_y: int) -> BlendSegments:
-    """Map the segments of ``tile_x`` x ``tile_y`` binning tiles to the
-    blend tiles of a ``width`` x ``height`` image (``binning_pieces``):
-    each reads its parent's range and writes its gradients into the plane
-    of its index in the parent. The planes of a parent's missing pieces are
-    written by no tile. The piece table is kept only where a side is not a
-    multiple of 16; else the blend tiles are the image's 16x16 grid."""
-    if (tile_x, tile_y) == (TILE_X, TILE_Y):
-        return BlendSegments(starts, ends, None, 1)
+    """Map the segments of ``tile_x`` x ``tile_y`` binning tiles to their
+    blend tiles, the pieces of at most 16x16 pixels of a ``width`` x
+    ``height`` image (``kernels/global_blend.py::binning_pieces``): each
+    reads its parent's range and writes its gradients into the plane of
+    its index in the parent. The planes of a parent's missing pieces are
+    written by no tile; 16x16 bins need no plane map."""
+    sx, sy = global_subdivision(tile_x, tile_y)
     parent, plane, pieces = binning_pieces(width, height, tile_x, tile_y,
                                            starts.device)
-    sx, sy = global_subdivision(tile_x, tile_y)
-    even = tile_x % TILE_X == 0 and tile_y % TILE_Y == 0
     return BlendSegments(starts[parent].contiguous(),
-                         ends[parent].contiguous(), plane, sx * sy,
-                         None if even else pieces)
+                         ends[parent].contiguous(),
+                         None if (tile_x, tile_y) == (TILE_X, TILE_Y)
+                         else plane, sx * sy, pieces)
 
 
 def _binned_pairs(prep, tile_x, tile_y, *, image_width, image_height,

@@ -11,6 +11,8 @@ The CUDA kernel itself builds and runs only on a GPU; ``chip_smoke.py`` holds
 it against this plain version there.
 """
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -161,5 +163,23 @@ def test_kernel_library_is_keyed_by_source_hash():
     assert path.name.startswith("global_blend_fwd-") and path.suffix == ".so"
     assert build.all_sources() == ["full_blend_fwd", "global_blend_bwd",
                                    "global_blend_fwd",
-                                   "hier_blend_bwd", "hier_blend_fwd",
+                                   "hier_blend_bwd", "hier_blend_bwd_batched",
+                                   "hier_blend_fwd", "hier_blend_fwd_batched",
                                    "kbuffer_blend_bwd", "kbuffer_blend_fwd"]
+
+
+def test_batched_library_is_keyed_by_the_source_it_includes(tmp_path,
+                                                            monkeypatch):
+    # hier_blend_fwd_batched.cu includes hier_blend_fwd.cu: an edit of the
+    # per-entry source renames both libraries, and of no other kernel.
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = ("hier_blend_fwd", "hier_blend_fwd_batched", "hier_blend_bwd")
+    before = {n: build.library_path(n) for n in names}
+    with open(csrc / "hier_blend_fwd.cu", "a") as f:
+        f.write("// edited\n")
+    after = {n: build.library_path(n) for n in names}
+    assert after["hier_blend_fwd"] != before["hier_blend_fwd"]
+    assert after["hier_blend_fwd_batched"] != before["hier_blend_fwd_batched"]
+    assert after["hier_blend_bwd"] == before["hier_blend_bwd"]

@@ -243,14 +243,17 @@ def test_plain_k1_never_culls_a_step_at_which_a_pixel_stops(warp_shape, scene):
     _, final_t, n_contrib, _ = gb.blend_global_forward_plain(
         *args, prep.depth.contiguous(), **kw)
     stops = _stop_steps(args, final_t, n_contrib, kw)          # [T, 256]
-    masks = fp.segment_masks(*args[:5], kw["grid_x"], warp_shape)
+    point_list, starts, _, xy, co, _ = args
     warp_of = torch.empty(256, dtype=torch.int64)
     warp_of[fp.thread_pixels(warp_shape)] = torch.arange(256) // 32
     hit = stops >= 0
-    slot = args[1].to(torch.int64)[:, None] + stops.clamp(min=0)
-    kept = ((masks[slot] >> warp_of) & 1) != 0
+    tile, pixel = torch.nonzero(hit, as_tuple=True)
+    gid = point_list[starts.to(torch.int64)[tile] + stops[hit]].to(torch.int64)
+    origin = fp.tile_origins(kw["grid_x"], stops.shape[0], "cpu")[tile]
+    masks = fp.warp_footprint_mask(xy[gid], co[gid], origin, warp_shape)
+    kept = ((masks >> warp_of[pixel]) & 1) != 0
     assert int(hit.sum()) > 0
-    assert bool(kept[hit].all())
+    assert bool(kept.all())
 
 
 def test_plain_k1_off_image_pixels_change_no_output():

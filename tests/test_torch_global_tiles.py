@@ -2,8 +2,8 @@
 piece table) against the JAX package, on the CPU.
 
 The port cuts each binning tile, from its own origin, into pieces of at
-most 16x16 pixels (``render/pipeline.py::binning_pieces``); the plain K1
-and K2 take the piece table. Held here:
+most 16x16 pixels (``kernels/global_blend.py::binning_pieces``); the plain
+K1 and K2 take the piece table. Held here:
 
 - GLOBAL ``render_tiled`` at 24x16, 8x8 and 20x12 on a 56x40 image against
   JAX ``render_tiled`` at the same bin (its Pallas kernels in interpret
@@ -18,8 +18,8 @@ and K2 take the piece table. Held here:
   plain K1;
 - the piece table: at 16x16, 32x16 and 32x32 the blend tiles, sub-tile map
   and plane count of the 16x16 grid (the split before the piece table, its
-  formula written out here) and no table; at 24x16 the pieces' origins,
-  extents and planes;
+  formula written out here); at 24x16 the pieces' origins, extents and
+  planes;
 - the training CLI in GLOBAL with ``--tile 24x16``.
 """
 
@@ -35,8 +35,8 @@ import stopthepop_tpu_torch as stt
 from stopthepop_tpu_torch.kernels import global_blend as gb
 from stopthepop_tpu_torch.kernels.blend_vjp import reduce_pair_grads, sum_planes
 from stopthepop_tpu_torch.render.duplicate import build_pairs
+from stopthepop_tpu_torch.kernels.global_blend import binning_pieces
 from stopthepop_tpu_torch.render.pipeline import (
-    binning_pieces,
     render_tiled,
     split_binning_segments,
     tile_grid,
@@ -123,7 +123,7 @@ def test_plain_piece_planes_match_autograd():
     pairs = build_pairs(t, grid_x=gx, grid_y=gy, tile_x=tile[0],
                         tile_y=tile[1], image_width=W, image_height=H)
     segs = split_binning_segments(pairs.starts, pairs.ends, W, H, *tile)
-    assert segs.num_sub == 2 and segs.pieces is not None
+    assert segs.num_sub == 2 and segs.pieces.shape == (20, 4)
     rows = [x.detach().clone().requires_grad_(True)
             for x in (t.mean2d, t.conic_opacity, t.rgb)]
     kw = dict(grid_x=4, grid_y=3, width=W, height=H, pieces=segs.pieces)
@@ -177,7 +177,7 @@ def test_piece_table_at_multiples_of_16_is_the_grid(tile):
     n_bins = tile_grid(w, h, *tile)
     starts = torch.arange(n_bins[0] * n_bins[1], dtype=torch.int32) * 10
     segs = split_binning_segments(starts, starts + 7, w, h, *tile)
-    assert segs.pieces is None
+    assert torch.equal(segs.pieces, pieces)
     assert segs.num_sub == (tile[0] // 16) * (tile[1] // 16)
     assert torch.equal(segs.starts, starts[ref_parent])
     assert torch.equal(segs.ends, starts[ref_parent] + 7)

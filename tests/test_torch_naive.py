@@ -9,7 +9,12 @@ map's largest value: the distance map sums depth gaps of up to ~10, and
 the port forms the view ray's norm term by term (``ops/transforms.py``, as
 its kernels do) where JAX calls ``jnp.linalg.norm``, which moves ray depths
 by an ulp. Scenes are 32x32 with about 100 Gaussians;
-the HIER cases use the default queues (64, 8, 4) and a smaller set.
+the HIER cases use the default queues (64, 8, 4) and a smaller set. The
+batched HIER cascade (``batched_cascade=True``) is held against JAX's batched
+oracle, run eagerly under ``jax.disable_jit()``, on the 16x16 scenes of
+``test_torch_hier_batched.py``: the two where it and the per-entry cascade
+differ by more than 1e-2, and its trap of exact key ties with fewer entries
+a quad than the mid window holds.
 
 The trap scene holds two bit-identical Gaussians (as densification's clone
 makes them): their ray depths tie exactly, and the second's contribution
@@ -17,6 +22,7 @@ counts as out of order (``depth <= dmax``, stopthepop_common.cuh:266), with
 a zero depth gap, in every mode's map.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,6 +44,9 @@ from stopthepop_tpu_torch.utils.testing import (
     random_scene,
 )
 
+from test_torch_hier_batched import SCENES as BATCHED_SCENES
+from test_torch_hier_batched import TRAP_QUEUES, _trap_scene
+
 one_thread_under_xdist()
 
 SIZE = 32
@@ -49,17 +58,17 @@ def _j(x):
     return jnp.asarray(x.numpy())
 
 
-def _inputs(scene, order=0, colors=False):
+def _inputs(scene, order=0, colors=False, size=SIZE):
     """(camera, JAX prep, the same prep as torch tensors)."""
-    cam = make_camera(SIZE, SIZE, device="cpu")
+    cam = make_camera(size, size, device="cpu")
     col = (dict(colors_precomp=_j(scene.colors)) if colors
            else dict(shs=_j(scene.shs), sh_degree=3))
     jprep = jax_preprocess(
         _j(scene.means3d), _j(scene.opacities), scales=_j(scene.scales),
         rotations=_j(scene.rotations), viewmatrix=_j(cam.viewmatrix),
         projmatrix=_j(cam.projmatrix), campos=_j(cam.campos),
-        tanfovx=cam.tanfovx, tanfovy=cam.tanfovy, image_width=SIZE,
-        image_height=SIZE, sort_order=JOrder(order), **col)
+        tanfovx=cam.tanfovx, tanfovy=cam.tanfovy, image_width=size,
+        image_height=size, sort_order=JOrder(order), **col)
     tprep = PreprocessOutput(*(torch.from_numpy(np.array(x)) for x in jprep))
     return cam, jprep, tprep
 
@@ -161,6 +170,30 @@ def test_hierarchical_naive_with_sort_error_matches_jax(queues, cull):
     _assert_close(port, ref)
     assert float(port[3].max()) > 0.0
     assert port[2].max() > queues[2]
+
+
+@pytest.mark.parametrize("scene", [*BATCHED_SCENES, "trap"])
+def test_hierarchical_naive_batched_matches_jax(scene):
+    if scene == "trap":
+        sc, queues, colors = _trap_scene(), TRAP_QUEUES, True
+    else:
+        n, seed, extent, queues = BATCHED_SCENES[scene]
+        sc = random_scene(seed, n, extent=extent, device="cpu")
+        colors = False
+    cam, jprep, tprep = _inputs(sc, colors=colors, size=16)
+    (tc, tv), (jc, jv) = _cam_args(cam)
+    port = naive.render_hierarchical_naive(
+        tprep, torch.from_numpy(BG), 16, 16, tc, tv, queue_sizes=queues,
+        batched_cascade=True)
+    with jax.disable_jit():
+        ref = jnaive.render_hierarchical_naive(
+            jprep, jnp.asarray(BG), 16, 16, jc, jv, queue_sizes=queues,
+            batched_cascade=True)
+    _assert_close(port, ref)
+    if scene != "trap":  # the scenes that tell the two cadences apart
+        per_entry = naive.render_hierarchical_naive(
+            tprep, torch.from_numpy(BG), 16, 16, tc, tv, queue_sizes=queues)
+        assert float((port[0] - per_entry[0]).abs().max()) > 1e-2
 
 
 def _clone_pair():
