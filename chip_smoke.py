@@ -15,11 +15,14 @@ Run from the root of the repository on a machine with one NVIDIA H100:
                                            # several cards); no last line
     python3 chip_smoke.py --cascade-only   # the build and phase 25 alone;
                                            # no last line
+    python3 chip_smoke.py --io-only        # phase 26 alone (no CUDA
+                                           # kernel is built); no last line
 
 Phases, one JSON line each; any failure exits non-zero:
   1. build: compile every CUDA kernel of the port with nvcc (in parallel);
      registers and spills per instantiation (ptxas), and for K5 and K6 the
-     resident blocks per SM of each instantiation at tail sizes 64 and 512.
+     resident blocks per SM of each instantiation at tail sizes 64 and 512;
+     then the host PNG and PLY codecs with g++ (host_build_s).
   2. kernel: hold kernel K1 (GLOBAL blend, forward) against its plain PyTorch
      version on the card — a 70x45 random scene, phase 11's deep-segment
      scene and the full 1920x1080 frame of the 500K-Gaussian bench scene
@@ -211,7 +214,18 @@ Phases, one JSON line each; any failure exits non-zero:
      16/8/4 (PTD_MAX), batched and per-entry, as phase 17 renders them, and
      (e) 5 training steps with the batched cascade (K5 and K6 once a step),
      each path with the launch counts set to 0 just before it.
- 26. the kernels line: each ported kernel with its launches on its main
+ 26. io: the native capture IO (io/images.py, io/ply.py over
+     native/{png_io,ply_io}.cpp, built with g++ at first use) against its
+     plain versions on the card's host. COLMAP_VIEWS frames at COLMAP_W x
+     COLMAP_H RGB and as many at 800x800 RGBA (NeRF-synthetic), their rows
+     cycling through the five PNG filter types with Paeth the most common
+     (utils/testing.py::filtered_png), read through read_png_batch (native,
+     8 threads), read_png one by one and _read_png_python: every image equal
+     to the one written, to the bit; seconds of each and per image. The
+     bench model saved with save_gaussian_model (500K Gaussians, SH degree
+     3, 62 properties) and read with read_ply (8 threads) and
+     _read_ply_numpy, equal to the bit; seconds of each. No kernel launches.
+ 27. the kernels line: each ported kernel with its launches on its main
      path (the training steps of phase 5 for K1/K2, of phase 10 for K3/K4
      and of phase 14 for K6, the HIER frames of phase 12 for K5, the FULL
      frames of phase 16 for K7), its error against the plain version, its
@@ -312,6 +326,10 @@ BATCH, BATCH_STEPS = 4, 3
 # bicycle's images_4, a points3D of COLMAP_POINTS, COLMAP_ITERS iterations.
 COLMAP_VIEWS, COLMAP_W, COLMAP_H = 16, 1237, 822
 COLMAP_POINTS, COLMAP_ITERS = 100_000, 100
+# Phase io: frames at NeRF-synthetic's 800x800 RGBA beside the COLMAP size;
+# each frame's rows take these filter types in turn (Paeth the most common,
+# as libpng's adaptive filters pick them); the PLY reader's threads.
+IO_RGBA, IO_FILTERS, IO_PLY_THREADS = 800, (4, 4, 1, 4, 2, 4, 3, 0), 8
 TIMED_FRAMES = 4
 # Phase parallel: bands and shards of the collective-free cores on one card
 # (check d), and the ring's per-step pair capacity (the bench frame has
@@ -1153,6 +1171,96 @@ def colmap_phase(out_dir, dev):
             "iters": COLMAP_ITERS, "eval_psnr": res.eval_psnr,
             "train_s": train_s, "train_launches": train_launches,
             "render_s": render_s, "render_launches": render_launches}
+
+
+def io_phase(out_dir, dev):
+    """io: the native PNG and PLY codecs against their plain versions (see
+    the module docstring, phase 26). Returns its fields."""
+    import shutil
+
+    import numpy as np
+
+    from stopthepop_tpu_torch.io import images, ply
+    from stopthepop_tpu_torch.kernels import build
+    from stopthepop_tpu_torch.utils.testing import filtered_png
+
+    t0 = time.perf_counter()
+    build.build_host(["png_io", "ply_io"])
+    build_s = time.perf_counter() - t0
+    data = out_dir / "io"
+    data.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    kinds = {"rgb_colmap": (COLMAP_H, COLMAP_W, 3), "rgba_nerf": (IO_RGBA, IO_RGBA, 4)}
+    written, paths = {}, {}
+    t0 = time.perf_counter()
+    for kind, (h, w, c) in kinds.items():
+        y, x = np.mgrid[0:h, 0:w]
+        for i in range(COLMAP_VIEWS):
+            smooth = np.stack([x * (k + 1) // 3 + y * (c - k) // 4 + 29 * i
+                               for k in range(c)], axis=-1)
+            img = ((smooth + rng.integers(0, 16, (h, w, c))) % 256).astype(np.uint8)
+            path = data / f"{kind}_{i:02d}.png"
+            path.write_bytes(filtered_png(img, IO_FILTERS))
+            paths.setdefault(kind, []).append(str(path))
+            written[str(path)] = img
+    write_s = time.perf_counter() - t0
+    every = [p for kind in kinds for p in paths[kind]]
+    reset_launches()
+    t0 = time.perf_counter()
+    batch = images.read_png_batch(every, n_threads=8)
+    batch_s = time.perf_counter() - t0
+    for p, img in zip(every, batch):
+        check(np.array_equal(img, written[p]), "io", f"read_png_batch: {p}")
+    per_kind = {}
+    for kind, kind_paths in paths.items():
+        t0 = time.perf_counter()
+        native = [images.read_png(p) for p in kind_paths]
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = [images._read_png_python(p) for p in kind_paths]
+        plain_s = time.perf_counter() - t0
+        for p, a, b in zip(kind_paths, native, plain):
+            check(np.array_equal(a, written[p]) and np.array_equal(b, written[p]),
+                  "io", f"native or plain PNG read differs: {p}")
+        h, w, c = kinds[kind]
+        per_kind[kind] = {
+            "frames": len(kind_paths), "width": w, "height": h, "channels": c,
+            "native_s": native_s, "plain_s": plain_s,
+            "native_s_per_image": native_s / len(kind_paths),
+            "plain_s_per_image": plain_s / len(kind_paths),
+            "plain_over_native": plain_s / native_s,
+        }
+    del batch, native, plain, written
+    shutil.rmtree(data)
+
+    path = str(out_dir / "io_model.ply")
+    t0 = time.perf_counter()
+    ply.save_gaussian_model(path, bench_model(dev))
+    ply_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = ply.read_ply(path, n_threads=IO_PLY_THREADS)
+    ply_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = ply._read_ply_numpy(path)
+    ply_plain_s = time.perf_counter() - t0
+    check(list(native) == list(plain) and len(native) == 62
+          and all(np.array_equal(native[k].view(np.uint32), plain[k].view(np.uint32))
+                  for k in plain), "io", "native and plain PLY reads differ")
+    n_verts = len(native["x"])
+    ply_bytes = Path(path).stat().st_size
+    Path(path).unlink()
+    launches = read_launches()
+    check(not any(launches.values()), "io", f"kernel launches {launches}")
+    return {"host_build_s": build_s, "filters": list(IO_FILTERS),
+            "png_write_s": write_s, "png": per_kind,
+            "png_batch_frames": len(every), "png_batch_threads": 8,
+            "png_batch_native_s": batch_s,
+            "ply": {"gaussians": n_verts, "properties": len(native),
+                    "bytes": ply_bytes, "write_s": ply_write_s,
+                    "threads": IO_PLY_THREADS, "native_s": ply_native_s,
+                    "plain_s": ply_plain_s,
+                    "plain_over_native": ply_plain_s / ply_native_s},
+            "bitwise": True, "launches": launches}
 
 
 def debug_viz_phase(model, bench_cam, cams, small_arrays, dev):
@@ -2514,6 +2622,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if "--io-only" in args:
+        card = card_line()
+        t0 = time.perf_counter()
+        fields = io_phase(ROOT / "build" / "chip_smoke", torch.device(DEVICE))
+        emit({"phase": "io", "ok": True, **fields,
+              "seconds": time.perf_counter() - t0, "card": card})
+        print(card)
+        return 0
     from stopthepop_tpu_torch.io.cameras import orbit_camera
     from stopthepop_tpu_torch.io.ply import load_gaussian_model, save_gaussian_model
     from stopthepop_tpu_torch.kernels import build, global_blend
@@ -2535,7 +2651,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.build(build.all_sources())
     build_s = time.perf_counter() - t0
-    emit({"phase": "build", "ok": True, "seconds": build_s, "card": card,
+    t0 = time.perf_counter()
+    build.build_host(["png_io", "ply_io"])
+    host_build_s = time.perf_counter() - t0
+    emit({"phase": "build", "ok": True, "seconds": build_s,
+          "host_build_s": host_build_s, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernels": {
               n: {"seconds": log["seconds"], "ptxas": ptxas_summary(log["ptxas"])}
@@ -3170,7 +3290,10 @@ def main(argv=None) -> int:
           "seconds": time.perf_counter() - t0, "card": card})
     del model
 
-    # 26. kernels -----------------------------------------------------------------
+    # 26. io: the native capture IO against its plain versions --------------------
+    emit_phase("io", lambda: io_phase(out_dir, dev))
+
+    # 27. kernels -----------------------------------------------------------------
     def at_tile(key, launches):
         """A kernel's numbers at the binning tiles of phase 23: 32x16 and,
         for K1 and K2, the odd bins of ODD_TILES."""

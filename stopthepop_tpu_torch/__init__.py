@@ -9,7 +9,9 @@ forward/backward, K3/K4 k-buffer forward/backward, K5/K6 hierarchical
 forward/backward, K7 the exact per-pixel sort, forward only; small
 PER_PIXEL_FULL scenes also through the dense differentiable oracle,
 ``full_mode``). Around the render: COLMAP and NeRF-synthetic captures
-(``io/colmap.py``, ``io/images.py``) for both CLIs, single- and
+(``io/colmap.py``, ``io/images.py``) for both CLIs, their PNG frames and
+the PLY models read and written by C++ codecs (``native/``, built with g++
+at first use by ``kernels/build.py::build_host``), single- and
 multi-camera training steps (``train/trainer.py``), the dense oracles of
 every mode with the reference's sort-error maps (``render/naive.py``), the
 six debug visualization modes and ``render_depth``
@@ -25,7 +27,7 @@ CPU tensors every kernel wrapper runs its plain PyTorch version. On the
 CPU, ``python -m pytest tests/test_torch_*.py`` holds the port against the
 JAX package; on an H100, ``python3 chip_smoke.py`` builds the kernels and
 drives every path (phases ``train_batched``, ``colmap``, ``debug_viz``,
-``timed``, ``snapshot`` and ``parallel`` for the ones above).
+``timed``, ``snapshot``, ``parallel`` and ``io`` for the ones above).
 
 Nothing here imports JAX or the ``stopthepop_tpu`` package.
 """

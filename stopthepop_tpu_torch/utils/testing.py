@@ -4,16 +4,20 @@ Port of ``stopthepop_tpu/utils/testing.py``. Camera matrices follow the
 torch-3DGS convention (transposed world-to-view / world-to-clip). Scenes are
 drawn with numpy from a seed, so the same arrays can be handed to both
 packages. ``run_ranks`` runs a test body in a group of CPU processes, for
-the multi-device layer (``parallel/``).
+the multi-device layer (``parallel/``). ``filtered_png`` writes PNG files
+whose rows carry every filter type, as captures written with libpng's
+adaptive filters do, for the native codec (``io/images.py``).
 """
 
 from __future__ import annotations
 
 import math
 import os
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 from typing import List, NamedTuple
 
@@ -138,6 +142,38 @@ def clone_trap_scene(device=None) -> Scene:
         torch.as_tensor(np.concatenate([a, b]).astype(np.float32), device=dev)
         for a, b in zip(faint, opaque)
     ))
+
+
+def png_chunk(ctype: bytes, payload: bytes) -> bytes:
+    """One PNG chunk: length, type, payload and CRC."""
+    crc = zlib.crc32(ctype + payload) & 0xFFFFFFFF
+    return struct.pack(">I", len(payload)) + ctype + payload + struct.pack(">I", crc)
+
+
+def filtered_png(img: np.ndarray, filters) -> bytes:
+    """The bytes of an 8-bit PNG of ``img`` ([H, W, C] uint8, C in 1-4)
+    whose row y is written with filter type ``filters[y % len(filters)]``
+    (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), one IDAT chunk."""
+    h, w, c = img.shape
+    cur = img.reshape(h, w * c).astype(np.int32)
+    up = np.zeros_like(cur)
+    up[1:] = cur[:-1]
+    left = np.zeros_like(cur)
+    left[:, c:] = cur[:, :-c]
+    upleft = np.zeros_like(cur)
+    upleft[:, c:] = up[:, :-c]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(cur), left, up, (left + up) >> 1, paeth])
+    rows = np.arange(h)
+    ft = np.asarray(filters, np.uint8)[rows % len(filters)]
+    enc = ((cur - preds[ft, rows]) & 0xFF).astype(np.uint8)
+    raw = np.concatenate([ft[:, None], enc], axis=1).tobytes()
+    color = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    return (b"\x89PNG\r\n\x1a\n"
+            + png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + png_chunk(b"IDAT", zlib.compress(raw, 6)) + png_chunk(b"IEND", b""))
 
 
 def one_thread_under_xdist() -> None:
