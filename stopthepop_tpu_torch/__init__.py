@@ -16,8 +16,9 @@ multi-camera training steps (``train/trainer.py``), the dense oracles of
 every mode with the reference's sort-error maps (``render/naive.py``), the
 six debug visualization modes and ``render_depth``
 (``render/debug_viz.py``), ``debug=True`` failure snapshots
-(``utils/snapshot.py``) and the stage timer with its timed GLOBAL path and
-``torch.profiler`` traces (``utils/profiling.py``,
+(``utils/snapshot.py``), the program's ``stp/`` spans for each layer of a
+frame and a training step in any ``torch.profiler`` trace, and the stage
+timer that times them in every sort mode (``utils/profiling.py``,
 ``render/pipeline.py::render_tiled_timed``). Across GPUs, over
 torch.distributed (``parallel/``): the ("data", "gauss") train step,
 band-sharded rendering and training, the ring-streamed Gaussian shards and

@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import span
 from ..utils.snapshot import host_copies, snapshot_on_failure
 from .global_blend import blend_global_backward, blend_global_forward
 from .hier_blend import blend_hier_backward, blend_hier_forward
@@ -132,17 +133,19 @@ class BlendGlobal(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_color, grad_final_t, _grad_n, _grad_depth):
-        xy, conic_opacity, rgb, color, final_t, n_contrib = ctx.saved_tensors
-        pairs = ctx.pairs
-        # Autograd hands zeros for an unused output (materialize_grads).
-        d_pair = _backward(
-            ctx, grad_color, grad_final_t, lambda: blend_global_backward(
-                pairs.gauss_id, *ctx.ranges, xy, conic_opacity, rgb,
-                color, final_t, n_contrib, grad_color.contiguous(),
-                grad_final_t.contiguous(), **ctx.kw))
-        d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
-                              pairs.gauss_offsets)
-        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 8
+        with span("blend_bwd"):
+            (xy, conic_opacity, rgb, color, final_t,
+             n_contrib) = ctx.saved_tensors
+            pairs = ctx.pairs
+            # Autograd hands zeros for an unused output (materialize_grads).
+            d_pair = _backward(
+                ctx, grad_color, grad_final_t, lambda: blend_global_backward(
+                    pairs.gauss_id, *ctx.ranges, xy, conic_opacity, rgb,
+                    color, final_t, n_contrib, grad_color.contiguous(),
+                    grad_final_t.contiguous(), **ctx.kw))
+            d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
+                                  pairs.gauss_offsets)
+            return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 8
 
 
 class BlendKBuffer(torch.autograd.Function):
@@ -171,17 +174,19 @@ class BlendKBuffer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_color, grad_final_t, _grad_n, _grad_depth):
-        (xy, conic_opacity, rgb, cov3d_inv9, inverse_vp, campos, color,
-         final_t, n_contrib) = ctx.saved_tensors
-        pairs = ctx.pairs
-        d_pair = _backward(
-            ctx, grad_color, grad_final_t, lambda: blend_kbuffer_backward(
-                pairs.gauss_id, *ctx.ranges, xy, conic_opacity, rgb,
-                cov3d_inv9, inverse_vp, campos, color, final_t, n_contrib,
-                grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw))
-        d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
-                              pairs.gauss_offsets)
-        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 11
+        with span("blend_bwd"):
+            (xy, conic_opacity, rgb, cov3d_inv9, inverse_vp, campos, color,
+             final_t, n_contrib) = ctx.saved_tensors
+            pairs = ctx.pairs
+            d_pair = _backward(
+                ctx, grad_color, grad_final_t, lambda: blend_kbuffer_backward(
+                    pairs.gauss_id, *ctx.ranges, xy, conic_opacity, rgb,
+                    cov3d_inv9, inverse_vp, campos, color, final_t, n_contrib,
+                    grad_color.contiguous(), grad_final_t.contiguous(),
+                    **ctx.kw))
+            d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
+                                  pairs.gauss_offsets)
+            return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 11
 
 
 class BlendHier(torch.autograd.Function):
@@ -215,11 +220,13 @@ class BlendHier(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_color, grad_final_t, _grad_n, _grad_depth):
-        pairs = ctx.pairs
-        d_pair = _backward(
-            ctx, grad_color, grad_final_t, lambda: blend_hier_backward(
-                pairs.gauss_id, *ctx.ranges, *ctx.saved_tensors,
-                grad_color.contiguous(), grad_final_t.contiguous(), **ctx.kw))
-        d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
-                              pairs.gauss_offsets)
-        return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 14
+        with span("blend_bwd"):
+            pairs = ctx.pairs
+            d_pair = _backward(
+                ctx, grad_color, grad_final_t, lambda: blend_hier_backward(
+                    pairs.gauss_id, *ctx.ranges, *ctx.saved_tensors,
+                    grad_color.contiguous(), grad_final_t.contiguous(),
+                    **ctx.kw))
+            d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
+                                  pairs.gauss_offsets)
+            return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 14

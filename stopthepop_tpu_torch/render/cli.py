@@ -42,6 +42,7 @@ from ..io.images import write_png
 from ..io.ply import load_gaussian_model
 from ..models.gaussians import GaussianModel
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .rasterize import RenderOutput, rasterize_gaussians
 
 
@@ -61,18 +62,12 @@ def render_model(
         inv_viewprojmatrix=cam.inv_viewprojmatrix,
         campos=cam.campos,
     )
+    with span("params"):
+        shs, opacities = model.shs(), model.opacities()
+        scales, rotations = model.scales(), model.rotations_normalized()
     return rasterize_gaussians(
-        model.means3d,
-        means2d_dummy,
-        model.shs(),
-        None,
-        model.opacities(),
-        model.scales(),
-        model.rotations_normalized(),
-        None,
-        rs,
-        **kw,
-    )
+        model.means3d, means2d_dummy, shs, None, opacities, scales,
+        rotations, None, rs, **kw)
 
 
 def render_frames(

@@ -38,6 +38,7 @@ from ..config import GlobalSortOrder
 from ..constants import TILE_X, TILE_Y
 from ..ops.sort import identify_tile_ranges, sort_pairs
 from ..ops.stopthepop import max_contrib_power_rect, per_tile_depth, tile_rect_bounds
+from ..utils.profiling import span
 from .preprocess import PreprocessOutput
 
 PER_TILE_ORDERS = (GlobalSortOrder.PTD_CENTER, GlobalSortOrder.PTD_MAX)
@@ -105,75 +106,78 @@ def expand_pairs(
     size (ValueError without them). ``grid_x``, ``tile_x`` and ``tile_y``
     are those of the binning grid ``prep`` was made for.
     """
-    order = GlobalSortOrder(sort_order)
-    per_tile = order in PER_TILE_ORDERS
-    if per_tile and (campos is None or inverse_vp is None
-                     or image_width <= 0 or image_height <= 0):
-        raise ValueError(
-            f"sort order {order.name} needs campos, inverse_vp, image_width "
-            "and image_height"
+    with span("duplicate"):
+        order = GlobalSortOrder(sort_order)
+        per_tile = order in PER_TILE_ORDERS
+        if per_tile and (campos is None or inverse_vp is None
+                         or image_width <= 0 or image_height <= 0):
+            raise ValueError(
+                f"sort order {order.name} needs campos, inverse_vp, "
+                "image_width and image_height"
+            )
+        dev = prep.tiles_touched.device
+        touched = prep.tiles_touched.to(torch.int64)
+        num_rendered = int(touched.sum())  # the reference's one D2H read
+        P = touched.shape[0]
+        g = torch.repeat_interleave(
+            torch.arange(P, device=dev), touched, output_size=num_rendered
         )
-    dev = prep.tiles_touched.device
-    touched = prep.tiles_touched.to(torch.int64)
-    num_rendered = int(touched.sum())  # the reference's one D2H read
-    P = touched.shape[0]
-    g = torch.repeat_interleave(
-        torch.arange(P, device=dev), touched, output_size=num_rendered
-    )
-    base = torch.cumsum(touched, 0) - touched
-    local = torch.arange(num_rendered, device=dev) - base[g]
-    rect_min = prep.rect_min.to(torch.int64)[g]
-    width = (prep.rect_max[:, 0] - prep.rect_min[:, 0]).to(torch.int64)[g]
-    ty = rect_min[:, 1] + local // width
-    tx = rect_min[:, 0] + local % width
-    # Culling and sort keys are discrete decisions: no gradient flows
-    # through them.
-    if tile_based_culling or order == GlobalSortOrder.PTD_MAX:
-        tile_min, tile_max = tile_rect_bounds(tx, ty, tile_x, tile_y)
-        power, max_pos = max_contrib_power_rect(
-            prep.conic_opacity.detach()[g], prep.mean2d.detach()[g],
-            tile_min, tile_max, patch_w=tile_x - 1, patch_h=tile_y - 1,
-        )
-    if tile_based_culling:
-        keep = power <= prep.opacity_power_threshold.detach()[g]
-        g, tx, ty = g[keep], tx[keep], ty[keep]
-        if order == GlobalSortOrder.PTD_MAX:
-            max_pos = max_pos[keep]
-    tile_id = (ty * grid_x + tx).to(torch.int32)
-    if not per_tile:
-        return tile_id, prep.depth.detach()[g], g.to(torch.int32)
-    if order == GlobalSortOrder.PTD_CENTER:
-        # Center of the inclusive pixel rect, (tx*16 + 7.5, ty*16 + 7.5) at
-        # 16x16.
-        target = torch.stack(
-            [tx.to(torch.float32) * tile_x + (tile_x - 1) / 2.0,
-             ty.to(torch.float32) * tile_y + (tile_y - 1) / 2.0], dim=-1)
-    else:
-        target = max_pos
-    depth = per_tile_depth(target, prep.cov3d_inv9.detach()[g],
-                           campos.detach(), image_width, image_height,
-                           inverse_vp.detach())
-    return tile_id, depth, g.to(torch.int32)
+        base = torch.cumsum(touched, 0) - touched
+        local = torch.arange(num_rendered, device=dev) - base[g]
+        rect_min = prep.rect_min.to(torch.int64)[g]
+        width = (prep.rect_max[:, 0] - prep.rect_min[:, 0]).to(torch.int64)[g]
+        ty = rect_min[:, 1] + local // width
+        tx = rect_min[:, 0] + local % width
+        # Culling and sort keys are discrete decisions: no gradient flows
+        # through them.
+        if tile_based_culling or order == GlobalSortOrder.PTD_MAX:
+            tile_min, tile_max = tile_rect_bounds(tx, ty, tile_x, tile_y)
+            power, max_pos = max_contrib_power_rect(
+                prep.conic_opacity.detach()[g], prep.mean2d.detach()[g],
+                tile_min, tile_max, patch_w=tile_x - 1, patch_h=tile_y - 1,
+            )
+        if tile_based_culling:
+            keep = power <= prep.opacity_power_threshold.detach()[g]
+            g, tx, ty = g[keep], tx[keep], ty[keep]
+            if order == GlobalSortOrder.PTD_MAX:
+                max_pos = max_pos[keep]
+        tile_id = (ty * grid_x + tx).to(torch.int32)
+        if not per_tile:
+            return tile_id, prep.depth.detach()[g], g.to(torch.int32)
+        if order == GlobalSortOrder.PTD_CENTER:
+            # Center of the inclusive pixel rect, (tx*16 + 7.5, ty*16 + 7.5)
+            # at 16x16.
+            target = torch.stack(
+                [tx.to(torch.float32) * tile_x + (tile_x - 1) / 2.0,
+                 ty.to(torch.float32) * tile_y + (tile_y - 1) / 2.0], dim=-1)
+        else:
+            target = max_pos
+        depth = per_tile_depth(target, prep.cov3d_inv9.detach()[g],
+                               campos.detach(), image_width, image_height,
+                               inverse_vp.detach())
+        return tile_id, depth, g.to(torch.int32)
 
 
 def sort_expanded(tile_id, depth, gauss_id, num_tiles: int,
                   num_gaussians: int) -> PairBuffer:
     """The "Sort" stage: stable (tile, depth) sort + per-tile ranges, and
     the Gaussian-major run offsets of the unsorted stream."""
-    s_tile, s_depth, s_gid, order = sort_pairs(tile_id, depth, gauss_id)
-    starts, ends = identify_tile_ranges(s_tile, num_tiles)
-    runs = torch.bincount(gauss_id.to(torch.int64), minlength=num_gaussians)
-    gauss_offsets = torch.cat([runs.new_zeros(1), torch.cumsum(runs, 0)])
-    return PairBuffer(
-        tile_id=s_tile,
-        depth=s_depth,
-        gauss_id=s_gid,
-        starts=starts,
-        ends=ends,
-        num_rendered=int(s_tile.shape[0]),
-        orig_slot=order,
-        gauss_offsets=gauss_offsets,
-    )
+    with span("sort"):
+        s_tile, s_depth, s_gid, order = sort_pairs(tile_id, depth, gauss_id)
+        starts, ends = identify_tile_ranges(s_tile, num_tiles)
+        runs = torch.bincount(gauss_id.to(torch.int64),
+                              minlength=num_gaussians)
+        gauss_offsets = torch.cat([runs.new_zeros(1), torch.cumsum(runs, 0)])
+        return PairBuffer(
+            tile_id=s_tile,
+            depth=s_depth,
+            gauss_id=s_gid,
+            starts=starts,
+            ends=ends,
+            num_rendered=int(s_tile.shape[0]),
+            orig_slot=order,
+            gauss_offsets=gauss_offsets,
+        )
 
 
 def build_pairs(

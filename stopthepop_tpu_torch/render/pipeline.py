@@ -3,7 +3,7 @@
 Port of ``stopthepop_tpu/render/pipeline.py::render_tiled`` (GLOBAL sort mode),
 ``render_tiled_kbuffer`` (PER_PIXEL_KBUFFER), ``render_tiled_hier``
 (HIERARCHICAL), ``render_tiled_full`` (PER_PIXEL_FULL, forward only) and
-``render_tiled_timed`` (GLOBAL, each stage timed on its own), the analog of
+``render_tiled_timed`` (GLOBAL, each stage timed by its span), the analog of
 Rasterizer::forward, rasterizer_impl.cu:221-413:
 
   stage          reference                         here
@@ -57,7 +57,8 @@ from ..kernels.full_blend import blend_full_forward
 from ..kernels.global_blend import binning_pieces, blend_global_forward
 from ..kernels.hier_blend import blend_hier_forward
 from ..kernels.kbuffer_blend import blend_kbuffer_forward
-from .duplicate import build_pairs, expand_pairs, sort_expanded
+from .duplicate import build_pairs
+from ..utils.profiling import span
 from .preprocess import PreprocessOutput
 
 
@@ -111,16 +112,18 @@ def _binned_pairs(prep, tile_x, tile_y, *, image_width, image_height,
     """Build the pairs on the binning grid of ``tile_x`` x ``tile_y`` and
     split them over the blend tiles: (pairs, segs, the image's 16x16
     grid)."""
-    bin_gx, bin_gy = tile_grid(image_width, image_height, tile_x, tile_y)
-    pairs = build_pairs(prep, grid_x=bin_gx, grid_y=bin_gy,
-                        sort_order=sort_order,
-                        tile_based_culling=tile_based_culling, campos=campos,
-                        inverse_vp=inverse_vp, image_width=image_width,
-                        image_height=image_height, tile_x=tile_x,
-                        tile_y=tile_y)
-    segs = split_binning_segments(pairs.starts, pairs.ends, image_width,
-                                  image_height, tile_x, tile_y)
-    return pairs, segs, tile_grid(image_width, image_height)
+    with span("pairs"):
+        bin_gx, bin_gy = tile_grid(image_width, image_height, tile_x, tile_y)
+        pairs = build_pairs(prep, grid_x=bin_gx, grid_y=bin_gy,
+                            sort_order=sort_order,
+                            tile_based_culling=tile_based_culling,
+                            campos=campos, inverse_vp=inverse_vp,
+                            image_width=image_width,
+                            image_height=image_height, tile_x=tile_x,
+                            tile_y=tile_y)
+        segs = split_binning_segments(pairs.starts, pairs.ends, image_width,
+                                      image_height, tile_x, tile_y)
+        return pairs, segs, tile_grid(image_width, image_height)
 
 
 def _rows(prep: PreprocessOutput):
@@ -162,21 +165,23 @@ def render_tiled(
         image_height=image_height, sort_order=sort_order,
         tile_based_culling=tile_based_culling, campos=campos,
         inverse_vp=inverse_vp)
-    rows = _rows(prep)
-    depth = prep.depth.detach().contiguous()
-    kw = dict(grid_x=grid_x, grid_y=grid_y, width=image_width,
-              height=image_height)
-    if _needs_grad(rows):
-        color, final_t, n_contrib, depth_acc = BlendGlobal.apply(
-            *rows, depth, pairs, grid_x, grid_y, image_width, image_height,
-            snapshot, segs)
-    else:
-        color, final_t, n_contrib, depth_acc = blend_global_forward(
-            pairs.gauss_id, segs.starts, segs.ends, *rows, depth, **kw,
-            pieces=segs.pieces)
-    # Background composite outside the kernel, as in the JAX package: autograd
-    # gives d_bg and folds the background into the final_T cotangent.
-    color = color + final_t[None, :, :] * bg[:, None, None]
+    with span("blend"):
+        rows = _rows(prep)
+        depth = prep.depth.detach().contiguous()
+        kw = dict(grid_x=grid_x, grid_y=grid_y, width=image_width,
+                  height=image_height)
+        if _needs_grad(rows):
+            color, final_t, n_contrib, depth_acc = BlendGlobal.apply(
+                *rows, depth, pairs, grid_x, grid_y, image_width,
+                image_height, snapshot, segs)
+        else:
+            color, final_t, n_contrib, depth_acc = blend_global_forward(
+                pairs.gauss_id, segs.starts, segs.ends, *rows, depth, **kw,
+                pieces=segs.pieces)
+        # Background composite outside the kernel, as in the JAX package:
+        # autograd gives d_bg and folds the background into the final_T
+        # cotangent.
+        color = color + final_t[None, :, :] * bg[:, None, None]
     return color, final_t, n_contrib, pairs, depth_acc
 
 
@@ -209,19 +214,20 @@ def render_tiled_kbuffer(
         image_height=image_height, sort_order=sort_order,
         tile_based_culling=tile_based_culling, campos=campos,
         inverse_vp=inverse_vp)
-    rows = _rows(prep)
-    cam = (prep.cov3d_inv9.detach().contiguous(),
-           inverse_vp.detach().contiguous(), campos.detach().contiguous())
-    if _needs_grad(rows):
-        color, final_t, n_contrib, depth_acc = BlendKBuffer.apply(
-            *rows, *cam, pairs, k, grid_x, grid_y, image_width, image_height,
-            snapshot, segs)
-    else:
-        color, final_t, n_contrib, depth_acc = blend_kbuffer_forward(
-            pairs.gauss_id, segs.starts, segs.ends, *rows, *cam, k=k,
-            grid_x=grid_x, grid_y=grid_y, width=image_width,
-            height=image_height)
-    color = color + final_t[None, :, :] * bg[:, None, None]
+    with span("blend"):
+        rows = _rows(prep)
+        cam = (prep.cov3d_inv9.detach().contiguous(),
+               inverse_vp.detach().contiguous(), campos.detach().contiguous())
+        if _needs_grad(rows):
+            color, final_t, n_contrib, depth_acc = BlendKBuffer.apply(
+                *rows, *cam, pairs, k, grid_x, grid_y, image_width,
+                image_height, snapshot, segs)
+        else:
+            color, final_t, n_contrib, depth_acc = blend_kbuffer_forward(
+                pairs.gauss_id, segs.starts, segs.ends, *rows, *cam, k=k,
+                grid_x=grid_x, grid_y=grid_y, width=image_width,
+                height=image_height)
+        color = color + final_t[None, :, :] * bg[:, None, None]
     return color, final_t, n_contrib, pairs, depth_acc
 
 
@@ -260,24 +266,25 @@ def render_tiled_hier(
         image_height=image_height, sort_order=sort_order,
         tile_based_culling=tile_based_culling, campos=campos,
         inverse_vp=inverse_vp)
-    rows = _rows(prep)
-    # The depths, the culling thresholds and the camera only choose the
-    # cascade's order and validity: no gradient flows into them.
-    cam = (prep.cov3d_inv9.detach().contiguous(),
-           prep.opacity_power_threshold.detach().contiguous(),
-           inverse_vp.detach().contiguous(), campos.detach().contiguous())
-    queues = tuple(queue_sizes)
-    if _needs_grad(rows):
-        color, final_t, n_contrib, depth_acc = BlendHier.apply(
-            *rows, *cam, pairs, queues, hier_4x4_culling, grid_x, grid_y,
-            image_width, image_height, snapshot, segs, batched_cascade)
-    else:
-        color, final_t, n_contrib, depth_acc = blend_hier_forward(
-            pairs.gauss_id, segs.starts, segs.ends, *rows, *cam,
-            queue_sizes=queues, hier_4x4_culling=hier_4x4_culling,
-            grid_x=grid_x, grid_y=grid_y, width=image_width,
-            height=image_height, batched_cascade=batched_cascade)
-    color = color + final_t[None, :, :] * bg[:, None, None]
+    with span("blend"):
+        rows = _rows(prep)
+        # The depths, the culling thresholds and the camera only choose the
+        # cascade's order and validity: no gradient flows into them.
+        cam = (prep.cov3d_inv9.detach().contiguous(),
+               prep.opacity_power_threshold.detach().contiguous(),
+               inverse_vp.detach().contiguous(), campos.detach().contiguous())
+        queues = tuple(queue_sizes)
+        if _needs_grad(rows):
+            color, final_t, n_contrib, depth_acc = BlendHier.apply(
+                *rows, *cam, pairs, queues, hier_4x4_culling, grid_x, grid_y,
+                image_width, image_height, snapshot, segs, batched_cascade)
+        else:
+            color, final_t, n_contrib, depth_acc = blend_hier_forward(
+                pairs.gauss_id, segs.starts, segs.ends, *rows, *cam,
+                queue_sizes=queues, hier_4x4_culling=hier_4x4_culling,
+                grid_x=grid_x, grid_y=grid_y, width=image_width,
+                height=image_height, batched_cascade=batched_cascade)
+        color = color + final_t[None, :, :] * bg[:, None, None]
     return color, final_t, n_contrib, pairs, depth_acc
 
 
@@ -309,13 +316,15 @@ def render_tiled_full(
         image_height=image_height, sort_order=sort_order,
         tile_based_culling=tile_based_culling, campos=campos,
         inverse_vp=inverse_vp)
-    rows = [r.detach() for r in _rows(prep)]
-    color, final_t, n_contrib, depth_acc = blend_full_forward(
-        pairs.gauss_id, segs.starts, segs.ends, *rows,
-        prep.cov3d_inv9.detach().contiguous(),
-        inverse_vp.detach().contiguous(), campos.detach().contiguous(),
-        grid_x=grid_x, grid_y=grid_y, width=image_width, height=image_height)
-    color = color + final_t[None, :, :] * bg.detach()[:, None, None]
+    with span("blend"):
+        rows = [r.detach() for r in _rows(prep)]
+        color, final_t, n_contrib, depth_acc = blend_full_forward(
+            pairs.gauss_id, segs.starts, segs.ends, *rows,
+            prep.cov3d_inv9.detach().contiguous(),
+            inverse_vp.detach().contiguous(), campos.detach().contiguous(),
+            grid_x=grid_x, grid_y=grid_y, width=image_width,
+            height=image_height)
+        color = color + final_t[None, :, :] * bg.detach()[:, None, None]
     return color, final_t, n_contrib, pairs, depth_acc
 
 
@@ -333,34 +342,23 @@ def render_tiled_timed(
 ):
     """GLOBAL render with per-stage timing (the reference Timer's stages
     Preprocess / Duplicate / Sort / Render, rasterizer_impl.cu:248), as the
-    JAX package's ``render_tiled_timed``: each stage runs on its own through
-    ``timer.time`` (utils/profiling.StageTimer), which synchronizes the
-    device around it; the Render stage is kernel K1 (its plain version on
-    CPU tensors) and the background composite. The same function as
-    ``render_tiled`` without gradients.
+    JAX package's ``render_tiled_timed``: ``prep_fn()`` runs in the span
+    ``stp/preprocess`` and ``render_tiled`` renders with ``timer``
+    listening (``utils/profiling.StageTimer.listening``), which times each
+    stage's span with the device synchronized around it; the Render stage
+    is the blend and the background composite. The pipeline is
+    ``render_tiled``'s, on 16x16 tiles; any sort mode is timed the same way
+    by rendering inside ``timer.listening()``.
 
     ``prep_fn`` is a zero-argument callable producing the PreprocessOutput.
     Returns what ``render_tiled`` returns.
     """
-    grid_x, grid_y = tile_grid(image_width, image_height)
-    prep = timer.time("Preprocess", prep_fn)
-    expanded = timer.time(
-        "Duplicate", expand_pairs, prep, grid_x=grid_x,
-        sort_order=sort_order, tile_based_culling=tile_based_culling,
-        campos=campos, inverse_vp=inverse_vp, image_width=image_width,
-        image_height=image_height)
-    pairs = timer.time("Sort", sort_expanded, *expanded,
-                       num_tiles=grid_x * grid_y,
-                       num_gaussians=prep.tiles_touched.shape[0])
-
-    def render():
-        color, final_t, n_contrib, depth_acc = blend_global_forward(
-            pairs.gauss_id, pairs.starts, pairs.ends, *_rows(prep),
-            prep.depth.detach().contiguous(), grid_x=grid_x, grid_y=grid_y,
-            width=image_width, height=image_height)
-        color = color + final_t[None, :, :] * bg[:, None, None]
-        return color, final_t, n_contrib, depth_acc
-
-    color, final_t, n_contrib, depth_acc = timer.time("Render", render)
+    with timer.listening():
+        with span("preprocess"):
+            prep = prep_fn()
+        out = render_tiled(prep, bg, image_width=image_width,
+                           image_height=image_height, sort_order=sort_order,
+                           tile_based_culling=tile_based_culling,
+                           campos=campos, inverse_vp=inverse_vp)
     timer.frame()
-    return color, final_t, n_contrib, pairs, depth_acc
+    return out

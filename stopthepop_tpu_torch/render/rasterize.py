@@ -46,6 +46,7 @@ from ..constants import TILE_X, TILE_Y
 from ..kernels.hier_blend import check_hier_queues
 from ..kernels.kbuffer_blend import check_window
 from ..ops.transforms import mark_visible
+from ..utils.profiling import span
 from ..utils.snapshot import host_copies, snapshot_on_failure
 from .debug_viz import DebugVisualizationData, apply_debug_visualization
 from .duplicate import rect_histogram
@@ -258,35 +259,36 @@ def _rasterize_impl(
             "filter, or pass prefiltered=False."
         )
 
-    prep = preprocess(
-        means3D,
-        opacities,
-        scales=scales,
-        rotations=rotations,
-        cov3d_precomp=cov3Ds_precomp,
-        shs=sh,
-        colors_precomp=colors_precomp,
-        scale_modifier=rs.scale_modifier,
-        viewmatrix=viewmatrix,
-        projmatrix=projmatrix,
-        campos=campos,
-        tanfovx=rs.tanfovx,
-        tanfovy=rs.tanfovy,
-        image_width=W,
-        image_height=H,
-        sh_degree=rs.sh_degree,
-        sort_order=sort_order,
-        rect_bounding=ext.culling_settings.rect_bounding,
-        tight_opacity_bounding=ext.culling_settings.tight_opacity_bounding,
-        proper_ewa_scaling=ext.proper_ewa_scaling,
-        tile_x=tile_x,
-        tile_y=tile_y,
-    )
-    if means2D is not None and means2D.numel():
-        # Densification-gradient dummy: a value-neutral reroute, so that
-        # d loss / d means2D = pixel-space mean gradient * (0.5 W, 0.5 H).
-        m2d = means2D[:, :2] * means2D.new_tensor([0.5 * W, 0.5 * H])
-        prep = prep._replace(mean2d=prep.mean2d + m2d - m2d.detach())
+    with span("preprocess"):
+        prep = preprocess(
+            means3D,
+            opacities,
+            scales=scales,
+            rotations=rotations,
+            cov3d_precomp=cov3Ds_precomp,
+            shs=sh,
+            colors_precomp=colors_precomp,
+            scale_modifier=rs.scale_modifier,
+            viewmatrix=viewmatrix,
+            projmatrix=projmatrix,
+            campos=campos,
+            tanfovx=rs.tanfovx,
+            tanfovy=rs.tanfovy,
+            image_width=W,
+            image_height=H,
+            sh_degree=rs.sh_degree,
+            sort_order=sort_order,
+            rect_bounding=ext.culling_settings.rect_bounding,
+            tight_opacity_bounding=ext.culling_settings.tight_opacity_bounding,
+            proper_ewa_scaling=ext.proper_ewa_scaling,
+            tile_x=tile_x,
+            tile_y=tile_y,
+        )
+        if means2D is not None and means2D.numel():
+            # Densification-gradient dummy: a value-neutral reroute, so that
+            # d loss / d means2D = pixel-space mean gradient * (0.5 W, 0.5 H).
+            m2d = means2D[:, :2] * means2D.new_tensor([0.5 * W, 0.5 * H])
+            prep = prep._replace(mean2d=prep.mean2d + m2d - m2d.detach())
     kw = dict(image_width=W, image_height=H, sort_order=sort_order,
               tile_based_culling=ext.culling_settings.tile_based_culling,
               campos=campos, inverse_vp=inverse_vp, tile_x=tile_x,

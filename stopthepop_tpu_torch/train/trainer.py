@@ -24,6 +24,7 @@ from ..io.cameras import CameraArrays
 from ..models.gaussians import GaussianModel
 from ..render.cli import render_model  # noqa: F401  (re-exported, as in JAX)
 from ..render.rasterize import rasterize_gaussians
+from ..utils.profiling import span
 from .loss import rgb_loss
 
 # Parameter groups of the 3DGS optimizer: (group name, model parameter).
@@ -163,41 +164,49 @@ def step_forward(state: TrainState, cam: CameraArrays, target, *,
     Returns (loss, RenderOutput, means2d_dummy): the dummy (a new
     ``means2d_leaf`` unless one is given) is the leaf whose gradient the
     densification statistics read."""
-    model = state.model
-    if means2d_dummy is None:
-        means2d_dummy = means2d_leaf(model)
-    if sh_ramp_every:
-        active = min(state.step // sh_ramp_every, int(static.sh_degree))
-        mask = active_sh_mask(active, model.sh_rest.shape[1],
-                              model.sh_rest.device)
-        shs = torch.cat([model.sh_dc, model.sh_rest * mask], dim=1)
-    else:
-        shs = model.shs()
-    rs = static._replace(
-        viewmatrix=cam.viewmatrix, projmatrix=cam.projmatrix,
-        inv_viewprojmatrix=cam.inv_viewprojmatrix, campos=cam.campos,
-    )
-    out = rasterize_gaussians(
-        model.means3d, means2d_dummy, shs, None, model.opacities(),
-        model.scales(), model.rotations_normalized(), None, rs,
-        full_output=True, **(render_kwargs or {}),
-    )
-    return rgb_loss(out.color, target, lambda_dssim), out, means2d_dummy
+    with span("forward"):
+        model = state.model
+        if means2d_dummy is None:
+            means2d_dummy = means2d_leaf(model)
+        with span("params"):
+            if sh_ramp_every:
+                active = min(state.step // sh_ramp_every,
+                             int(static.sh_degree))
+                mask = active_sh_mask(active, model.sh_rest.shape[1],
+                                      model.sh_rest.device)
+                shs = torch.cat([model.sh_dc, model.sh_rest * mask], dim=1)
+            else:
+                shs = model.shs()
+            opacities, scales = model.opacities(), model.scales()
+            rotations = model.rotations_normalized()
+        rs = static._replace(
+            viewmatrix=cam.viewmatrix, projmatrix=cam.projmatrix,
+            inv_viewprojmatrix=cam.inv_viewprojmatrix, campos=cam.campos,
+        )
+        out = rasterize_gaussians(
+            model.means3d, means2d_dummy, shs, None, opacities, scales,
+            rotations, None, rs, full_output=True, **(render_kwargs or {}),
+        )
+        with span("loss"):
+            loss = rgb_loss(out.color, target, lambda_dssim)
+        return loss, out, means2d_dummy
 
 
 def step_backward(state: TrainState, loss) -> None:
     """The step's backward stage: fresh gradients of every parameter (the
     blend's through kernel K2, K4 in PPX_KBUFFER, K6 in HIER)."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with span("backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
 
 
 def step_update(state: TrainState) -> TrainState:
     """The step's optimizer stage: the scheduled LRs at the step count
     before the update, then one Adam update in place."""
-    set_position_lr(state.optimizer, state.step)
-    state.optimizer.step()
-    return state._replace(step=state.step + 1)
+    with span("update"):
+        set_position_lr(state.optimizer, state.step)
+        state.optimizer.step()
+        return state._replace(step=state.step + 1)
 
 
 def update_densify_stats(stats: DensifyStats, out, means2d_dummy):

@@ -12,6 +12,28 @@ before it reads the clock at either end of a stage (where the JAX timer
 calls ``block_until_ready``): a stage's time is its host dispatch plus its
 device work. ``trace`` records a ``torch.profiler`` trace with per-kernel
 device times.
+
+``span(name)`` marks a layer of the program: while a ``torch.profiler``
+session is active it opens a ``record_function`` range named
+``stp/<name>``, which lands in the same trace as the device's kernels, on
+the profiler's clock. While a ``StageTimer`` listens (``listening``), the
+spans it maps to the reference's stages are timed as those stages. With
+neither, ``span`` makes one check of each and returns a shared no-op
+context manager. The spans the program opens:
+
+  stp/params      the model's activated parameters (render/cli.py::
+                  render_model; train/trainer.py::step_forward)
+  stp/preprocess  preprocess and the means2D reroute (render/rasterize.py)
+  stp/pairs       pairs on the binning grid and their blend tiles
+                  (render/pipeline.py::_binned_pairs), holding
+  stp/duplicate   the expansion and its pair-count read (render/duplicate.py)
+  stp/sort        the (tile, depth) sort and the tile ranges
+  stp/blend       the blend kernel and the background composite
+  stp/forward     a training step's render and loss, holding stp/loss
+  stp/backward    a training step's backward, holding stp/blend_bwd (the
+                  blend's backward kernel and per-Gaussian sum, on
+                  autograd's thread)
+  stp/update      a training step's optimizer stage
 """
 
 from __future__ import annotations
@@ -23,10 +45,48 @@ from collections import defaultdict
 from typing import Callable
 
 import torch
+from torch.autograd.profiler import record_function
 
 REPORT_INTERVAL = 128  # frames, like the reference (rasterizer_impl.h:80)
 
 STAGES = ("Preprocess", "Duplicate", "Sort", "Render")  # reference stage names
+
+SPAN_PREFIX = "stp/"
+# The program's spans a listening StageTimer times, as the reference's stages.
+STAGE_OF_SPAN = {"preprocess": "Preprocess", "duplicate": "Duplicate",
+                 "sort": "Sort", "blend": "Render"}
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+# StageTimers inside ``listening``: process-wide, since autograd runs a
+# backward's spans on a thread of its own.
+_LISTENERS: list = []
+
+
+def span(name: str):
+    """A context manager marking one layer of the program as ``stp/<name>``
+    (module notes). With no profiler active and no timer listening it is a
+    shared no-op."""
+    traced = _profiler_enabled()
+    if _LISTENERS:
+        return _listened(name, traced)
+    if traced:
+        return record_function(SPAN_PREFIX + name)
+    return _OFF
+
+
+@contextlib.contextmanager
+def _listened(name: str, traced: bool):
+    """The span timed by each listening StageTimer that maps it to a
+    stage, and recorded where ``traced``."""
+    with contextlib.ExitStack() as stack:
+        stage = STAGE_OF_SPAN.get(name)
+        if stage is not None:
+            for timer in list(_LISTENERS):
+                stack.enter_context(timer.stage(stage))
+        if traced:
+            stack.enter_context(record_function(SPAN_PREFIX + name))
+        yield
 
 
 def _sync():
@@ -69,6 +129,21 @@ class StageTimer:
         yield
         _sync()
         self._record(stage, time.perf_counter() - t0)
+
+    @contextlib.contextmanager
+    def listening(self):
+        """Time the program's spans ``stp/preprocess``, ``stp/duplicate``,
+        ``stp/sort`` and ``stp/blend`` opened in the body as the stages
+        Preprocess, Duplicate, Sort and Render (``STAGE_OF_SPAN``), each
+        synchronized at both ends, in every sort mode."""
+        if not self.enabled:
+            yield
+            return
+        _LISTENERS.append(self)
+        try:
+            yield
+        finally:
+            _LISTENERS.remove(self)
 
     def _record(self, stage: str, dt: float):
         if stage not in self._acc:

@@ -1,9 +1,10 @@
 """The port's stage timer, timed GLOBAL path, profiler trace and debug
 snapshots, on the CPU.
 
-``render_tiled_timed`` is held bitwise against ``render_tiled`` and its
-timings text names the reference's four stages after ``interval`` frames
-(as tests/test_profiling.py does for the JAX package). ``debug=True``: a
+``render_tiled_timed``, and a render in each other sort mode inside
+``StageTimer.listening``, are held bitwise against the untimed render, and
+the timings text names the reference's four stages after ``interval``
+frames (as tests/test_profiling.py does for the JAX package). ``debug=True``: a
 forward that raises writes a ``snapshot_fw`` holding the inputs and
 re-raises; a blend backward that raises writes a ``snapshot_bw``; a render
 that succeeds is bitwise the render without it.
@@ -45,18 +46,53 @@ def _prep_fn(scene, cam):
     return prep_fn
 
 
-def test_timed_render_matches_untimed():
+def _global_timed(timer):
+    """(timed, untimed) GLOBAL renders through ``render_tiled_timed``."""
     cam = make_camera(W, H, device="cpu")
     prep_fn = _prep_fn(random_scene(2, 100, device="cpu"), cam)
+    timed = render_tiled_timed(prep_fn, timer, BG, image_width=W,
+                               image_height=H)
+    untimed = render_tiled(prep_fn(), BG, image_width=W, image_height=H)
+    assert torch.equal(timed[3].gauss_id, untimed[3].gauss_id)
+    return timed[:3] + timed[4:], untimed[:3] + untimed[4:]
+
+
+def _listening(mode, full_mode):
+    def render(timer):
+        """(timed, untimed) renders of ``mode`` through the API, the timed
+        one inside ``timer.listening()``."""
+        cam = make_camera(W, H, device="cpu")
+        scene = random_scene(2, 100, device="cpu")
+        rs = _settings(cam)
+        rs.settings.sort_settings.sort_mode = mode
+        raster = stt.GaussianRasterizer(rs, full_output=True,
+                                        full_mode=full_mode)
+        with torch.no_grad():
+            with timer.listening():
+                timed = raster(**_inputs(scene))
+            timer.frame()
+            untimed = raster(**_inputs(scene))
+        return timed, untimed
+    return render
+
+
+TIMED = {"global": _global_timed,
+         "kbuffer": _listening(stt.SortMode.PPX_KBUFFER, "auto"),
+         "hier": _listening(stt.SortMode.HIER, "auto"),
+         "full_tiled": _listening(stt.SortMode.PPX_FULL, "tiled")}
+
+
+@pytest.mark.parametrize("case", list(TIMED))
+def test_timed_render_matches_untimed(case):
     timer = StageTimer(interval=2)
     for frame in range(2):
         assert timer.timings_text == ""
-        timed = render_tiled_timed(prep_fn, timer, BG, image_width=W,
-                                   image_height=H)
-    untimed = render_tiled(prep_fn(), BG, image_width=W, image_height=H)
-    for a, b in zip(timed[:3] + timed[4:], untimed[:3] + untimed[4:]):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert torch.equal(timed[3].gauss_id, untimed[3].gauss_id)
+        timed, untimed = TIMED[case](timer)
+    for a, b in zip(timed, untimed):
+        if isinstance(a, torch.Tensor):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        else:
+            assert a == b
     lines = timer.timings_text.splitlines()
     assert [ln.split(":")[0] for ln in lines] == list(STAGES)
     assert all(float(ln.split()[1]) >= 0.0 for ln in lines)
