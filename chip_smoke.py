@@ -17,6 +17,8 @@ Run from the root of the repository on a machine with one NVIDIA H100:
                                            # no last line
     python3 chip_smoke.py --io-only        # phase 26 alone (no CUDA
                                            # kernel is built); no last line
+    python3 chip_smoke.py --preprocess-only  # the build and phase 27
+                                             # alone; no last line
 
 Phases, one JSON line each; any failure exits non-zero:
   1. build: compile every CUDA kernel of the port with nvcc (in parallel);
@@ -33,8 +35,12 @@ Phases, one JSON line each; any failure exits non-zero:
   3. main: save a 500K-Gaussian model as PLY, load it back, render 4
      orbit frames at 1920x1080 through render/cli.py::render_frames (GLOBAL,
      Z_DEPTH, rect + tight-opacity culling) under inference_mode; every frame
-     finite and not background, ~1M+ pairs a frame, K1 launched exactly once
-     per frame. Then a per-stage breakdown of one frame (CUDA events).
+     finite and not background, ~1M+ pairs a frame, K1 and the preprocess
+     kernel K8 (no gradient is wanted) launched exactly once per frame and
+     no other kernel. Then a per-stage breakdown of one frame (CUDA events;
+     preprocess by K8 and by its plain version). Every serving path below
+     (phases 8, 12, 16, 19-21, 23-25) launches K8 once a frame as well, and
+     every training step none.
   4. kernel_bwd: hold kernel K2 (GLOBAL blend, backward) against its plain
      version on the same two scenes and phase 11's deep-segment scene with
      seeded random cotangents (each of the 9 per-pair gradient columns
@@ -58,7 +64,7 @@ Phases, one JSON line each; any failure exits non-zero:
      procedural scene at 200x200, a few hundred iterations of
      train/cli.py::main with densification and an opacity reset; eval PSNR
      rises, the Gaussian count changes, the PLY loads, only K1 and K2
-     launch.
+     launch, and K8 once for each evaluation frame.
   7. kernel_kb: hold kernel K3 (PER_PIXEL_KBUFFER blend, forward) against
      its plain version — phase 2's 70x45 scene and a denser draw of it and
      phase 11's deep-segment scene with windows k = 1, 4, 8 and 24, and the
@@ -225,11 +231,29 @@ Phases, one JSON line each; any failure exits non-zero:
      bench model saved with save_gaussian_model (500K Gaussians, SH degree
      3, 62 properties) and read with read_ply (8 threads) and
      _read_ply_numpy, equal to the bit; seconds of each. No kernel launches.
- 27. the kernels line: each ported kernel with its launches on its main
+ 27. kernel_preprocess: hold kernel K8 (the per-Gaussian preprocess,
+     forward, render/preprocess.py::preprocess where no gradient is
+     wanted) against preprocess_plain on the same inputs, every field of
+     every row bitwise, culled rows included (NaN equal to NaN), and K8
+     launched once a call. A small scene of 24,576 Gaussians (rows behind
+     the near plane, opacities under 1/255, thin Gaussians whose dilated
+     determinant is 0: the line counts them) in 27 cases: every setting of
+     rect bounding, tight-opacity bounding and proper EWA scaling in Z and
+     DISTANCE order, SH degree 0-3 in rows of 16 and of (degree + 1)^2
+     coefficients, colors_precomp, bins of 32x16 and 24x16, a scale
+     modifier of 0.7. Then the 1080p/500K serving frame and the
+     benchmark's two configurations (portbench/configs: 6.1M Gaussians at
+     1237x822 on 16x16 bins, 2.54M at 979x546 on 32x16), each at three
+     orbit cameras; at the first, K8's and the plain version's mean ms
+     over 20 launches and K8's share of its bytes bound (368 B a Gaussian
+     at SH degree 3, read and written once).
+ 28. the kernels line: each ported kernel with its launches on its main
      path (the training steps of phase 5 for K1/K2, of phase 10 for K3/K4
      and of phase 14 for K6, the HIER frames of phase 12 for K5, the FULL
-     frames of phase 16 for K7), its error against the plain version, its
-     time, the plain version's time and its bound on this card; under
+     frames of phase 16 for K7, the frames of phase 3 for K8), its error
+     against the plain version, its time, the plain version's time and its
+     bound on this card (K8's at the 1080p frame, at the two benchmark
+     configurations under "at_shapes"); under
      "at_tile" its time, error and launches at 32x16 (phase 23's steps,
      the FULL frames for K7) and, for K1, K2, K4 and K6, its bound there,
      and for K1 and K2 the same at 24x16 and 8x8 (phase 23's steps); under
@@ -350,6 +374,22 @@ CASC_SMALL_CASES = (((64, 8, 4), False), ((16, 5, 3), False),
                     ((16, 8, 4), True))
 # The sort-mode cases of phase quality that the batched cascade renders too.
 CASC_QUALITY = (("HIER 64/8/4", (64, 8, 4)), ("HIER 16/8/4", (16, 8, 4)))
+# Phase kernel_preprocess: K8 at the serving frame and at the benchmark's
+# two configurations (portbench/configs: MipNeRF-360 bicycle, Tanks and
+# Temples truck) as (case, Gaussians, width, height, binning tile), SH
+# degree 3, rect and tight-opacity culling, at PREP_THETAS_DEG orbit
+# cameras (fov 60); PREP_ITERS launches timed; a small scene of PREP_SMALL
+# Gaussians for the edge cases.
+PREP_SHAPES = (("1920x1080, 500K Gaussians", NUM_GAUSSIANS, WIDTH, HEIGHT,
+                (16, 16)),
+               ("m360-bicycle-hier", 6_100_000, 1237, 822, (16, 16)),
+               ("tandt-truck-global", 2_540_000, 979, 546, (32, 16)))
+PREP_THETAS_DEG, PREP_ITERS, PREP_SMALL = (0.0, 120.0, 240.0), 20, 24_576
+# Bytes K8 moves a Gaussian besides its SH rows ((degree + 1)^2 x 12 B):
+# the mean, opacity, scales and rotation read, PreprocessOutput's 15 fields
+# written. Its few hundred operations a Gaussian take under a tenth of the
+# bytes' time, so the bytes bound it.
+PREP_BYTES_READ, PREP_BYTES_WRITTEN = 12 + 4 + 12 + 16, 132
 
 
 def emit(obj):
@@ -809,15 +849,19 @@ def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev,
     """One serving path: a warm-up frame, then the orbit ``cams`` through
     render/cli.py::render_frames with every launch count set to 0 just
     before and read just after. Every frame is finite, not background and
-    has at least ``min_pairs`` pairs; ``kernel`` launched once a frame and
-    no other kernel at all. Then frame 0's stages (CUDA events):
-    preprocess, the pair build (on the grid of the binning tile ``tile``,
-    split over the 16x16 blend tiles) and
+    has at least ``min_pairs`` pairs; ``kernel`` and the preprocess kernel
+    K8 launched once a frame and no other kernel at all. Then frame 0's
+    stages (CUDA events): preprocess (K8, as the frames run it; its plain
+    version beside it), the pair build (on the grid of the binning tile
+    ``tile``, split over the 16x16 blend tiles) and
     ``blend(*args_fn(prep, pairs, cam))``, ``pairs`` with the blend tiles'
     ranges. Returns the phase's fields and the launch counts."""
     from stopthepop_tpu_torch.io.cameras import to_camera_arrays
     from stopthepop_tpu_torch.render.cli import render_frames
-    from stopthepop_tpu_torch.render.preprocess import preprocess
+    from stopthepop_tpu_torch.render.preprocess import (
+        preprocess,
+        preprocess_plain,
+    )
 
     tile_shape = None if tuple(tile) == (16, 16) else tuple(tile)
     render_frames(model, cams[:1], settings, dev,
@@ -838,8 +882,7 @@ def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev,
         check(bool((o.color != 0.0).any()), phase, f"frame {i} is background")
         check(o.num_rendered >= min_pairs, phase,
               f"frame {i}: only {o.num_rendered} pairs")
-    check(launches[kernel] == len(cams)
-          and not any(n for k, n in launches.items() if k != kernel), phase,
+    check(launched(launches, {kernel: len(cams), "k8": len(cams)}), phase,
           f"launches {launches} for {len(cams)} frames")
     pairs_per_frame = [o.num_rendered for o in outs]
     del outs
@@ -847,8 +890,8 @@ def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev,
     with torch.inference_mode():
         a = model_arrays(model)
 
-        def pre():
-            return preprocess(
+        def pre(fn=preprocess):
+            return fn(
                 a["means3d"], a["opacities"], scales=a["scales"],
                 rotations=a["rotations"], shs=a["shs"],
                 viewmatrix=cam0.viewmatrix, projmatrix=cam0.projmatrix,
@@ -857,7 +900,9 @@ def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev,
                 image_height=HEIGHT, sh_degree=3, rect_bounding=True,
                 tight_opacity_bounding=True, tile_x=tile[0], tile_y=tile[1])
 
-        stage = {"preprocess_ms": cuda_ms(pre, 10)}
+        stage = {"preprocess_ms": cuda_ms(pre, 10),
+                 "preprocess_plain_ms": cuda_ms(
+                     lambda: pre(preprocess_plain), 10)}
         prep0 = pre()
         stage["pairs_ms"] = cuda_ms(lambda: binned_pairs(prep0, tile), 10)
         args0 = args_fn(prep0, binned_pairs(prep0, tile)[1], cam0)
@@ -994,13 +1039,12 @@ def profile_steps(step, n: int, unprofiled_ms: float):
                  "launches_per_step": e.count / n} for e in kernels[:15]]}
 
 
-def bench_model(dev):
-    """The bench scene: 500K Gaussians from seed 0, log-scales minus 2.3
-    (trained-scene-like footprints, bench.py:109-111)."""
+def bench_model(dev, n=NUM_GAUSSIANS):
+    """The bench scene: ``n`` (500K) Gaussians from seed 0, log-scales
+    minus 2.3 (trained-scene-like footprints, bench.py:109-111)."""
     from stopthepop_tpu_torch.models.gaussians import init_random
 
-    model = init_random(NUM_GAUSSIANS, seed=0, extent=1.5, sh_degree=3,
-                        device=dev)
+    model = init_random(n, seed=0, extent=1.5, sh_degree=3, device=dev)
     with torch.no_grad():
         model.scales_log -= 2.3
     return model
@@ -1142,10 +1186,11 @@ def colmap_phase(out_dir, dev):
     evals = [res.eval_psnr[k] for k in sorted(res.eval_psnr)]
     check(all(math.isfinite(v) for v in evals) and evals[-1] > evals[0],
           "colmap", f"eval PSNR did not rise: {res.eval_psnr}")
-    check(train_launches["k6"] == COLMAP_ITERS
-          and train_launches["k5"] >= COLMAP_ITERS
-          and not any(n for k, n in train_launches.items()
-                      if k not in ("k5", "k6")), "colmap",
+    # K5 once a step and once an evaluation frame, which alone (no
+    # gradient) takes K8.
+    check(train_launches["k5"] >= COLMAP_ITERS and launched(train_launches, {
+        "k5": train_launches["k5"], "k6": COLMAP_ITERS,
+        "k8": train_launches["k5"] - COLMAP_ITERS}), "colmap",
           f"launches {train_launches} in {COLMAP_ITERS} HIER iterations")
     trained = load_gaussian_model(str(ply), device=dev)
     check(trained.num_gaussians == COLMAP_POINTS == res.state.model.num_gaussians,
@@ -1159,8 +1204,8 @@ def colmap_phase(out_dir, dev):
                          "--sort-mode", "PPX_KBUFFER", "--device", str(dev)])
     render_s = time.perf_counter() - t0
     render_launches = read_launches()
-    check(render_launches["k3"] == COLMAP_VIEWS + 1  # and a warm-up frame
-          and not any(n for k, n in render_launches.items() if k != "k3"),
+    check(launched(render_launches, {"k3": COLMAP_VIEWS + 1,  # and a warm-up
+                                     "k8": COLMAP_VIEWS + 1}),
           "colmap", f"render launches {render_launches}")
     shapes = {read_png(str(frames / f"frame_{i:04d}.png")).shape
               for i in range(COLMAP_VIEWS)}
@@ -1314,7 +1359,7 @@ def debug_viz_phase(model, bench_cam, cams, small_arrays, dev):
                 torch.cuda.synchronize()
                 launches = read_launches()
                 case = f"{mode.name} {viz.name}"
-                check(launches[kernel] == 1 and sum(launches.values()) == 1,
+                check(launched(launches, {kernel: 1, "k8": 1}),
                       "debug_viz", f"{case}: launches {launches}")
                 field, table = debug_field(
                     viz, final_t=out.final_t, n_contrib=out.n_contrib,
@@ -1344,7 +1389,7 @@ def debug_viz_phase(model, bench_cam, cams, small_arrays, dev):
     expect = depth_out.depth_acc / (1.0 - depth_out.final_t).clamp(min=1e-6)
     from stopthepop_tpu_torch.render.colormaps import TURBO_TABLE
 
-    check(launches["k1"] == 1 and torch.equal(
+    check(launched(launches, {"k1": 1, "k8": 1}) and torch.equal(
         depth_out.color, apply_colormap(normalize_field(expect), TURBO_TABLE)),
         "debug_viz", f"render_depth through render_frames: launches {launches}")
 
@@ -1403,8 +1448,8 @@ def debug_viz_phase(model, bench_cam, cams, small_arrays, dev):
 
 def timed_phase(model, bench_cam, out_dir, dev):
     """timed: render/pipeline.py::render_tiled_timed with
-    StageTimer(interval=2) for TIMED_FRAMES frames at 1080p/500K (K1 once a
-    frame): the image bitwise render_tiled's, the four stage times of the
+    StageTimer(interval=2) for TIMED_FRAMES frames at 1080p/500K (K1 and K8
+    once a frame): the image bitwise render_tiled's, the four stage times of the
     last interval; then utils/profiling.py::trace of one more frame names
     K1's kernel in its file."""
     from stopthepop_tpu_torch.kernels import global_blend
@@ -1438,8 +1483,8 @@ def timed_phase(model, bench_cam, out_dir, dev):
         same = all(torch.equal(x, y) for x, y in zip(
             timed[:3] + timed[4:], untimed[:3] + untimed[4:]))
         check(same, "timed", "the timed render differs from render_tiled")
-        check(launches["k1"] == TIMED_FRAMES
-              and sum(launches.values()) == TIMED_FRAMES, "timed",
+        check(launched(launches, {"k1": TIMED_FRAMES, "k8": TIMED_FRAMES}),
+              "timed",
               f"launches {launches} in {TIMED_FRAMES} frames")
         with trace(str(out_dir / "trace")):
             render_tiled_timed(prep_fn, StageTimer(enabled=False), bg, **kw)
@@ -1512,6 +1557,182 @@ def snapshot_phase(model, bench_cam):
                 os.environ["STP_SNAPSHOT_DIR"] = old
     return {"error": raised, "snapshot_files": files,
             "snapshot_equals_inputs": equal, "debug_render_bitwise_plain": same}
+
+
+def float_bits(t):
+    """Float32 bits as integers that order as the floats do (-0 one below
+    +0)."""
+    i = t.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i & 0x7FFFFFFF) - 1, i)
+
+
+def preprocess_diffs(kernel, plain):
+    """{field: {"rows", "ulp"}} of the PreprocessOutput fields in which
+    ``kernel`` and ``plain`` differ: the rows that differ and, for a float
+    field, the largest difference in units in the last place (NaN equals
+    NaN)."""
+    out = {}
+    for name, k, p in zip(plain._fields, kernel, plain):
+        if k.shape != p.shape or k.dtype != p.dtype:
+            out[name] = {"shape": [list(k.shape), list(p.shape)],
+                         "dtype": [str(k.dtype), str(p.dtype)]}
+            continue
+        if k.is_floating_point():
+            diff = (float_bits(k) - float_bits(p)).abs().masked_fill(
+                torch.isnan(k) & torch.isnan(p), 0)
+        else:
+            diff = (k != p).to(torch.int64)
+        rows = diff.reshape(diff.shape[0], -1).amax(dim=1)
+        if bool((rows > 0).any()):
+            out[name] = {"rows": int((rows > 0).sum()),
+                         "ulp": int(rows.max()) if k.is_floating_point()
+                         else None}
+    return out
+
+
+def k8_case(case, means3d, opacities, kw):
+    """K8 through render/preprocess.py::preprocess (card tensors, no
+    gradient: one launch) against preprocess_plain on the same inputs;
+    every field of every row, culled rows included, has to be equal.
+    Returns the rows the plain version keeps valid."""
+    from stopthepop_tpu_torch.kernels import preprocess_fwd as k8
+    from stopthepop_tpu_torch.render.preprocess import (
+        preprocess,
+        preprocess_plain,
+    )
+
+    before = k8.preprocess_fwd.launches
+    kernel = preprocess(means3d, opacities, **kw)
+    check(k8.preprocess_fwd.launches == before + 1, "kernel_preprocess",
+          f"{case}: {k8.preprocess_fwd.launches - before} K8 launches")
+    plain = preprocess_plain(means3d, opacities, **kw)
+    diffs = preprocess_diffs(kernel, plain)
+    check(not diffs, "kernel_preprocess",
+          f"{case}: K8 differs from the plain preprocess: {diffs}")
+    return int(plain.valid.sum())
+
+
+def k8_small_cases(dev):
+    """The small scene's cases, (name, means3d, opacities, kwargs), and the
+    rows whose dilated 2D determinant is 0 in the plain version's
+    arithmetic: PREP_SMALL Gaussians, an eighth behind the near plane, an
+    eighth with opacities under 1/255, a quarter thin Gaussians at 45
+    degrees in the image (rank-one covariances whose determinant can round
+    to 0)."""
+    from stopthepop_tpu_torch.config import GlobalSortOrder
+    from stopthepop_tpu_torch.ops.covariance import (
+        compute_cov2d,
+        compute_cov3d,
+        dilate_cov2d,
+    )
+    from stopthepop_tpu_torch.ops.transforms import in_frustum
+    from stopthepop_tpu_torch.utils.testing import make_camera, random_scene
+
+    scene = random_scene(11, PREP_SMALL, device=dev)
+    means, scales = scene.means3d.clone(), scene.scales.clone()
+    rots, opac = scene.rotations.clone(), scene.opacities.clone()
+    w, h = 96, 64
+    cam = make_camera(w, h, campos=(0.2, 0.1, -4.0), device=dev)
+    n = PREP_SMALL // 8
+    means[:n, 2] = torch.linspace(-8.0, -3.81, n, device=dev)
+    opac[n:2 * n] = torch.linspace(1e-4, 5e-3, n, device=dev)
+    thin = slice(2 * n, 4 * n)
+    half = math.radians(22.5)
+    rots[thin] = torch.tensor([math.cos(half), 0.0, 0.0, math.sin(half)],
+                              device=dev)
+    scales[thin, 0] = torch.logspace(2.0, 5.0, 2 * n, device=dev)
+    scales[thin, 1:] = 1e-7
+    means[thin] = means[thin] * 0.2
+    base = dict(scales=scales, rotations=rots, shs=scene.shs,
+                viewmatrix=cam.viewmatrix, projmatrix=cam.projmatrix,
+                campos=cam.campos, tanfovx=cam.tanfovx, tanfovy=cam.tanfovy,
+                image_width=w, image_height=h, sh_degree=3)
+    cases = []
+    for bits in range(16):
+        rect, tight, ewa, dist = (bool(bits >> k & 1) for k in range(4))
+        order = GlobalSortOrder.DISTANCE if dist else GlobalSortOrder.Z_DEPTH
+        cases.append((f"rect={int(rect)} tight={int(tight)} ewa={int(ewa)} "
+                      f"{order.name}", dict(
+                          base, rect_bounding=rect,
+                          tight_opacity_bounding=tight,
+                          proper_ewa_scaling=ewa, sort_order=order)))
+    culled = dict(base, rect_bounding=True, tight_opacity_bounding=True)
+    for deg in range(4):
+        for rows in sorted({16, (deg + 1) ** 2}):
+            cases.append((f"sh_degree={deg} M={rows}", dict(
+                culled, sh_degree=deg, shs=scene.shs[:, :rows].contiguous())))
+    cases.append(("colors_precomp", dict(culled, shs=None,
+                                         colors_precomp=scene.colors)))
+    for tx, ty in ((32, 16), (24, 16)):
+        cases.append((f"bins {tx}x{ty}", dict(culled, tile_x=tx, tile_y=ty)))
+    cases.append(("scale_modifier=0.7", dict(culled, scale_modifier=0.7)))
+    visible, p_view = in_frustum(means, cam.viewmatrix)
+    p_view = torch.where(visible[:, None], p_view,
+                         p_view.new_tensor([0.0, 0.0, 1.0]))
+    cov2d = compute_cov2d(p_view, w / (2.0 * cam.tanfovx),
+                          h / (2.0 * cam.tanfovy), cam.tanfovx, cam.tanfovy,
+                          compute_cov3d(scales, 1.0, rots), cam.viewmatrix)
+    det_zero = int((dilate_cov2d(cov2d, False)[1] == 0.0).sum())
+    return [(c, means, opac, kw) for c, kw in cases], det_zero
+
+
+def preprocess_phase(dev):
+    """Phase kernel_preprocess (see the module notes): one line for the
+    small scene's cases, then one a shape of PREP_SHAPES; returns the
+    lines."""
+    from stopthepop_tpu_torch.io.cameras import orbit_camera, to_camera_arrays
+    from stopthepop_tpu_torch.render.preprocess import (
+        preprocess,
+        preprocess_plain,
+    )
+
+    lines = []
+    with torch.inference_mode():
+        cases, det_zero = k8_small_cases(dev)
+        check(det_zero > 0, "kernel_preprocess",
+              "no row of the small scene has a dilated determinant of 0")
+        valid = {case: k8_case(case, means, opac, kw)
+                 for case, means, opac, kw in cases}
+        lines.append({"case": f"small scene, {PREP_SMALL} Gaussians",
+                      "det_zero_rows": det_zero, "cases": len(cases),
+                      "valid_rows": valid})
+        del cases
+    for name, n, width, height, tile in PREP_SHAPES:
+        model = bench_model(dev, n)
+        with torch.inference_mode():
+            a = model_arrays(model)
+            del model
+            kws = []
+            for theta in PREP_THETAS_DEG:
+                cam = orbit_camera(math.radians(theta), math.radians(60.0),
+                                   width, height)
+                arrays = to_camera_arrays(cam, dev)
+                kws.append(dict(
+                    scales=a["scales"], rotations=a["rotations"],
+                    shs=a["shs"], viewmatrix=arrays.viewmatrix,
+                    projmatrix=arrays.projmatrix, campos=arrays.campos,
+                    tanfovx=cam.tanfovx, tanfovy=cam.tanfovy,
+                    image_width=width, image_height=height, sh_degree=3,
+                    rect_bounding=True, tight_opacity_bounding=True,
+                    tile_x=tile[0], tile_y=tile[1]))
+            valid = [k8_case(f"{name} theta={theta:g}", a["means3d"],
+                             a["opacities"], kw)
+                     for theta, kw in zip(PREP_THETAS_DEG, kws)]
+            k8_ms = cuda_ms(lambda: preprocess(
+                a["means3d"], a["opacities"], **kws[0]), PREP_ITERS)
+            plain_ms = cuda_ms(lambda: preprocess_plain(
+                a["means3d"], a["opacities"], **kws[0]), PREP_ITERS)
+        bytes_moved = n * (PREP_BYTES_READ + 16 * 12 + PREP_BYTES_WRITTEN)
+        bytes_ms = bound_ms(bytes_moved, 0)[0]
+        lines.append({"case": name, "gaussians": n, "width": width,
+                      "height": height, "tile": list(tile),
+                      "thetas_deg": list(PREP_THETAS_DEG), "valid_rows": valid,
+                      "k8_ms": k8_ms, "plain_ms": plain_ms,
+                      "bytes": bytes_moved, "bytes_bound_ms": bytes_ms,
+                      "share_of_bound": bytes_ms / k8_ms})
+        del a, kws
+        torch.cuda.empty_cache()
+    return lines
 
 
 def unread_rows(segs, n_pairs):
@@ -2101,8 +2322,7 @@ def cascade_phase(model, bench_cam, cams, static, target, cotangents, dev):
         reset_launches()
         colors, dt = hier_frames(model, cams, hier_settings, dev, batched)
         launches = read_launches()
-        check(launches["k5"] == len(cams)
-              and not any(n for k, n in launches.items() if k != "k5"),
+        check(launched(launches, {"k5": len(cams), "k8": len(cams)}),
               "cascade", f"{name}: launches {launches}")
         check(all(bool(torch.isfinite(c).all()) and bool((c != 0).any())
                   for c in colors), "cascade", f"{name}: a frame is not finite "
@@ -2321,8 +2541,8 @@ def parallel_rank(rank, out_dir):
                 torch.cuda.max_memory_allocated() / 2**30)
 
     def only(launches, want, what):
-        check(all(n == want.get(k, 0) for k, n in launches.items()),
-              "parallel", f"rank {rank} {what}: launches {launches}, want {want}")
+        check(launched(launches, want), "parallel",
+              f"rank {rank} {what}: launches {launches}, want {want}")
 
     def single_grads(static):
         """The single-device loss and gradients at the bench camera."""
@@ -2437,7 +2657,8 @@ def parallel_rank(rank, out_dir):
                     frames.append(image_check(
                         f"rank {rank} {key} {name} frame {i}", img,
                         render_model(model, c, static=st)[0], tol))
-            only(launches, {kernel: FRAMES}, f"{key} {name} render")
+            only(launches, {kernel: FRAMES, "k8": FRAMES},
+                 f"{key} {name} render")
             out[name] = {"ms_per_frame": ms / FRAMES, "frames": frames,
                          "launches": launches, "peak_mem_gib": peak}
         # The band-sharded step in every mode (K2, K4, K6); the ring's in
@@ -2555,6 +2776,7 @@ def _wrappers():
         global_blend,
         hier_blend,
         kbuffer_blend,
+        preprocess_fwd,
     )
 
     return {"k1": global_blend.blend_global_forward,
@@ -2563,7 +2785,14 @@ def _wrappers():
             "k4": kbuffer_blend.blend_kbuffer_backward,
             "k5": hier_blend.blend_hier_forward,
             "k6": hier_blend.blend_hier_backward,
-            "k7": full_blend.blend_full_forward}
+            "k7": full_blend.blend_full_forward,
+            "k8": preprocess_fwd.preprocess_fwd}
+
+
+def launched(launches, want):
+    """Whether ``launches`` holds each count of ``want`` and 0 for every
+    other kernel."""
+    return all(n == want.get(k, 0) for k, n in launches.items())
 
 
 def reset_launches():
@@ -2572,7 +2801,7 @@ def reset_launches():
 
 
 def read_launches():
-    """{"k1": n, ..., "k7": n} kernel launches since the reset."""
+    """{"k1": n, ..., "k8": n} kernel launches since the reset."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
@@ -2683,6 +2912,12 @@ def main(argv=None) -> int:
               "seconds": time.perf_counter() - t0, "card": card})
         print(card)
         return 0
+    if "--preprocess-only" in args:
+        for line in preprocess_phase(dev):
+            emit({"phase": "kernel_preprocess", "ok": True, **line,
+                  "card": card})
+        print(card)
+        return 0
 
     # 2. kernel against plain version -----------------------------------------
     small_scenes = small_scene_arrays(dev)
@@ -2742,7 +2977,7 @@ def main(argv=None) -> int:
     cams = [orbit_camera(2 * math.pi * i / FRAMES, math.radians(60.0), WIDTH, HEIGHT)
             for i in range(FRAMES)]
     settings = culled_settings()
-    fields, _ = serve_phase(
+    fields, serve_main = serve_phase(
         "main", loaded, cams, settings, "k1",
         lambda prep, pairs, cam: blend_args(prep, pairs),
         functools.partial(global_blend.blend_global_forward, **kw), dev)
@@ -2880,13 +3115,17 @@ def main(argv=None) -> int:
           "train_cli", f"Gaussian count did not change: {res.num_gaussians}")
     check(trained.num_gaussians == res.state.model.num_gaussians, "train_cli",
           "PLY does not hold the trained model")
+    # K1 once a step and once an evaluation frame, which alone (no
+    # gradient) takes K8.
     check(cli_k2 >= CLI_ITERS and cli_k1 >= CLI_ITERS
-          and not any(n for k, n in cli.items() if k not in ("k1", "k2")),
+          and launched(cli, {"k1": cli_k1, "k2": cli_k2,
+                             "k8": cli_k1 - cli_k2}),
           "train_cli", f"launches {cli} in {CLI_ITERS} GLOBAL iterations")
     emit({"phase": "train_cli", "ok": True, "iters": CLI_ITERS,
           "views": CLI_VIEWS, "size": CLI_SIZE, "eval_psnr": res.eval_psnr,
           "gaussians": [init_points] + res.num_gaussians, "seconds": cli_s,
-          "k1_launches": cli_k1, "k2_launches": cli_k2, "card": card})
+          "k1_launches": cli_k1, "k2_launches": cli_k2,
+          "k8_launches": cli["k8"], "card": card})
 
     # 7. kernel_kb: K3 against its plain version --------------------------------
     from stopthepop_tpu_torch.kernels import kbuffer_blend as kb
@@ -3293,7 +3532,15 @@ def main(argv=None) -> int:
     # 26. io: the native capture IO against its plain versions --------------------
     emit_phase("io", lambda: io_phase(out_dir, dev))
 
-    # 27. kernels -----------------------------------------------------------------
+    # 27. kernel_preprocess: K8 against the plain preprocess --------------------
+    from stopthepop_tpu_torch.kernels import preprocess_fwd as k8
+
+    prep_lines = preprocess_phase(dev)
+    for line in prep_lines:
+        emit({"phase": "kernel_preprocess", "ok": True, **line, "card": card})
+    k8_bench = prep_lines[1]
+
+    # 28. kernels -----------------------------------------------------------------
     def at_tile(key, launches):
         """A kernel's numbers at the binning tiles of phase 23: 32x16 and,
         for K1 and K2, the odd bins of ODD_TILES."""
@@ -3414,6 +3661,20 @@ def main(argv=None) -> int:
         "library_ms": None,
         "at_tile": at_tile("k7",
                            tile["main_full_32x16"]["launches"]["k7"]),
+    }, {
+        "name": k8.KERNEL, "route": "cuda", "source": k8.SOURCE,
+        "replaces": k8.REPLACES, "launches": serve_main["k8"],
+        # kernel_preprocess fails on any difference from the plain version.
+        "max_abs_err": 0.0,
+        "ms": k8_bench["k8_ms"], "plain_ms": k8_bench["plain_ms"],
+        "bound_ms": k8_bench["bytes_bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "occupancy": k8.occupancy(),
+        "ptxas": ptxas_summary(build.build_log.get(k8.KERNEL, {}).get(
+            "ptxas", "")).get("kernel"),
+        "at_shapes": [{k: ln[k] for k in ("case", "gaussians", "k8_ms",
+                                          "plain_ms", "bytes_bound_ms",
+                                          "share_of_bound")}
+                      for ln in prep_lines[2:]],
     }]})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",

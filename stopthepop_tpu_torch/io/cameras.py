@@ -124,11 +124,12 @@ def load_nerf_synthetic(
 
 
 def to_camera_arrays(cam: DatasetCamera, device=None) -> CameraArrays:
-    """DatasetCamera -> CameraArrays of float32 tensors on ``device``."""
+    """DatasetCamera -> CameraArrays of contiguous float32 tensors on
+    ``device`` (a camera's matrices are often transposed numpy views)."""
     dev = resolve_device(device)
 
     def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)
 
     return CameraArrays(
         viewmatrix=t(cam.viewmatrix),

@@ -5,6 +5,13 @@ forward.cu:68-229): one masked pass over all P Gaussians. Invalid Gaussians
 keep flowing through the math with ``valid=False`` — their view position is
 replaced by (0, 0, 1) so that 1/z stays finite — and are dropped by
 ``radii``/``tiles_touched`` at the end, exactly as in the JAX package.
+
+Where no gradient is wanted, the inputs lie on a CUDA device and no
+covariance is precomputed (``kernels/preprocess_fwd.py::takes_kernel``),
+``preprocess`` computes every field in one launch of kernel K8 inside a
+span ``stp/preprocess_kernel``, to the plain version's values. Everywhere
+else the plain version below runs: on the CPU, under training's autograd
+and with ``cov3d_precomp``.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch
 
 from ..config import GlobalSortOrder
 from ..constants import ALPHA_THRESHOLD, EXTENT_SIGMA, MIN_LAMBDA, TILE_X, TILE_Y
+from ..kernels.preprocess_fwd import preprocess_fwd, takes_kernel
 from ..ops.covariance import (
     compute_cov2d,
     compute_cov3d,
@@ -26,6 +34,7 @@ from ..ops.covariance import (
 from ..ops.sh import eval_sh
 from ..ops.stopthepop import pack_inv_cov3d_from_inv6
 from ..ops.transforms import in_frustum, ndc2pix, world2ndc
+from ..utils.profiling import span
 
 
 class PreprocessOutput(NamedTuple):
@@ -100,8 +109,66 @@ def preprocess(
 
     ``tile_x`` x ``tile_y`` is the binning tile (16x16, the reference's,
     by default; config.h:16-17): ``rect_min``, ``rect_max`` and
-    ``tiles_touched`` count binning tiles.
+    ``tiles_touched`` count binning tiles. Kernel K8 computes the fields
+    where ``takes_kernel`` allows it, ``preprocess_plain`` everywhere else.
     """
+    if takes_kernel(means3d.device,
+                    (means3d, opacities, scales, rotations, shs,
+                     colors_precomp, viewmatrix, projmatrix, campos),
+                    cov3d_precomp):
+        with span("preprocess_kernel"):
+            return PreprocessOutput(*preprocess_fwd(
+                means3d, opacities, scales=scales, rotations=rotations,
+                shs=shs, colors_precomp=colors_precomp,
+                scale_modifier=scale_modifier, viewmatrix=viewmatrix,
+                projmatrix=projmatrix, campos=campos, tanfovx=tanfovx,
+                tanfovy=tanfovy, image_width=image_width,
+                image_height=image_height, sh_degree=sh_degree,
+                distance_order=sort_order == GlobalSortOrder.DISTANCE,
+                rect_bounding=rect_bounding,
+                tight_opacity_bounding=tight_opacity_bounding,
+                proper_ewa_scaling=proper_ewa_scaling, tile_x=tile_x,
+                tile_y=tile_y))
+    return preprocess_plain(
+        means3d, opacities, scales=scales, rotations=rotations,
+        cov3d_precomp=cov3d_precomp, shs=shs, colors_precomp=colors_precomp,
+        scale_modifier=scale_modifier, viewmatrix=viewmatrix,
+        projmatrix=projmatrix, campos=campos, tanfovx=tanfovx,
+        tanfovy=tanfovy, image_width=image_width, image_height=image_height,
+        sh_degree=sh_degree, sort_order=sort_order,
+        rect_bounding=rect_bounding,
+        tight_opacity_bounding=tight_opacity_bounding,
+        proper_ewa_scaling=proper_ewa_scaling, tile_x=tile_x, tile_y=tile_y)
+
+
+def preprocess_plain(
+    means3d: torch.Tensor,
+    opacities: torch.Tensor,
+    *,
+    scales: Optional[torch.Tensor] = None,
+    rotations: Optional[torch.Tensor] = None,
+    cov3d_precomp: Optional[torch.Tensor] = None,
+    shs: Optional[torch.Tensor] = None,
+    colors_precomp: Optional[torch.Tensor] = None,
+    scale_modifier: float = 1.0,
+    viewmatrix: torch.Tensor,
+    projmatrix: torch.Tensor,
+    campos: torch.Tensor,
+    tanfovx: float,
+    tanfovy: float,
+    image_width: int,
+    image_height: int,
+    sh_degree: int = 0,
+    sort_order: GlobalSortOrder = GlobalSortOrder.Z_DEPTH,
+    rect_bounding: bool = False,
+    tight_opacity_bounding: bool = False,
+    proper_ewa_scaling: bool = False,
+    tile_x: int = TILE_X,
+    tile_y: int = TILE_Y,
+) -> PreprocessOutput:
+    """The plain version of ``preprocess``, in torch operations: the path
+    of the CPU, of gradients and of ``cov3d_precomp``, and what K8 is held
+    against on the card."""
     P = means3d.shape[0]
     opacities = opacities.reshape(P)
     grid_x = (image_width + tile_x - 1) // tile_x

@@ -23,7 +23,9 @@ context manager. The spans the program opens:
 
   stp/params      the model's activated parameters (render/cli.py::
                   render_model; train/trainer.py::step_forward)
-  stp/preprocess  preprocess and the means2D reroute (render/rasterize.py)
+  stp/preprocess  preprocess and the means2D reroute (render/rasterize.py),
+                  holding, where no gradient is wanted on a CUDA device,
+  stp/preprocess_kernel  the launch of kernel K8 (render/preprocess.py)
   stp/pairs       pairs on the binning grid and their blend tiles
                   (render/pipeline.py::_binned_pairs), holding
   stp/duplicate   the expansion and its pair-count read (render/duplicate.py)
