@@ -58,9 +58,10 @@ def blend_global_backward(pairs, prep, color, final_t, grad_color,
     return out
 
 
-def backward(pairs, prep, color, final_t, grad_color, cfg: dict):
+def backward(pairs, prep, color, final_t, grad_color, cfg: dict, cam):
     """The mode's backward entry (``render.py``): the gradients of a loss
-    on ``color`` alone, by the preprocess field they belong to."""
+    on ``color`` alone, by the preprocess field they belong to. GLOBAL's
+    order is the tile's, so ``cam`` is not used."""
     g9 = blend_global_backward(pairs, prep, color, final_t, grad_color,
                                torch.zeros_like(final_t), cfg["width"],
                                cfg["height"])

@@ -61,7 +61,7 @@ def _insert(win, ins, d_new, new):
 
 
 def blend_hier(pairs, prep, cam, width: int, height: int, queues,
-               counts: dict | None = None):
+               counts: dict | None = None, on_commit=None):
     """(color [3, H, W], final_T [H, W]) of the cascade with window sizes
     ``queues`` = (kt, km, kh). ``cam`` holds ``inverse_vp`` and ``campos``.
     With a dict ``counts``, adds what the cascade needs of the pixels that
@@ -70,6 +70,13 @@ def blend_hier(pairs, prep, cam, width: int, height: int, queues,
     ``evaluations`` (alpha and head depth of an emitted entry at a pixel),
     ``mid_inserts`` (per quad), ``head_inserts`` (per pixel) and
     ``commits`` (blends with alpha > 0).
+
+    ``on_commit(tile, lit, a, T, gid)``, where given, is called at every
+    head pop with the rows' tile ids [t], the [t, 256] mask of the pixels
+    that commit an entry with alpha > 0, the entries' alpha, the pixels' T
+    before the commit and the entries' Gaussian ids; it only reads them, so
+    the frame is the same with or without it. A pixel commits at most once
+    a call, and its calls come in its compositing order.
 
     Tiles are independent: a tile whose stream is consumed is drained
     (its pad batches, then its mid and head windows) and leaves the state,
@@ -143,10 +150,14 @@ def blend_hier(pairs, prep, cam, width: int, height: int, queues,
         T = S["T"]
         U = T * (1.0 - a0)
         commit = pop_h & ~S["done"] & (U >= T_THRESHOLD)
-        col = rgb[gids(src)].permute(2, 0, 1)
+        gid = gids(src)
+        col = rgb[gid].permute(2, 0, 1)
         S["C"] = torch.where(commit, S["C"] + (a0 * T) * col, S["C"])
         S["T"] = torch.where(commit, U, T)
-        n["commits"] += (commit & (a0 > 0.0)).sum()
+        lit = commit & (a0 > 0.0)
+        n["commits"] += lit.sum()
+        if on_commit is not None:
+            on_commit(S["id"], lit, a0, T, gid)
         S["done"] = S["done"] | (pop_h & (U < T_THRESHOLD))
 
     def head_pop(pop_h):

@@ -9,9 +9,11 @@ is black, so the blend's raw colour is the image.
 The blend is found by the configuration's ``sort_mode``: the module
 ``blend_<mode>.py`` (lower case) with ``blend(pairs, prep, cam, cfg,
 counts)``, and for training ``blend_<mode>_bwd.py`` with ``backward(pairs,
-prep, color, final_t, grad_color, cfg)``, which returns the gradients by
-the preprocess field they belong to. A mode without its file raises
-``NotImplementedError``; no mode stands in for another.
+prep, color, final_t, grad_color, cfg, cam)``, which returns the gradients
+by the preprocess field they belong to. Both get the camera, so that a mode
+that orders entries by the depth along each pixel's ray can rebuild that
+order. A mode without its file raises ``NotImplementedError``; no mode
+stands in for another, and a mode is added as its files alone.
 """
 
 from __future__ import annotations
@@ -122,7 +124,7 @@ def train_steps(scene, cams, targets, cfg, mix, lowp: bool = False,
         leaf = color.detach().requires_grad_(True)
         loss = rgb_loss(leaf, target, mix["lambda_dssim"])
         loss.backward()
-        fields = backward(pairs, flat, color, final_t, leaf.grad, cfg)
+        fields = backward(pairs, flat, color, final_t, leaf.grad, cfg, cam)
         torch.autograd.backward([getattr(prep, f) for f in fields],
                                 list(fields.values()))
         grads = {k: p.grad.detach().clone() for k, p in params.items()}

@@ -2,10 +2,14 @@
 program's own plain versions on the CPU."""
 
 import json
+import os
+import shutil
+import subprocess
+import sys
 
 import pytest
 import torch
-from conftest import BENCH, TINY
+from conftest import BENCH, ROOT, TINY
 
 from harness import scene
 from reference.render import render, train_steps
@@ -84,13 +88,14 @@ def test_reference_matches_the_programs_plain_path(name):
     assert torch.allclose(got, want, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("mode", ["PPX_KBUFFER", "PPX_FULL"])
-def test_a_mode_without_its_files_is_refused(mode):
+def test_a_mode_without_its_files_is_refused():
     """No sort mode stands in for another: the reference's blend, its
-    backward and the counts are found by the mode's name or refused."""
+    backward and the counts are found by the mode's name or refused. The
+    mode planted here is one that no file will ever serve."""
     from harness import counts
     from reference.render import mode_module
 
+    mode = "NO_SUCH_MODE"
     cfg = dict(_cfg("tandt-truck-global"), sort_mode=mode)
     s = scene.make_scene(cfg, scene.generator(5, "cpu"), "cpu")
     cam = scene.reference_camera(scene.orbit_camera(0.7, cfg, 4.0, 0.5), "cpu")
@@ -103,3 +108,69 @@ def test_a_mode_without_its_files_is_refused(mode):
     with pytest.raises(NotImplementedError, match=f"counts_{mode.lower()}.py"):
         counts.blend_ops({}, cfg)
     assert mode_module(dict(cfg, sort_mode="HIER")).__name__ == "reference.blend_hier"
+
+
+def test_every_configuration_finds_its_modes_files():
+    """Each configuration of BENCHMARK.json finds its sort mode's reference
+    blend and counts; one that a training cell uses, the blend's backward
+    too."""
+    from harness import counts, manifest
+    from reference.render import mode_module
+
+    bench = manifest.load()
+    trained = {w["config"] for w in bench["workloads"]
+               if manifest.traffic(w["traffic"])["kind"] == "train"}
+    for c in bench["configs"]:
+        cfg = manifest.config(bench, c["name"])
+        mode = cfg["sort_mode"].lower()
+        assert mode_module(cfg).__name__ == f"reference.blend_{mode}"
+        assert counts.mode(cfg).__name__ == f"harness.counts_{mode}"
+        if c["name"] in trained:
+            assert mode_module(cfg, "_bwd").__name__ == f"reference.blend_{mode}_bwd"
+
+
+STUB_BLEND = '''"""A stub of a sort mode's reference blend."""
+
+
+def blend(pairs, prep, cam, cfg, counts=None):
+    raise NotImplementedError("a stub")
+'''
+STUB_COUNTS = '''"""A stub of a sort mode's counts."""
+
+ROW_BYTES = 40
+
+
+def blend_ops(n, cfg):
+    return 0.0
+
+
+def blend_bwd_ops(n, cfg):
+    return 0.0
+'''
+
+
+def test_a_mode_added_as_files_breaks_no_test(tmp_path):
+    """A sort mode is added as files alone: in a copy of the root with a
+    stub PPX_FULL reference blend and counts and a PPX_FULL configuration
+    (new files and a new entry, no file that is there edited), every other
+    test of portbench/tests still passes."""
+    shutil.copytree(BENCH, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (tmp_path / "stopthepop_tpu_torch").symlink_to(ROOT / "stopthepop_tpu_torch")
+    (tmp_path / "portbench/reference/blend_ppx_full.py").write_text(STUB_BLEND)
+    (tmp_path / "portbench/harness/counts_ppx_full.py").write_text(STUB_COUNTS)
+    cfg = json.loads((BENCH / "configs/m360-bicycle-hier.json").read_text())
+    cfg.update(name="added-full", sort_mode="PPX_FULL")
+    (tmp_path / "portbench/configs/added-full.json").write_text(json.dumps(cfg))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "added-full", "source": "x",
+                             "file": "portbench/configs/added-full.json",
+                             "reduced": [], "why": "added"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "portbench/tests", "-q",
+         "-p", "no:cacheprovider", "-p", "xdist", "-n", "2",
+         "-k", "not test_a_mode_added_as_files_breaks_no_test"],
+        cwd=str(tmp_path), capture_output=True, text=True, timeout=1200,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stdout[-4000:]
