@@ -19,6 +19,8 @@ Run from the root of the repository on a machine with one NVIDIA H100:
                                            # kernel is built); no last line
     python3 chip_smoke.py --preprocess-only  # the build and phase 27
                                              # alone; no last line
+    python3 chip_smoke.py --full-only  # the build and phase 15's K7 at
+                                       # FULL_SHAPES alone; no last line
 
 Phases, one JSON line each; any failure exits non-zero:
   1. build: compile every CUDA kernel of the port with nvcc (in parallel);
@@ -113,7 +115,13 @@ Phases, one JSON line each; any failure exits non-zero:
      the 1080p/500K bench frame (every output bitwise equal) — and time
      both; K7's bound from the plain version's counts, its list length,
      its passes (rounds) per tile, its registers, spills, shared memory a
-     block and blocks an SM. Also the
+     block and blocks an SM. Then K7 at the benchmark's PER_PIXEL_FULL
+     configuration (portbench/configs/db-playroom-full.json: 2.3M
+     Gaussians at 1264x832 on 16x16 bins, ~4.9M pairs a frame), at three
+     orbit cameras: every output bitwise equal to the plain version's, the
+     device pass counter equal to the plain version's count and its tiles
+     to the grid's, and at the first camera K7's time, the plain version's
+     and K7's bound; one line a configuration. Also the
      API's full_mode="auto" rule on the card: a 70x45 scene through
      GaussianRasterizer takes K7 under no_grad and the dense oracle when
      asked for gradients, and the two agree.
@@ -242,8 +250,9 @@ Phases, one JSON line each; any failure exits non-zero:
      DISTANCE order, SH degree 0-3 in rows of 16 and of (degree + 1)^2
      coefficients, colors_precomp, bins of 32x16 and 24x16, a scale
      modifier of 0.7. Then the 1080p/500K serving frame and the
-     benchmark's two configurations (portbench/configs: 6.1M Gaussians at
-     1237x822 on 16x16 bins, 2.54M at 979x546 on 32x16), each at three
+     benchmark's three configurations (portbench/configs: 6.1M Gaussians
+     at 1237x822 on 16x16 bins, 2.54M at 979x546 on 32x16, 2.3M at
+     1264x832 on 16x16), each at three
      orbit cameras; at the first, K8's and the plain version's mean ms
      over 20 launches and K8's share of its bytes bound (368 B a Gaussian
      at SH degree 3, read and written once).
@@ -252,8 +261,10 @@ Phases, one JSON line each; any failure exits non-zero:
      and of phase 14 for K6, the HIER frames of phase 12 for K5, the FULL
      frames of phase 16 for K7, the frames of phase 3 for K8), its error
      against the plain version, its time, the plain version's time and its
-     bound on this card (K8's at the 1080p frame, at the two benchmark
-     configurations under "at_shapes"); under
+     bound on this card (K8's at the 1080p frame, at the benchmark's
+     configurations under "at_shapes"; K7's at its PER_PIXEL_FULL
+     configuration under "at_shapes", with the passes a tile at each
+     camera); under
      "at_tile" its time, error and launches at 32x16 (phase 23's steps,
      the FULL frames for K7) and, for K1, K2, K4 and K6, its bound there,
      and for K1 and K2 the same at 24x16 and 8x8 (phase 23's steps); under
@@ -375,15 +386,20 @@ CASC_SMALL_CASES = (((64, 8, 4), False), ((16, 5, 3), False),
 # The sort-mode cases of phase quality that the batched cascade renders too.
 CASC_QUALITY = (("HIER 64/8/4", (64, 8, 4)), ("HIER 16/8/4", (16, 8, 4)))
 # Phase kernel_preprocess: K8 at the serving frame and at the benchmark's
-# two configurations (portbench/configs: MipNeRF-360 bicycle, Tanks and
-# Temples truck) as (case, Gaussians, width, height, binning tile), SH
-# degree 3, rect and tight-opacity culling, at PREP_THETAS_DEG orbit
-# cameras (fov 60); PREP_ITERS launches timed; a small scene of PREP_SMALL
-# Gaussians for the edge cases.
+# configurations (portbench/configs: MipNeRF-360 bicycle, Tanks and Temples
+# truck, Deep Blending playroom) as (case, Gaussians, width, height, binning
+# tile), SH degree 3, rect and tight-opacity culling, at PREP_THETAS_DEG
+# orbit cameras (fov 60); PREP_ITERS launches timed; a small scene of
+# PREP_SMALL Gaussians for the edge cases. Phase kernel_full holds K7 at the
+# benchmark's PER_PIXEL_FULL configurations, FULL_SHAPES, at the same
+# cameras.
+PLAYROOM = ("db-playroom-full", 2_300_000, 1264, 832, (16, 16))
 PREP_SHAPES = (("1920x1080, 500K Gaussians", NUM_GAUSSIANS, WIDTH, HEIGHT,
                 (16, 16)),
                ("m360-bicycle-hier", 6_100_000, 1237, 822, (16, 16)),
-               ("tandt-truck-global", 2_540_000, 979, 546, (32, 16)))
+               ("tandt-truck-global", 2_540_000, 979, 546, (32, 16)),
+               PLAYROOM)
+FULL_SHAPES = (PLAYROOM,)
 PREP_THETAS_DEG, PREP_ITERS, PREP_SMALL = (0.0, 120.0, 240.0), 20, 24_576
 # Bytes K8 moves a Gaussian besides its SH rows ((degree + 1)^2 x 12 B):
 # the mean, opacity, scales and rotation read, PreprocessOutput's 15 fields
@@ -832,6 +848,92 @@ def full_ops(n):
     return (OPS_PER_EVAL * n["evaluations"] + OPS_PER_DEPTH * n["depths"]
             + OPS_PER_SORT_COMPARE * n["sort_compares"]
             + OPS_PER_BLENDED * n["blended"] + OPS_PER_COMMIT * n["commits"])
+
+
+def full_bytes(n_pairs, gaussians, tiles, width, height):
+    """Bytes K7 moves at least: the point list, each tile's range, the rows
+    it reads a Gaussian (xy, conic and opacity, rgb, inverse covariance),
+    the camera and the four output planes."""
+    return 4 * (n_pairs + 2 * tiles + gaussians * (2 + 4 + 3 + 9) + 19
+                + width * height * 6)
+
+
+def full_shapes_phase(dev):
+    """K7 at FULL_SHAPES (phase kernel_full, see the module notes): at each
+    of PREP_THETAS_DEG orbit cameras (fov 60) of the configuration's scene
+    (bench_model at its Gaussians: the benchmark's distributions), K7 on
+    the frame's pairs bitwise equal to its plain version, and its device
+    pass counter moved by the plain version's count of passes and its tiles
+    by the grid's; at the first camera K7's and the plain version's ms and
+    K7's bound. One line a shape; returns the lines."""
+    from stopthepop_tpu_torch.io.cameras import orbit_camera, to_camera_arrays
+    from stopthepop_tpu_torch.kernels import full_blend as fb
+    from stopthepop_tpu_torch.utils.testing import Camera
+
+    lines = []
+    for name, n, width, height, tile in FULL_SHAPES:
+        model = bench_model(dev, n)
+        with torch.inference_mode():
+            a = model_arrays(model)
+            del model
+            cams = []
+            for theta in PREP_THETAS_DEG:
+                dc = orbit_camera(math.radians(theta), math.radians(60.0),
+                                  width, height)
+                cams.append(Camera(*to_camera_arrays(dc, dev),
+                                   tanfovx=dc.tanfovx, tanfovy=dc.tanfovy,
+                                   width=width, height=height))
+            per_cam = []
+            for theta, cam in zip(PREP_THETAS_DEG, cams):
+                case = f"{name} theta={theta:g}"
+                prep, _, view, _, kw = prepare_binned(a, cam, width, height,
+                                                      tile)
+                args = kb_args(prep, view, cam)
+                passes0, tiles0 = fb.pass_counts()
+                st = compare_full(case, args, kw, count_evaluations=True)
+                passes1, tiles1 = fb.pass_counts()
+                tiles = kw["grid_x"] * kw["grid_y"]
+                counter = {"passes": passes1 - passes0,
+                           "tiles": tiles1 - tiles0}
+                check(counter == {"passes": st["passes"], "tiles": tiles},
+                      "kernel_full", f"{case}: K7's pass counter read "
+                      f"{counter}, the plain version {st['passes']} passes "
+                      f"over {tiles} tiles")
+                row = {"theta_deg": theta, "pairs": view.num_rendered,
+                       "tiles": tiles,
+                       "max_segment": int((view.ends - view.starts).max()),
+                       "passes_per_tile": st["passes"] / tiles,
+                       "max_passes": st["rounds"]["max"],
+                       "bitwise_equal_plain": st["bitwise_equal_plain"],
+                       "max_abs_err": max(st["max_abs_err_color"],
+                                          st["max_abs_err_final_t"]),
+                       "counter": counter}
+                if not per_cam:
+                    k7_ms = cuda_ms(lambda: fb.blend_full_forward(*args, **kw),
+                                    20)
+                    plain_ms = cuda_ms(lambda: fb.blend_full_forward_plain(
+                        *args, **kw), 1, 0)
+                    ops = full_ops(st)
+                    nbytes = full_bytes(view.num_rendered, n, tiles, width,
+                                        height)
+                    bytes_ms, ops_ms = bound_ms(nbytes, ops)
+                    row.update(k7_ms=k7_ms, plain_ms=plain_ms, bytes=nbytes,
+                               ops=ops, bytes_bound_ms=bytes_ms,
+                               ops_bound_ms=ops_ms,
+                               bound_ms=max(bytes_ms, ops_ms),
+                               bound_by=("bytes" if bytes_ms >= ops_ms
+                                         else "operations"))
+                per_cam.append(row)
+                del prep, view, args
+        first = per_cam[0]
+        lines.append({"case": name, "gaussians": n, "width": width,
+                      "height": height, "tile": list(tile),
+                      "cameras": per_cam,
+                      **{k: first[k] for k in (
+                          "k7_ms", "plain_ms", "bound_ms", "bound_by")}})
+        del a
+        torch.cuda.empty_cache()
+    return lines
 
 
 def psnr_stats(img, ref):
@@ -2918,6 +3020,11 @@ def main(argv=None) -> int:
                   "card": card})
         print(card)
         return 0
+    if "--full-only" in args:
+        for line in full_shapes_phase(dev):
+            emit({"phase": "kernel_full", "ok": True, **line, "card": card})
+        print(card)
+        return 0
 
     # 2. kernel against plain version -----------------------------------------
     small_scenes = small_scene_arrays(dev)
@@ -3434,7 +3541,7 @@ def main(argv=None) -> int:
         k7_plain_ms = cuda_ms(lambda: fb.blend_full_forward_plain(
             *full_bench_args, **kw), 1, 0)
     N = pairs.num_rendered
-    k7_bytes = 4 * (N + 2 * T + P * (2 + 4 + 3 + 9) + 19 + WIDTH * HEIGHT * 6)
+    k7_bytes = full_bytes(N, P, T, WIDTH, HEIGHT)
     k7_ops = full_ops(full_bench)
     k7_bytes_ms, k7_ops_ms = bound_ms(k7_bytes, k7_ops)
     emit({"phase": "kernel_full", "ok": True,
@@ -3446,6 +3553,9 @@ def main(argv=None) -> int:
           "ptxas": ptxas_summary(build.build_log.get(fb.KERNEL, {}).get("ptxas", "")),
           "card": card})
     del prep, pairs, full_bench_args
+    full_lines = full_shapes_phase(dev)
+    for line in full_lines:
+        emit({"phase": "kernel_full", "ok": True, **line, "card": card})
 
     # 16. main_full: the serving path in PPX_FULL --------------------------------
     full_settings = culled_settings(SortMode.PPX_FULL)
@@ -3661,6 +3771,14 @@ def main(argv=None) -> int:
         "library_ms": None,
         "at_tile": at_tile("k7",
                            tile["main_full_32x16"]["launches"]["k7"]),
+        "at_shapes": [{"case": ln["case"], "gaussians": ln["gaussians"],
+                       "k7_ms": ln["k7_ms"], "plain_ms": ln["plain_ms"],
+                       "bound_ms": ln["bound_ms"], "bound_by": ln["bound_by"],
+                       "max_abs_err": max(c["max_abs_err"]
+                                          for c in ln["cameras"]),
+                       "passes_per_tile": [c["passes_per_tile"]
+                                           for c in ln["cameras"]]}
+                      for ln in full_lines],
     }, {
         "name": k8.KERNEL, "route": "cuda", "source": k8.SOURCE,
         "replaces": k8.REPLACES, "launches": serve_main["k8"],

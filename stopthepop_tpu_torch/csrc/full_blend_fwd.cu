@@ -41,7 +41,13 @@
 //     runs another pass while any of its pixels is live
 //     (__syncthreads_or). The floor is lexicographic on (depth, position):
 //     exact depth ties are real (densification's clone makes bit-identical
-//     Gaussians) and a depth-only floor would drop or repeat them.
+//     Gaussians) and a depth-only floor would drop or repeat them;
+//   * thread 0 adds the block's passes to one int64 counter in device
+//     memory with one atomicAdd after its last pass. A pixel that
+//     saturates at its k-th active needs ceil(k / kList) passes, one whose
+//     A actives run out A / kList + 1; the block runs as many as its
+//     slowest pixel. Nothing else reads the counter, so no output depends
+//     on it.
 //
 // The order is the stable sort of the actives by depth, entry for entry, so
 // the output equals the plain version (kernels/full_blend.py), which sorts
@@ -132,7 +138,8 @@ full_blend_fwd_kernel(const int* __restrict__ point_list,
                       int height, float* __restrict__ out_color,
                       float* __restrict__ out_final_t,
                       int* __restrict__ out_n_contrib,
-                      float* __restrict__ out_depth) {
+                      float* __restrict__ out_depth,
+                      unsigned long long* __restrict__ passes) {
   __shared__ float2 s_xy[kBlock];
   __shared__ float4 s_co[kBlock];
   __shared__ float4 s_i0[kBlock];  // xx, xy, xz, yy
@@ -176,8 +183,10 @@ full_blend_fwd_kernel(const int* __restrict__ point_list,
   bool done = !inside;
   float floor_d = -CUDART_INF_F;
   int floor_p = -1;
+  int rounds = 0;  // passes over the segment
 
   while (__syncthreads_or(!done)) {
+    ++rounds;
     int fill = 0;
     float last_d = CUDART_INF_F;  // the last entry's depth once full
     for (int base = 0; base < count; base += kBlock) {
@@ -269,6 +278,8 @@ full_blend_fwd_kernel(const int* __restrict__ point_list,
     }
   }
 
+  if (t == 0) atomicAdd(passes, static_cast<unsigned long long>(rounds));
+
   if (inside) {
     const int pix = py * width + px;
     const int plane = width * height;
@@ -288,7 +299,7 @@ extern "C" int stp_full_blend_fwd(
     const void* xy, const void* conic_opacity, const void* rgb,
     const void* inv9, const void* cam, float ndc_sx, float ndc_sy, int grid_x,
     int grid_y, int width, int height, void* out_color, void* out_final_t,
-    void* out_n_contrib, void* out_depth, void* stream) {
+    void* out_n_contrib, void* out_depth, void* passes, void* stream) {
   const int num_tiles = grid_x * grid_y;
   if (num_tiles == 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(
@@ -303,7 +314,8 @@ extern "C" int stp_full_blend_fwd(
       static_cast<const float*>(rgb), static_cast<const float*>(inv9),
       static_cast<const float*>(cam), ndc_sx, ndc_sy, grid_x, width, height,
       static_cast<float*>(out_color), static_cast<float*>(out_final_t),
-      static_cast<int*>(out_n_contrib), static_cast<float*>(out_depth));
+      static_cast<int*>(out_n_contrib), static_cast<float*>(out_depth),
+      static_cast<unsigned long long*>(passes));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,10 +23,22 @@ first entry where U < 1e-4.
 
 The wrapper launches K7 for CUDA tensors (counted in
 ``blend_full_forward.launches``) and runs the plain version for CPU tensors,
-and nothing else: on a CUDA tensor it launches the kernel or raises. The
-plain version computes the same function another way: per chunk of tiles it
-builds the [tiles, 256, count] tables of alpha, ray depth and the active
-flag (key +inf where inactive), sorts the key per pixel with
+and nothing else: on a CUDA tensor it launches the kernel or raises.
+
+Passes: K7 streams a tile's segment once a pass, and the pixels that need
+more than ``WINDOW`` actives before they saturate make it stream the
+segment again. A pixel that saturates at its k-th active needs
+ceil(k / WINDOW) passes, one whose A actives run out A // WINDOW + 1; a
+tile takes as many as its slowest pixel on the image. Each K7 block adds
+its tile's passes to an int64 counter on the device (one atomicAdd by
+thread 0); the plain version counts by the same rule (``passes`` in its
+counts), and on the CPU the wrapper adds those. The wrapper counts the
+tiles it launches on the host. ``pass_counts()`` reads both, summed over
+the process's launches, and is the one place that waits for the device.
+
+The plain version computes the same function another way: per chunk of
+tiles it builds the [tiles, 256, count] tables of alpha, ray depth and the
+active flag (key +inf where inactive), sorts the key per pixel with
 ``torch.sort(stable=True)``, then walks the sorted positions in order with
 K7's arithmetic, operation by operation.
 
@@ -69,7 +81,7 @@ def bind(lib):
     """K7's C entry point in a loaded library, typed."""
     fn = lib.stp_full_blend_fwd
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,6 +89,38 @@ def bind(lib):
 @functools.lru_cache(maxsize=None)
 def _bind():
     return bind(build.load(KERNEL))
+
+
+class _Passes:
+    """K7's passes and tiles, summed over the process's launches (module
+    notes): an int64 counter on each device the kernel ran on, the passes
+    the plain version counted on the CPU, and the tiles launched."""
+
+    def __init__(self):
+        self.device = {}
+        self.host = 0
+        self.tiles = 0
+
+    def counter(self, dev) -> torch.Tensor:
+        c = self.device.get(dev)
+        if c is None:
+            # A normal tensor, though the first frame may run under
+            # inference_mode: the kernel adds to it in any mode.
+            with torch.inference_mode(False):
+                c = self.device[dev] = torch.zeros(1, dtype=torch.int64,
+                                                   device=dev)
+        return c
+
+
+_PASSES = _Passes()
+
+
+def pass_counts() -> tuple:
+    """(passes, tiles): K7's passes over its tiles' segments and the tiles
+    it ran, summed over every launch in this process (the plain version's,
+    by the same rule, for CPU tensors). Waits for the devices K7 ran on."""
+    passes = _PASSES.host + sum(int(c.item()) for c in _PASSES.device.values())
+    return passes, _PASSES.tiles
 
 
 def occupancy(lib=None) -> dict:
@@ -118,10 +162,13 @@ def blend_full_forward(point_list, starts, ends, xy, conic_opacity, rgb,
                        height)
     dev = xy.device
     if dev.type == "cpu":
-        return blend_full_forward_plain(
+        *out, n = blend_full_forward_plain(
             point_list, starts, ends, xy, conic_opacity, rgb, cov3d_inv9,
             inverse_vp, campos, grid_x=grid_x, grid_y=grid_y, width=width,
-            height=height)
+            height=height, count_evaluations=True)
+        _PASSES.host += n["passes"]
+        _PASSES.tiles += grid_x * grid_y
+        return tuple(out)
     cam, sx, sy = _cuda_prelude(xy, conic_opacity, inverse_vp, campos, width,
                                 height)
     fn = _bind()
@@ -135,11 +182,13 @@ def blend_full_forward(point_list, starts, ends, xy, conic_opacity, rgb,
         xy.data_ptr(), conic_opacity.data_ptr(), rgb.data_ptr(),
         cov3d_inv9.data_ptr(), cam.data_ptr(), sx, sy, grid_x, grid_y,
         width, height, color.data_ptr(), final_t.data_ptr(),
-        n_contrib.data_ptr(), depth_acc.data_ptr(), stream,
+        n_contrib.data_ptr(), depth_acc.data_ptr(),
+        _PASSES.counter(dev).data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError_t {err}")
     blend_full_forward.launches += 1
+    _PASSES.tiles += grid_x * grid_y
     return color, final_t, n_contrib, depth_acc
 
 
@@ -179,9 +228,9 @@ def blend_full_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
     ``actives``, ``sort_compares`` (sum over pixels of log2(n!) for n
     actives, the fewest compares that sort them), ``blended`` (sorted
     entries the blend reads, commits and each pixel's stopping entry) and
-    ``commits``; and ``rounds``: the mean and the largest number of passes
-    of K7's list over its segment a tile runs (as many as its slowest
-    pixel).
+    ``commits``; ``passes``, the passes of K7's list over its segment
+    summed over the tiles (each as many as its slowest pixel, module
+    notes), and ``rounds``, their mean and largest a tile.
     """
     _check_full_inputs(point_list, starts, ends, xy, conic_opacity, rgb,
                        cov3d_inv9, inverse_vp, campos, grid_x, grid_y, width,
@@ -268,6 +317,7 @@ def blend_full_forward_plain(point_list, starts, ends, xy, conic_opacity, rgb,
     if count_evaluations:
         n["evaluations"] = int((counts * inside.sum(dim=-1)).sum())
         n["sort_compares"] = int(math.ceil(n["sort_compares"]))
+        n["passes"] = int(rounds.sum())
         n["rounds"] = ({"mean": float(rounds.to(torch.float64).mean()),
                         "max": int(rounds.max())} if T_tiles else {})
         return out + (n,)

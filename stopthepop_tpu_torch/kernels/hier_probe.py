@@ -14,7 +14,9 @@ A family is the kernels of one sort mode whose sources a redesign touches:
   ``kbuffer_blend_bwd.cu`` and the headers they include; K4's input is the
   plain K3's output.
 * ``full``: K7, from ``full_blend_fwd.cu``; its list length (``kList``, or
-  ``K`` of the register window before it) is read from the source.
+  ``K`` of the register window before it) is read from the source. A
+  source from before the pass counter (no ``passes`` in its C entry point)
+  is called without the counter, which it leaves as it is.
 * ``global``: K1 and K2, from ``global_blend_fwd.cu``,
   ``global_blend_bwd.cu`` and the headers they include; K2's input is the
   plain K1's output. A source from before the piece table (its C entry
@@ -55,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -123,6 +126,8 @@ def _build(family, variants):
         entry = re.search(rf'int stp_{stem}\(([^)]*)\)', text)
         found[stem]._stp_grid = (family == "global" and entry is not None
                                  and "pieces" not in entry.group(1))
+        found[stem]._stp_no_passes = (family == "full" and entry is not None
+                                      and "passes" not in entry.group(1))
         regs[stem] = _ptxas(family, log)
     return libs
 
@@ -417,6 +422,13 @@ class _Global(_SameAsFirst):
                 and row["k2_bitwise_repeat"])
 
 
+def _without_counter(fn, *args):
+    """K7's entry point ``fn`` from a build without the pass counter,
+    called with the checkout's arguments: all but the counter, the
+    argument before the stream."""
+    return fn(*args[:-2], args[-1])
+
+
 class _Full:
     """K7, with its passes a tile at the variant's list length."""
     module, timed = fb, ("k7",)
@@ -442,7 +454,14 @@ class _Full:
         return self.rounds[length]
 
     def bind(self, libs):
-        fb._bind = lambda f=fb.bind(libs["full_blend_fwd"]): f
+        lib = libs["full_blend_fwd"]
+        fn = fb.bind(lib)
+        if lib._stp_no_passes:
+            # A build from before the pass counter takes no counter before
+            # the stream: typed so and called without it.
+            fn.argtypes = [*fn.argtypes[:-2], fn.argtypes[-1]]
+            fn = functools.partial(_without_counter, fn)
+        fb._bind = lambda f=fn: f
 
     def run(self):
         return {"k7": lambda: fb.blend_full_forward(*self.args, **self.kw)}

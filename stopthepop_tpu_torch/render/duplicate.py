@@ -165,9 +165,13 @@ def sort_expanded(tile_id, depth, gauss_id, num_tiles: int,
     with span("sort"):
         s_tile, s_depth, s_gid, order = sort_pairs(tile_id, depth, gauss_id)
         starts, ends = identify_tile_ranges(s_tile, num_tiles)
-        runs = torch.bincount(gauss_id.to(torch.int64),
-                              minlength=num_gaussians)
-        gauss_offsets = torch.cat([runs.new_zeros(1), torch.cumsum(runs, 0)])
+        # The stream is Gaussian-major, so Gaussian g's run starts where
+        # the first id >= g sits. A search, unlike torch.bincount (which
+        # reads the ids' min and max back on CUDA), leaves the pair count
+        # the frame's only read to the host.
+        gauss_offsets = torch.searchsorted(
+            gauss_id, torch.arange(num_gaussians + 1, dtype=gauss_id.dtype,
+                                   device=gauss_id.device))
         return PairBuffer(
             tile_id=s_tile,
             depth=s_depth,

@@ -36,6 +36,14 @@ context manager. The spans the program opens:
                   blend's backward kernel and per-Gaussian sum, on
                   autograd's thread)
   stp/update      a training step's optimizer stage
+
+Beside the spans, the program keeps counters that no trace shows:
+
+  kernels/full_blend.py::pass_counts()  (passes, tiles) of kernel K7 in
+                  stp/blend (PER_PIXEL_FULL): its passes over the tiles'
+                  segments, added on the device by each block, and the
+                  tiles launched, summed over the process's launches; the
+                  call waits for the device, so read it after the frames
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ from stopthepop_tpu_torch.render.duplicate import (
     count_pairs,
     expand_pairs,
     rect_histogram,
+    sort_expanded,
 )
 from stopthepop_tpu_torch.render.pipeline import tile_grid
 from stopthepop_tpu_torch.render.preprocess import preprocess
@@ -226,3 +227,19 @@ def test_empty_stream():
     pairs = build_pairs(t, grid_x=2, grid_y=2)
     assert pairs.num_rendered == 0
     assert (pairs.starts == pairs.ends).all()
+
+
+def test_run_offsets_count_each_gaussians_pairs():
+    # A Gaussian-major stream in which Gaussians 0, 2 and 5 have no pair.
+    gid = torch.tensor([1, 1, 1, 3, 4, 4], dtype=torch.int32)
+    tiles = torch.tensor([2, 0, 1, 1, 0, 2], dtype=torch.int32)
+    depths = torch.tensor([0.5, 0.5, 0.5, 0.2, 0.9, 0.9])
+    pairs = sort_expanded(tiles, depths, gid, num_tiles=3, num_gaussians=6)
+    runs = torch.bincount(gid.to(torch.int64), minlength=6)
+    assert pairs.gauss_offsets.dtype == torch.int64
+    assert pairs.gauss_offsets.tolist() == [0, 0, 3, 3, 4, 6, 6]
+    assert torch.equal(pairs.gauss_offsets[1:] - pairs.gauss_offsets[:-1],
+                       runs)
+    empty = sort_expanded(tiles[:0], depths[:0], gid[:0], num_tiles=3,
+                          num_gaussians=4)
+    assert empty.gauss_offsets.tolist() == [0] * 5
