@@ -21,6 +21,8 @@ Run from the root of the repository on a machine with one NVIDIA H100:
                                              # alone; no last line
     python3 chip_smoke.py --full-only  # the build and phase 15's K7 at
                                        # FULL_SHAPES alone; no last line
+    python3 chip_smoke.py --pairs-only  # the build and phase 28 alone;
+                                        # no last line
 
 Phases, one JSON line each; any failure exits non-zero:
   1. build: compile every CUDA kernel of the port with nvcc (in parallel);
@@ -256,10 +258,37 @@ Phases, one JSON line each; any failure exits non-zero:
      orbit cameras; at the first, K8's and the plain version's mean ms
      over 20 launches and K8's share of its bytes bound (368 B a Gaussian
      at SH degree 3, read and written once).
- 28. the kernels line: each ported kernel with its launches on its main
+     Every launch check of the run counts the pair stream's two kernels
+     (kernels/pairs.py) too: once a forward blend wherever the pairs are
+     built in Z_DEPTH without tile-based culling, never in the train CLI's
+     runs, which cull by tile.
+ 28. kernel_pairs: hold the pair stream's kernels (kernels/pairs.py:
+     duplicate_with_keys, CUB's scan and radix sort, identify_tile_ranges;
+     render/duplicate.py::build_pairs for CUDA tensors in Z_DEPTH and
+     DISTANCE without tile-based culling) against the torch path
+     (expand_pairs, sort_expanded), every PairBuffer field bitwise (floats
+     by their bits; the torch path is the plain version), with one launch
+     of each wrapper a call; at the benchmark's three
+     configurations (6.1M Gaussians at 1237x822 on 16x16 bins, 2.54M at
+     979x546 on 32x16, 2.3M at 1264x832 on 16x16) and three orbit cameras
+     in Z_DEPTH, DISTANCE at the first; then once more with the model's
+     leaves requiring grad (the training step's preprocess), and with a
+     quarter of the grid's columns emptied (every Gaussian whose rect
+     starts there touching no tile): the largest tile's range and the
+     empty tiles are in the line, and each case's largest difference of
+     any field. At the first camera: the kernels' call and the torch
+     path's ms, and each kernel's device
+     ms (torch.profiler: the two of csrc/pairs.cu, CUB's scan and sort)
+     beside its bytes over 3.35 TB/s. Then the wrappers' launches in 2
+     frames through render/cli.py::render_frames and, but in
+     PER_PIXEL_FULL, in 1 training step, in the configuration's sort mode
+     (HIER, GLOBAL, PER_PIXEL_FULL): one of each a frame and a step.
+ 29. the kernels line: each ported kernel with its launches on its main
      path (the training steps of phase 5 for K1/K2, of phase 10 for K3/K4
      and of phase 14 for K6, the HIER frames of phase 12 for K5, the FULL
-     frames of phase 16 for K7, the frames of phase 3 for K8), its error
+     frames of phase 16 for K7, the frames of phase 3 for K8; for the pair
+     stream's kernels the frames of phases 3, 8, 12 and 16 and the steps
+     of phases 5, 10 and 14, each counted from 0), its error
      against the plain version, its time, the plain version's time and its
      bound on this card (K8's at the 1080p frame, at the benchmark's
      configurations under "at_shapes"; K7's at its PER_PIXEL_FULL
@@ -406,6 +435,23 @@ PREP_THETAS_DEG, PREP_ITERS, PREP_SMALL = (0.0, 120.0, 240.0), 20, 24_576
 # written. Its few hundred operations a Gaussian take under a tenth of the
 # bytes' time, so the bytes bound it.
 PREP_BYTES_READ, PREP_BYTES_WRITTEN = 12 + 4 + 12 + 16, 132
+# Phase kernel_pairs: the pair stream's kernels (kernels/pairs.py) at the
+# benchmark's configurations, each in its sort mode for the frames and steps
+# that count the launches; PAIRS_ITERS calls timed. Bytes a Gaussian of the
+# scan (count read, offset written) and of the expansion (count, rect,
+# depth, offset read); a pair's bytes written by the expansion (key, slot,
+# the slot's Gaussian), moved by each radix pass (key and slot, read and
+# written) and by the sort's histogram (key read), read (key, slot, its
+# Gaussian) and written (tile, depth, Gaussian, int64 slot) by the last
+# pass; a tile's range bytes.
+PAIRS_SHAPES = (("m360-bicycle-hier", 6_100_000, 1237, 822, (16, 16), "HIER"),
+                ("tandt-truck-global", 2_540_000, 979, 546, (32, 16),
+                 "GLOBAL"),
+                (*PLAYROOM, "PPX_FULL"))
+PAIRS_ITERS = 20
+PAIRS_SCAN_BYTES, PAIRS_GAUSS_BYTES = 4 + 8, 4 + 8 + 4 + 4 + 8
+PAIRS_DUP_BYTES, PAIRS_PASS_BYTES, PAIRS_HIST_BYTES = 16, 24, 8
+PAIRS_LAST_READ, PAIRS_LAST_WRITTEN, PAIRS_TILE_BYTES = 16, 20, 8
 
 
 def emit(obj):
@@ -951,8 +997,9 @@ def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev,
     """One serving path: a warm-up frame, then the orbit ``cams`` through
     render/cli.py::render_frames with every launch count set to 0 just
     before and read just after. Every frame is finite, not background and
-    has at least ``min_pairs`` pairs; ``kernel`` and the preprocess kernel
-    K8 launched once a frame and no other kernel at all. Then frame 0's
+    has at least ``min_pairs`` pairs; ``kernel``, the preprocess kernel
+    K8 and the pair stream's kernels launched once a frame and no other
+    kernel at all. Then frame 0's
     stages (CUDA events): preprocess (K8, as the frames run it; its plain
     version beside it), the pair build (on the grid of the binning tile
     ``tile``, split over the 16x16 blend tiles) and
@@ -984,8 +1031,8 @@ def serve_phase(phase, model, cams, settings, kernel, args_fn, blend, dev,
         check(bool((o.color != 0.0).any()), phase, f"frame {i} is background")
         check(o.num_rendered >= min_pairs, phase,
               f"frame {i}: only {o.num_rendered} pairs")
-    check(launched(launches, {kernel: len(cams), "k8": len(cams)}), phase,
-          f"launches {launches} for {len(cams)} frames")
+    check(launched(launches, with_pairs({kernel: len(cams), "k8": len(cams)})),
+          phase, f"launches {launches} for {len(cams)} frames")
     pairs_per_frame = [o.num_rendered for o in outs]
     del outs
     cam0 = to_camera_arrays(cams[0], dev)
@@ -1021,8 +1068,8 @@ def train_phase(phase, model, static, cam, target, dev, kernels,
     """The training path at full width in one sort mode: one warm-up step,
     then TRAIN_STEPS steps of train/trainer.py's step with every launch
     count set to 0 just before and read just after. The loss is finite and
-    falls, each of ``kernels`` launched once a step and no other kernel at
-    all, every gradient finite and nonzero somewhere, at least
+    falls, each of ``kernels`` and the pair stream's kernels launched once
+    a step and no other kernel at all, every gradient finite and nonzero somewhere, at least
     ``min_pairs`` pairs a step. Then the stages of 3 more steps (CUDA
     events). ``render_kwargs`` go to the step (``tile_shape``). Returns the
     phase's fields, the densification stats and a function taking one more
@@ -1050,9 +1097,8 @@ def train_phase(phase, model, static, cam, target, dev, kernels,
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(all(math.isfinite(v) for v in losses), phase, f"loss not finite: {losses}")
     check(losses[-1] < losses[0], phase, f"loss did not fall: {losses}")
-    check(all(n == (TRAIN_STEPS if k in kernels else 0)
-              for k, n in launches.items()), phase,
-          f"launches {launches} in {TRAIN_STEPS} steps")
+    check(launched(launches, with_pairs(dict.fromkeys(kernels, TRAIN_STEPS))),
+          phase, f"launches {launches} in {TRAIN_STEPS} steps")
     for name in PARAM_NAMES:
         g = getattr(model, name).grad
         check(g is not None and bool(torch.isfinite(g).all())
@@ -1189,7 +1235,8 @@ def batched_train_phase(static, dev, single_step_ms):
     gradients at the same weights (within 1e-5 of each tensor's largest
     value); that step is the warm-up. Then BATCH_STEPS timed steps with the
     launch counts set to 0 just before and read just after: K1 and K2
-    launched BATCH times a step and no other kernel, the loss finite and
+    and the pair stream's kernels launched BATCH times a step and no other
+    kernel, the loss finite and
     falling; the step's ms, its ms per camera against the single-camera
     ``train`` step, and peak memory from a reset counter."""
     from stopthepop_tpu_torch.io.cameras import CameraArrays, orbit_camera, to_camera_arrays
@@ -1238,8 +1285,8 @@ def batched_train_phase(static, dev, single_step_ms):
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
           "train_batched", f"loss not finite or not falling: {losses}")
-    check(all(n == (BATCH * BATCH_STEPS if k in ("k1", "k2") else 0)
-              for k, n in launches.items()), "train_batched",
+    check(launched(launches, with_pairs(dict.fromkeys(
+        ("k1", "k2"), BATCH * BATCH_STEPS))), "train_batched",
           f"launches {launches} in {BATCH_STEPS} steps of {BATCH} cameras")
     check(int(stats.denom.max()) == BATCH * (BATCH_STEPS + 1), "train_batched",
           f"denom max {int(stats.denom.max())}")
@@ -1289,7 +1336,8 @@ def colmap_phase(out_dir, dev):
     check(all(math.isfinite(v) for v in evals) and evals[-1] > evals[0],
           "colmap", f"eval PSNR did not rise: {res.eval_psnr}")
     # K5 once a step and once an evaluation frame, which alone (no
-    # gradient) takes K8.
+    # gradient) takes K8; the CLI culls by tile, so its pairs take the
+    # torch path.
     check(train_launches["k5"] >= COLMAP_ITERS and launched(train_launches, {
         "k5": train_launches["k5"], "k6": COLMAP_ITERS,
         "k8": train_launches["k5"] - COLMAP_ITERS}), "colmap",
@@ -1306,8 +1354,8 @@ def colmap_phase(out_dir, dev):
                          "--sort-mode", "PPX_KBUFFER", "--device", str(dev)])
     render_s = time.perf_counter() - t0
     render_launches = read_launches()
-    check(launched(render_launches, {"k3": COLMAP_VIEWS + 1,  # and a warm-up
-                                     "k8": COLMAP_VIEWS + 1}),
+    check(launched(render_launches, with_pairs({
+        "k3": COLMAP_VIEWS + 1, "k8": COLMAP_VIEWS + 1})),  # and a warm-up
           "colmap", f"render launches {render_launches}")
     shapes = {read_png(str(frames / f"frame_{i:04d}.png")).shape
               for i in range(COLMAP_VIEWS)}
@@ -1461,7 +1509,7 @@ def debug_viz_phase(model, bench_cam, cams, small_arrays, dev):
                 torch.cuda.synchronize()
                 launches = read_launches()
                 case = f"{mode.name} {viz.name}"
-                check(launched(launches, {kernel: 1, "k8": 1}),
+                check(launched(launches, with_pairs({kernel: 1, "k8": 1})),
                       "debug_viz", f"{case}: launches {launches}")
                 field, table = debug_field(
                     viz, final_t=out.final_t, n_contrib=out.n_contrib,
@@ -1491,7 +1539,7 @@ def debug_viz_phase(model, bench_cam, cams, small_arrays, dev):
     expect = depth_out.depth_acc / (1.0 - depth_out.final_t).clamp(min=1e-6)
     from stopthepop_tpu_torch.render.colormaps import TURBO_TABLE
 
-    check(launched(launches, {"k1": 1, "k8": 1}) and torch.equal(
+    check(launched(launches, with_pairs({"k1": 1, "k8": 1})) and torch.equal(
         depth_out.color, apply_colormap(normalize_field(expect), TURBO_TABLE)),
         "debug_viz", f"render_depth through render_frames: launches {launches}")
 
@@ -1585,8 +1633,8 @@ def timed_phase(model, bench_cam, out_dir, dev):
         same = all(torch.equal(x, y) for x, y in zip(
             timed[:3] + timed[4:], untimed[:3] + untimed[4:]))
         check(same, "timed", "the timed render differs from render_tiled")
-        check(launched(launches, {"k1": TIMED_FRAMES, "k8": TIMED_FRAMES}),
-              "timed",
+        check(launched(launches, with_pairs({"k1": TIMED_FRAMES,
+                                             "k8": TIMED_FRAMES})), "timed",
               f"launches {launches} in {TIMED_FRAMES} frames")
         with trace(str(out_dir / "trace")):
             render_tiled_timed(prep_fn, StageTimer(enabled=False), bg, **kw)
@@ -1833,6 +1881,251 @@ def preprocess_phase(dev):
                       "bytes": bytes_moved, "bytes_bound_ms": bytes_ms,
                       "share_of_bound": bytes_ms / k8_ms})
         del a, kws
+        torch.cuda.empty_cache()
+    return lines
+
+
+def pairs_diffs(got, want):
+    """({field: differing elements (or the dtypes and shapes)} of the
+    PairBuffer fields in which ``got`` and ``want`` differ, floats by their
+    bits (-0.0 is not 0.0); the largest absolute difference of any field of
+    a dtype and shape they share)."""
+    out, err = {}, 0.0
+    if got.num_rendered != want.num_rendered:
+        out["num_rendered"] = [got.num_rendered, want.num_rendered]
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if name == "num_rendered":
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape:
+            out[name] = {"dtype": [str(a.dtype), str(b.dtype)],
+                         "shape": [list(a.shape), list(b.shape)]}
+            continue
+        if a.numel():
+            err = max(err, float((a.double() - b.double()).abs().max()))
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        differ = int((a != b).sum())
+        if differ:
+            out[name] = differ
+    return out, err
+
+
+def pairs_torch_path(prep, gx, gy, order):
+    from stopthepop_tpu_torch.render.duplicate import (
+        expand_pairs,
+        sort_expanded,
+    )
+
+    return sort_expanded(*expand_pairs(prep, grid_x=gx, sort_order=order),
+                         num_tiles=gx * gy,
+                         num_gaussians=prep.tiles_touched.shape[0])
+
+
+def pairs_launches():
+    from stopthepop_tpu_torch.kernels import pairs as kp
+
+    return {"duplicate_with_keys": kp.duplicate_with_keys.launches,
+            "sort_and_identify": kp.sort_and_identify.launches}
+
+
+def pairs_case(case, prep, gx, gy, order):
+    """The kernels through render/duplicate.py::build_pairs (one launch of
+    each wrapper) against the torch path: every PairBuffer field bitwise.
+    Returns the case's row, with the largest difference of any field."""
+    from stopthepop_tpu_torch.render.duplicate import build_pairs
+
+    before = pairs_launches()
+    got = build_pairs(prep, grid_x=gx, grid_y=gy, sort_order=order)
+    after = pairs_launches()
+    check(all(after[k] == before[k] + 1 for k in after), "kernel_pairs",
+          f"{case}: launches {before} -> {after}")
+    want = pairs_torch_path(prep, gx, gy, order)
+    diffs, err = pairs_diffs(got, want)
+    check(not diffs, "kernel_pairs",
+          f"{case}: the kernels differ from the torch path: {diffs}")
+    counts = (want.ends - want.starts).to(torch.int64)
+    largest = int(counts.argmax())
+    return {"case": case, "pairs": want.num_rendered, "tiles": gx * gy,
+            "max_abs_err": err,
+            "empty_tiles": int((counts == 0).sum()),
+            "largest_tile": largest, "max_segment": int(counts[largest]),
+            "largest_range": [int(got.starts[largest]),
+                              int(got.ends[largest])]}
+
+
+def pairs_kernel_ms(fn, iters):
+    """Device ms a call of each kernel ``fn`` launches (torch.profiler over
+    ``iters`` calls): the two of csrc/pairs.cu, CUB's scan and sort, and
+    any other by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0:
+            continue
+        name = ("duplicate_with_keys" if "duplicate_with_keys" in e.key else
+                "identify_tile_ranges" if "identify_tile_ranges" in e.key else
+                "cub_sort" if "DeviceRadixSort" in e.key else
+                "cub_scan" if "DeviceScan" in e.key else e.key[:80])
+        out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return out
+
+
+def pairs_bound_ms(P, N, T, bits):
+    """Each step's bytes over the card's bandwidth, ms."""
+    passes = -(-bits // 8)
+    nbytes = {
+        "cub_scan": P * PAIRS_SCAN_BYTES,
+        "duplicate_with_keys": P * PAIRS_GAUSS_BYTES + N * PAIRS_DUP_BYTES,
+        "cub_sort": N * (PAIRS_HIST_BYTES + PAIRS_PASS_BYTES * passes),
+        "identify_tile_ranges": (N * (PAIRS_LAST_READ + PAIRS_LAST_WRITTEN)
+                                 + T * PAIRS_TILE_BYTES),
+    }
+    return nbytes, {k: bound_ms(v, 0)[0] for k, v in nbytes.items()}
+
+
+def pairs_mode_launches(model, width, height, tile, mode, dev):
+    """The wrappers' launches in 2 frames through render/cli.py::render_frames
+    and, where the mode trains, in 1 training step, at the configuration's
+    shape and binning tile in its sort mode."""
+    from stopthepop_tpu_torch.config import GaussianRasterizationSettings, SortMode
+    from stopthepop_tpu_torch.io.cameras import orbit_camera, to_camera_arrays
+    from stopthepop_tpu_torch.render.cli import render_frames
+    from stopthepop_tpu_torch.train import trainer
+
+    ext = culled_settings(SortMode[mode])
+    cams = [orbit_camera(math.radians(t), math.radians(60.0), width, height)
+            for t in (30.0, 31.0)]
+    out = {}
+    before = pairs_launches()
+    with torch.inference_mode():
+        render_frames(model, cams, ext, dev, tile_shape=tuple(tile))
+    after = pairs_launches()
+    out["frames"] = {k: after[k] - before[k] for k in after}
+    check(all(n == len(cams) for n in out["frames"].values()), "kernel_pairs",
+          f"{mode}: launches in {len(cams)} frames: {out['frames']}")
+    if mode == "PPX_FULL":  # forward only: no training step
+        return out
+    static = GaussianRasterizationSettings(
+        image_height=height, image_width=width, tanfovx=cams[0].tanfovx,
+        tanfovy=cams[0].tanfovy, bg=torch.zeros(3, device=dev),
+        scale_modifier=1.0, viewmatrix=None, projmatrix=None,
+        inv_viewprojmatrix=None, sh_degree=3, campos=None, prefiltered=False,
+        settings=ext)
+    state = trainer.init_train_state(model, trainer.make_3dgs_optimizer(model))
+    stats = trainer.init_densify_stats(model.num_gaussians, dev)
+    step = trainer.make_train_step(static=static,
+                                   render_kwargs={"tile_shape": tuple(tile)})
+    target = torch.rand((3, height, width), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    before = pairs_launches()
+    step(state, to_camera_arrays(cams[0], dev), target, stats)
+    torch.cuda.synchronize()
+    after = pairs_launches()
+    out["step"] = {k: after[k] - before[k] for k in after}
+    check(all(n == 1 for n in out["step"].values()), "kernel_pairs",
+          f"{mode}: launches in a training step: {out['step']}")
+    return out
+
+
+def pairs_phase(dev):
+    """Phase kernel_pairs (see the module notes): one line a shape of
+    PAIRS_SHAPES; returns the lines."""
+    from stopthepop_tpu_torch.config import GlobalSortOrder
+    from stopthepop_tpu_torch.io.cameras import orbit_camera, to_camera_arrays
+    from stopthepop_tpu_torch.kernels import pairs as kp
+    from stopthepop_tpu_torch.render.duplicate import build_pairs
+    from stopthepop_tpu_torch.render.pipeline import tile_grid
+    from stopthepop_tpu_torch.render.preprocess import preprocess
+
+    lines = []
+    for name, n, width, height, tile, mode in PAIRS_SHAPES:
+        model = bench_model(dev, n)
+        gx, gy = tile_grid(width, height, *tile)
+        cams = [orbit_camera(math.radians(t), math.radians(60.0), width,
+                             height) for t in PREP_THETAS_DEG]
+
+        def prep_at(cam, order, a):
+            arrays = to_camera_arrays(cam, dev)
+            return preprocess(
+                a["means3d"], a["opacities"], scales=a["scales"],
+                rotations=a["rotations"], shs=a["shs"],
+                viewmatrix=arrays.viewmatrix, projmatrix=arrays.projmatrix,
+                campos=arrays.campos, tanfovx=cam.tanfovx,
+                tanfovy=cam.tanfovy, image_width=width, image_height=height,
+                sh_degree=3, rect_bounding=True, tight_opacity_bounding=True,
+                sort_order=order, tile_x=tile[0], tile_y=tile[1])
+
+        rows = []
+        with torch.inference_mode():
+            a = model_arrays(model)
+            for theta, cam in zip(PREP_THETAS_DEG, cams):
+                prep = prep_at(cam, GlobalSortOrder.Z_DEPTH, a)
+                rows.append({"theta_deg": theta, **pairs_case(
+                    f"{name} theta={theta:g}", prep, gx, gy,
+                    GlobalSortOrder.Z_DEPTH)})
+                if len(rows) > 1:
+                    continue
+                # Times at the first camera.
+                N, P = rows[0]["pairs"], n
+
+                def kernels():
+                    return build_pairs(prep, grid_x=gx, grid_y=gy)
+
+                timed = {
+                    "kernels_ms": cuda_ms(kernels, PAIRS_ITERS),
+                    "torch_path_ms": cuda_ms(lambda: pairs_torch_path(
+                        prep, gx, gy, GlobalSortOrder.Z_DEPTH), 5),
+                    "kernel_ms": pairs_kernel_ms(kernels, PAIRS_ITERS)}
+                nbytes, bounds = pairs_bound_ms(P, N, gx * gy,
+                                                kp.end_bit(gx * gy))
+                timed.update(end_bit=kp.end_bit(gx * gy), bytes=nbytes,
+                             bound_ms=bounds, bound_total_ms=sum(
+                                 bounds.values()),
+                             share_of_bound={
+                                 k: bounds[k] / timed["kernel_ms"][k]
+                                 for k in bounds
+                                 if timed["kernel_ms"].get(k)})
+                rows[0].update(timed)
+                prep_d = prep_at(cam, GlobalSortOrder.DISTANCE, a)
+                rows.append({"theta_deg": theta, "order": "DISTANCE",
+                             **pairs_case(f"{name} theta={theta:g} DISTANCE",
+                                          prep_d, gx, gy,
+                                          GlobalSortOrder.DISTANCE)})
+                del prep_d
+            del a, prep
+        # The model's leaves requiring grad (the training step's
+        # preprocess, under autograd), then with a quarter of the grid's
+        # columns emptied: every Gaussian whose rect starts there touches
+        # no tile.
+        prep = prep_at(cams[0], GlobalSortOrder.Z_DEPTH, model_arrays(model))
+        check(prep.depth.requires_grad, "kernel_pairs",
+              f"{name}: the depth does not require grad")
+        grad = pairs_case(f"{name} grad", prep, gx, gy,
+                          GlobalSortOrder.Z_DEPTH)
+        cut = gx // 4
+        emptied = prep._replace(tiles_touched=torch.where(
+            prep.rect_min[:, 0] < cut, 0, prep.tiles_touched))
+        grad_emptied = pairs_case(f"{name} grad, {cut} columns emptied",
+                                  emptied, gx, gy, GlobalSortOrder.Z_DEPTH)
+        check(grad_emptied["empty_tiles"] >= cut * gy, "kernel_pairs",
+              f"{name}: {grad_emptied['empty_tiles']} empty tiles")
+        del prep, emptied
+        launches = pairs_mode_launches(model, width, height, tile, mode, dev)
+        lines.append({"case": name, "gaussians": n, "width": width,
+                      "height": height, "tile": list(tile), "mode": mode,
+                      "cameras": rows, "grad": grad,
+                      "grad_emptied": grad_emptied,
+                      "mode_launches": launches})
+        del model
         torch.cuda.empty_cache()
     return lines
 
@@ -2424,7 +2717,8 @@ def cascade_phase(model, bench_cam, cams, static, target, cotangents, dev):
         reset_launches()
         colors, dt = hier_frames(model, cams, hier_settings, dev, batched)
         launches = read_launches()
-        check(launched(launches, {"k5": len(cams), "k8": len(cams)}),
+        check(launched(launches, with_pairs({"k5": len(cams),
+                                             "k8": len(cams)})),
               "cascade", f"{name}: launches {launches}")
         check(all(bool(torch.isfinite(c).all()) and bool((c != 0).any())
                   for c in colors), "cascade", f"{name}: a frame is not finite "
@@ -2643,6 +2937,7 @@ def parallel_rank(rank, out_dir):
                 torch.cuda.max_memory_allocated() / 2**30)
 
     def only(launches, want, what):
+        want = with_pairs(want)
         check(launched(launches, want), "parallel",
               f"rank {rank} {what}: launches {launches}, want {want}")
 
@@ -2878,6 +3173,7 @@ def _wrappers():
         global_blend,
         hier_blend,
         kbuffer_blend,
+        pairs,
         preprocess_fwd,
     )
 
@@ -2888,7 +3184,21 @@ def _wrappers():
             "k5": hier_blend.blend_hier_forward,
             "k6": hier_blend.blend_hier_backward,
             "k7": full_blend.blend_full_forward,
-            "k8": preprocess_fwd.preprocess_fwd}
+            "k8": preprocess_fwd.preprocess_fwd,
+            "pairs_dup": pairs.duplicate_with_keys,
+            "pairs_sort": pairs.sort_and_identify}
+
+
+PAIRS_KERNELS = ("pairs_dup", "pairs_sort")
+FORWARD_KERNELS = ("k1", "k3", "k5", "k7")
+
+
+def with_pairs(want):
+    """``want`` with the pair stream's kernels (kernels/pairs.py) launched
+    once a forward blend (K1, K3, K5, K7): every render of this run that
+    builds its pairs in Z_DEPTH without tile-based culling takes them."""
+    n = sum(want.get(k, 0) for k in FORWARD_KERNELS)
+    return {**want, **dict.fromkeys(PAIRS_KERNELS, n)}
 
 
 def launched(launches, want):
@@ -2903,7 +3213,8 @@ def reset_launches():
 
 
 def read_launches():
-    """{"k1": n, ..., "k8": n} kernel launches since the reset."""
+    """{"k1": n, ..., "k8": n, "pairs_dup": n, "pairs_sort": n} kernel
+    launches since the reset."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
@@ -3018,6 +3329,11 @@ def main(argv=None) -> int:
         for line in preprocess_phase(dev):
             emit({"phase": "kernel_preprocess", "ok": True, **line,
                   "card": card})
+        print(card)
+        return 0
+    if "--pairs-only" in args:
+        for line in pairs_phase(dev):
+            emit({"phase": "kernel_pairs", "ok": True, **line, "card": card})
         print(card)
         return 0
     if "--full-only" in args:
@@ -3223,7 +3539,8 @@ def main(argv=None) -> int:
     check(trained.num_gaussians == res.state.model.num_gaussians, "train_cli",
           "PLY does not hold the trained model")
     # K1 once a step and once an evaluation frame, which alone (no
-    # gradient) takes K8.
+    # gradient) takes K8; the CLI culls by tile, so its pairs take the
+    # torch path.
     check(cli_k2 >= CLI_ITERS and cli_k1 >= CLI_ITERS
           and launched(cli, {"k1": cli_k1, "k2": cli_k2,
                              "k8": cli_k1 - cli_k2}),
@@ -3296,7 +3613,7 @@ def main(argv=None) -> int:
 
     kb_settings = culled_settings(SortMode.PPX_KBUFFER)
     kb_settings.sort_settings.queue_sizes.per_pixel = KB_K
-    fields, _ = serve_phase(
+    fields, serve_kb = serve_phase(
         "main_kb", model, cams, kb_settings, "k3", kb_args,
         functools.partial(kb.blend_kbuffer_forward, k=KB_K, **kw), dev)
     emit({"phase": "main_kb", "ok": True, "k": KB_K, **fields, "card": card})
@@ -3650,7 +3967,14 @@ def main(argv=None) -> int:
         emit({"phase": "kernel_preprocess", "ok": True, **line, "card": card})
     k8_bench = prep_lines[1]
 
-    # 28. kernels -----------------------------------------------------------------
+    # 28. kernel_pairs: the pair stream's kernels against the torch path -------
+    from stopthepop_tpu_torch.kernels import pairs as kp
+
+    pairs_lines = pairs_phase(dev)
+    for line in pairs_lines:
+        emit({"phase": "kernel_pairs", "ok": True, **line, "card": card})
+
+    # 29. kernels -----------------------------------------------------------------
     def at_tile(key, launches):
         """A kernel's numbers at the binning tiles of phase 23: 32x16 and,
         for K1 and K2, the odd bins of ODD_TILES."""
@@ -3793,6 +4117,31 @@ def main(argv=None) -> int:
                                           "plain_ms", "bytes_bound_ms",
                                           "share_of_bound")}
                       for ln in prep_lines[2:]],
+    }, {
+        "name": kp.KERNEL, "route": "cuda", "source": kp.SOURCE,
+        "replaces": kp.REPLACES,
+        # Counted from 0 before each path's frames and steps.
+        "launches": {"frames": FRAMES, "steps": TRAIN_STEPS, **{
+            mode: {path: {k: counts[k] for k in PAIRS_KERNELS}
+                   for path, counts in paths.items()}
+            for mode, paths in (
+                ("GLOBAL", {"frames": serve_main,
+                            "steps": train_fields["launches"]}),
+                ("PPX_KBUFFER", {"frames": serve_kb,
+                                 "steps": train_kb["launches"]}),
+                ("HIER", {"frames": serve_hier,
+                          "steps": train_hier["launches"]}),
+                ("PPX_FULL", {"frames": serve_full}))}},
+        # Against the torch path (the plain version), every case of phase
+        # kernel_pairs.
+        "max_abs_err": max(row["max_abs_err"] for ln in pairs_lines
+                           for row in (*ln["cameras"], ln["grad"],
+                                       ln["grad_emptied"])),
+        "at_shapes": [{"case": ln["case"], "pairs": ln["cameras"][0]["pairs"],
+                       **{k: ln["cameras"][0][k] for k in (
+                           "kernels_ms", "torch_path_ms", "kernel_ms",
+                           "bound_ms", "bound_total_ms")}}
+                      for ln in pairs_lines],
     }]})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",

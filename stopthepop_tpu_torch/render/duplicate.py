@@ -26,6 +26,12 @@ the Gaussian-major run offsets (``gauss_offsets``): unsorting per-pair
 cotangents with ``orig_slot`` lays every Gaussian's pairs out as one
 contiguous run, which one segmented sum reduces (the semantics of the JAX
 package's ``make_segment_gather`` residuals, without its TPU devices).
+
+``build_pairs`` builds the same buffer, bit for bit, with the kernels of
+``kernels/pairs.py`` where ``takes_kernel`` allows it (CUDA tensors, Z_DEPTH
+or DISTANCE, no tile-based culling; views and training steps alike, since
+no gradient flows through the pairs); ``expand_pairs`` and
+``sort_expanded`` are the path everywhere else.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 
 from ..config import GlobalSortOrder
 from ..constants import TILE_X, TILE_Y
+from ..kernels.pairs import duplicate_with_keys, sort_and_identify, takes_kernel
 from ..ops.sort import identify_tile_ranges, sort_pairs
 from ..ops.stopthepop import max_contrib_power_rect, per_tile_depth, tile_rect_bounds
 from ..utils.profiling import span
@@ -203,7 +210,22 @@ def build_pairs(
     ``tile_y`` pixels).
 
     The camera and image size are needed by the per-tile-depth orders only
-    (see ``expand_pairs``)."""
+    (see ``expand_pairs``). On the kernels' path (module notes) the
+    expansion is ``stp/duplicate`` and the sort and ranges ``stp/sort``,
+    as on the torch path."""
+    if takes_kernel(prep.tiles_touched.device, sort_order, tile_based_culling):
+        with span("duplicate"):
+            keyed = duplicate_with_keys(prep.tiles_touched, prep.rect_min,
+                                        prep.rect_max, prep.depth,
+                                        grid_x=grid_x)
+        with span("sort"):
+            tile_id, depth, gauss_id, starts, ends, orig_slot = (
+                sort_and_identify(keyed, prep.depth,
+                                  num_tiles=grid_x * grid_y))
+        return PairBuffer(tile_id=tile_id, depth=depth, gauss_id=gauss_id,
+                          starts=starts, ends=ends,
+                          num_rendered=int(keyed.keys.shape[0]),
+                          orig_slot=orig_slot, gauss_offsets=keyed.offsets)
     expanded = expand_pairs(prep, grid_x=grid_x, sort_order=sort_order,
                             tile_based_culling=tile_based_culling,
                             campos=campos, inverse_vp=inverse_vp,

@@ -9,10 +9,14 @@ Rasterizer::forward, rasterizer_impl.cu:221-413:
   stage          reference                         here
   -------------  --------------------------------  ---------------------------
   preprocess     preprocessCUDA (1 thread/gauss)   torch ops (render/preprocess)
-  scan+alloc     CUB InclusiveSum + D2H resize     cumsum + one D2H read
-  duplicate      duplicateWithKeys                 repeat_interleave expansion
-  sort           CUB DeviceRadixSort (64-bit key)  torch.sort on the same key
-  ranges         identifyTileRanges kernel         searchsorted
+  scan+alloc     CUB InclusiveSum + D2H resize     the same, or cumsum + one D2H
+                                                   read
+  duplicate      duplicateWithKeys                 the same (kernels/pairs), or
+                                                   repeat_interleave expansion
+  sort           CUB DeviceRadixSort (64-bit key)  the same, or torch.sort on
+                                                   the same key
+  ranges         identifyTileRanges kernel         one pass over the sorted
+                                                   keys, or searchsorted
   render         renderCUDA                        kernel K1 (kernels/global_blend)
                  renderkBufferCUDA                 kernel K3 (kernels/kbuffer_blend)
                  hierarchical renderer             kernel K5 (kernels/hier_blend)
@@ -22,6 +26,10 @@ Rasterizer::forward, rasterizer_impl.cu:221-413:
                                                    (kernels/blend_vjp)
                  renderkBufferBackwardCUDA         kernel K4 + the same sum
                  hierarchical renderer backward    kernel K6 + the same sum
+
+The kernels of the pairs (``kernels/pairs.py``) run on CUDA tensors in
+Z_DEPTH and DISTANCE without tile-based culling; the torch ops elsewhere
+(``render/duplicate.py::build_pairs``), with the same bits.
 
 With any per-Gaussian row requiring grad (and grad mode on) the blend goes
 through ``BlendGlobal`` / ``BlendKBuffer`` / ``BlendHier``; otherwise K1 /

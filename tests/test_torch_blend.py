@@ -166,7 +166,7 @@ def test_kernel_library_is_keyed_by_source_hash():
                                    "hier_blend_bwd", "hier_blend_bwd_batched",
                                    "hier_blend_fwd", "hier_blend_fwd_batched",
                                    "kbuffer_blend_bwd", "kbuffer_blend_fwd",
-                                   "preprocess_fwd"]
+                                   "pairs", "preprocess_fwd"]
 
 
 def test_batched_library_is_keyed_by_the_source_it_includes(tmp_path,
