@@ -5,30 +5,29 @@ The counterparts of ``stopthepop_tpu/kernels/blend_vjp.py::make_blend_global``,
 ``make_blend_kbuffer`` and ``make_blend_hier``.
 The seam sits where the reference splits its hand-written backward: the
 blend-level gradients with respect to the per-Gaussian rows (xy, conic and
-opacity, rgb) come from kernel K2; everything upstream (preprocess) is plain
-torch and differentiates by autograd.
+opacity, rgb) come from the backward kernel; everything upstream
+(preprocess) is plain torch and differentiates by autograd.
 
-Forward: K1. Saved: the per-Gaussian rows, the pair buffer and K1's raw
-color, final_T and n_contrib. Backward:
-  1. K2 gives the per-pair gradients [N, 9] in sorted-slot order;
+The three Functions share one forward and one backward body (``_Blend``);
+each declares only its kernel pair (``Kernels``) and its inputs. Forward:
+the forward kernel. Saved: the per-Gaussian rows, the camera tensors, the
+pair buffer and the kernel's raw color, final_T and n_contrib. Backward:
+  1. the backward kernel gives the per-pair gradients [N, 9] in
+     sorted-slot order;
   2. ``orig_slot`` unsorts them into the Gaussian-major expansion order, a
      write to unique indices;
   3. one segmented sum over each Gaussian's contiguous run gives
      d_xy [P, 2], d_conic_opacity [P, 4] and d_rgb [P, 3].
 Every step is deterministic: no atomics, no ``index_add_``; each run is
 summed in float32 in run order, so no prefix sum over the whole stream loses
-digits on small Gaussians. ``depth`` gets no gradient, as in the JAX
-package. The background stays outside the Function (render/pipeline.py), so
-autograd folds it into the final_T cotangent.
+digits on small Gaussians. The background stays outside the Function
+(render/pipeline.py), so autograd folds it into the final_T cotangent.
 
-``BlendKBuffer`` has the same seam and steps with K3 and K4 in place of K1 and
-K2. ``cov3d_inv9`` and the camera get no gradient: the per-ray depths only
-choose the window order, a discrete choice, as in the reference and the JAX
-package.
-
-``BlendHier`` has the seam and steps again with K5 and K6. Besides
-``cov3d_inv9`` and the camera, ``opacity_power_threshold`` (the 4x4 culling
-test) gets no gradient: it only decides which entries are valid.
+No other input gets a gradient, as in the reference and the JAX package:
+GLOBAL's ``depth``; PER_PIXEL_KBUFFER's ``cov3d_inv9`` and camera, whose
+per-ray depths only choose the window order, a discrete choice; and
+HIERARCHICAL's, with ``opacity_power_threshold`` (the 4x4 culling test),
+which only decides which entries are valid.
 
 Each Function takes an optional ``snapshot``: the (host arrays,
 settings) of a ``debug=True`` render. Its backward then copies the
@@ -47,15 +46,15 @@ order stays fixed (the JAX package's ``grad_row_split``).
 
 from __future__ import annotations
 
+import inspect
+from types import ModuleType
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..utils.profiling import span
 from ..utils.snapshot import host_copies, snapshot_on_failure
-from .global_blend import blend_global_backward, blend_global_forward
-from .hier_blend import blend_hier_backward, blend_hier_forward
-from .kbuffer_blend import blend_kbuffer_backward, blend_kbuffer_forward
+from . import global_blend, hier_blend, kbuffer_blend
 
 
 def _backward(ctx, grad_color, grad_final_t, run):
@@ -110,20 +109,33 @@ def reduce_pair_grads(d_pair, orig_slot, gauss_offsets):
                                 unsafe=True)
 
 
-class BlendGlobal(torch.autograd.Function):
-    """(xy, conic_opacity, rgb, depth, pairs, grid) -> K1's four outputs,
-    differentiable in xy, conic_opacity and rgb through color and final_T."""
+class Kernels(NamedTuple):
+    """A blend's kernel module and the names of its wrappers there. The
+    wrappers are looked up on the module at each call, so a wrapper set on
+    the module (a counting one, say) is the one every caller runs."""
+    module: ModuleType
+    forward: str
+    backward: Optional[str] = None  # None: the blend renders forward only
+
+
+class _Blend(torch.autograd.Function):
+    """The forward and backward body of ``BlendGlobal``, ``BlendKBuffer``
+    and ``BlendHier``. A subclass declares its ``kernels`` and, in its
+    ``forward``, which of its inputs are the differentiable rows, which
+    the camera tensors its kernels both take, and its kernels' keywords."""
 
     @staticmethod
-    def forward(ctx, xy, conic_opacity, rgb, depth, pairs, grid_x, grid_y,
-                width, height, snapshot=None, segs=None):
-        kw = dict(grid_x=grid_x, grid_y=grid_y, width=width, height=height,
-                  pieces=None if segs is None else segs.pieces)
+    def body(ctx, kernels, rows, cam, pairs, snapshot, segs, kw,
+             forward_only=()):
+        """The forward: the kernel on ``rows``, ``cam`` and
+        ``forward_only`` (inputs the backward kernel does not take), and
+        what the backward needs saved on ``ctx``."""
         starts, ends, planes = _ranges(pairs, segs)
-        color, final_t, n_contrib, depth_acc = blend_global_forward(
-            pairs.gauss_id, starts, ends, xy, conic_opacity, rgb, depth, **kw)
-        ctx.save_for_backward(xy, conic_opacity, rgb, color, final_t,
-                              n_contrib)
+        kernel = getattr(kernels.module, kernels.forward)
+        color, final_t, n_contrib, depth_acc = kernel(
+            pairs.gauss_id, starts, ends, *rows, *cam, *forward_only, **kw)
+        ctx.save_for_backward(*rows, *cam, color, final_t, n_contrib)
+        ctx.kernels = kernels
         ctx.pairs = pairs
         ctx.ranges = (starts, ends)
         ctx.kw = {**kw, **planes}
@@ -134,24 +146,53 @@ class BlendGlobal(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_color, grad_final_t, _grad_n, _grad_depth):
         with span("blend_bwd"):
-            (xy, conic_opacity, rgb, color, final_t,
-             n_contrib) = ctx.saved_tensors
             pairs = ctx.pairs
+            kernel = getattr(ctx.kernels.module, ctx.kernels.backward)
             # Autograd hands zeros for an unused output (materialize_grads).
             d_pair = _backward(
-                ctx, grad_color, grad_final_t, lambda: blend_global_backward(
-                    pairs.gauss_id, *ctx.ranges, xy, conic_opacity, rgb,
-                    color, final_t, n_contrib, grad_color.contiguous(),
-                    grad_final_t.contiguous(), **ctx.kw))
+                ctx, grad_color, grad_final_t, lambda: kernel(
+                    pairs.gauss_id, *ctx.ranges, *ctx.saved_tensors,
+                    grad_color.contiguous(), grad_final_t.contiguous(),
+                    **ctx.kw))
             d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
                                   pairs.gauss_offsets)
-            return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 8
+            # xy, conic_opacity and rgb lead; no other input has a gradient.
+            return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * (
+                len(ctx.needs_input_grad) - 3)
+
+    @classmethod
+    def apply_named(cls, *tensors, **named):
+        """``apply`` with the leading inputs by position and the rest by
+        their names in ``forward``'s signature, in whatever order."""
+        bound = inspect.signature(cls.forward).bind(None, *tensors, **named)
+        bound.apply_defaults()
+        return cls.apply(*bound.args[1:])
 
 
-class BlendKBuffer(torch.autograd.Function):
+class BlendGlobal(_Blend):
+    """(xy, conic_opacity, rgb, depth, pairs, grid) -> K1's four outputs,
+    differentiable in xy, conic_opacity and rgb through color and final_T."""
+
+    kernels = Kernels(global_blend, "blend_global_forward",
+                      "blend_global_backward")
+
+    @staticmethod
+    def forward(ctx, xy, conic_opacity, rgb, depth, pairs, grid_x, grid_y,
+                width, height, snapshot=None, segs=None):
+        kw = dict(grid_x=grid_x, grid_y=grid_y, width=width, height=height,
+                  pieces=None if segs is None else segs.pieces)
+        return _Blend.body(ctx, BlendGlobal.kernels, (xy, conic_opacity, rgb),
+                           (), pairs, snapshot, segs, kw,
+                           forward_only=(depth,))
+
+
+class BlendKBuffer(_Blend):
     """(xy, conic_opacity, rgb, cov3d_inv9, inverse_vp, campos, pairs, k,
     grid) -> K3's four outputs, differentiable in xy, conic_opacity and rgb
     through color and final_T."""
+
+    kernels = Kernels(kbuffer_blend, "blend_kbuffer_forward",
+                      "blend_kbuffer_backward")
 
     @staticmethod
     def forward(ctx, xy, conic_opacity, rgb, cov3d_inv9, inverse_vp, campos,
@@ -159,42 +200,20 @@ class BlendKBuffer(torch.autograd.Function):
                 segs=None):
         kw = dict(k=k, grid_x=grid_x, grid_y=grid_y, width=width,
                   height=height)
-        starts, ends, planes = _ranges(pairs, segs)
-        color, final_t, n_contrib, depth_acc = blend_kbuffer_forward(
-            pairs.gauss_id, starts, ends, xy, conic_opacity, rgb,
-            cov3d_inv9, inverse_vp, campos, **kw)
-        ctx.save_for_backward(xy, conic_opacity, rgb, cov3d_inv9, inverse_vp,
-                              campos, color, final_t, n_contrib)
-        ctx.pairs = pairs
-        ctx.ranges = (starts, ends)
-        ctx.kw = {**kw, **planes}
-        ctx.snapshot = snapshot
-        ctx.mark_non_differentiable(n_contrib, depth_acc)
-        return color, final_t, n_contrib, depth_acc
-
-    @staticmethod
-    def backward(ctx, grad_color, grad_final_t, _grad_n, _grad_depth):
-        with span("blend_bwd"):
-            (xy, conic_opacity, rgb, cov3d_inv9, inverse_vp, campos, color,
-             final_t, n_contrib) = ctx.saved_tensors
-            pairs = ctx.pairs
-            d_pair = _backward(
-                ctx, grad_color, grad_final_t, lambda: blend_kbuffer_backward(
-                    pairs.gauss_id, *ctx.ranges, xy, conic_opacity, rgb,
-                    cov3d_inv9, inverse_vp, campos, color, final_t, n_contrib,
-                    grad_color.contiguous(), grad_final_t.contiguous(),
-                    **ctx.kw))
-            d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
-                                  pairs.gauss_offsets)
-            return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 11
+        return _Blend.body(ctx, BlendKBuffer.kernels,
+                           (xy, conic_opacity, rgb),
+                           (cov3d_inv9, inverse_vp, campos), pairs, snapshot,
+                           segs, kw)
 
 
-class BlendHier(torch.autograd.Function):
+class BlendHier(_Blend):
     """(xy, conic_opacity, rgb, cov3d_inv9, opacity_power_threshold,
     inverse_vp, campos, pairs, queues, hier_4x4_culling, grid) -> K5's four
     outputs, differentiable in xy, conic_opacity and rgb through color and
     final_T. A last, optional ``batched_cascade`` takes K5's and K6's
     batched cadence."""
+
+    kernels = Kernels(hier_blend, "blend_hier_forward", "blend_hier_backward")
 
     @staticmethod
     def forward(ctx, xy, conic_opacity, rgb, cov3d_inv9,
@@ -204,29 +223,6 @@ class BlendHier(torch.autograd.Function):
         kw = dict(queue_sizes=queue_sizes, hier_4x4_culling=hier_4x4_culling,
                   grid_x=grid_x, grid_y=grid_y, width=width, height=height,
                   batched_cascade=batched_cascade)
-        starts, ends, planes = _ranges(pairs, segs)
-        color, final_t, n_contrib, depth_acc = blend_hier_forward(
-            pairs.gauss_id, starts, ends, xy, conic_opacity, rgb,
-            cov3d_inv9, opacity_power_threshold, inverse_vp, campos, **kw)
-        ctx.save_for_backward(xy, conic_opacity, rgb, cov3d_inv9,
-                              opacity_power_threshold, inverse_vp, campos,
-                              color, final_t, n_contrib)
-        ctx.pairs = pairs
-        ctx.ranges = (starts, ends)
-        ctx.kw = {**kw, **planes}
-        ctx.snapshot = snapshot
-        ctx.mark_non_differentiable(n_contrib, depth_acc)
-        return color, final_t, n_contrib, depth_acc
-
-    @staticmethod
-    def backward(ctx, grad_color, grad_final_t, _grad_n, _grad_depth):
-        with span("blend_bwd"):
-            pairs = ctx.pairs
-            d_pair = _backward(
-                ctx, grad_color, grad_final_t, lambda: blend_hier_backward(
-                    pairs.gauss_id, *ctx.ranges, *ctx.saved_tensors,
-                    grad_color.contiguous(), grad_final_t.contiguous(),
-                    **ctx.kw))
-            d = reduce_pair_grads(sum_planes(d_pair), pairs.orig_slot,
-                                  pairs.gauss_offsets)
-            return (d[:, 0:2], d[:, 2:6], d[:, 6:9]) + (None,) * 14
+        return _Blend.body(ctx, BlendHier.kernels, (xy, conic_opacity, rgb),
+                           (cov3d_inv9, opacity_power_threshold, inverse_vp,
+                            campos), pairs, snapshot, segs, kw)

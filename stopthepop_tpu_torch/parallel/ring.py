@@ -64,12 +64,11 @@ class RingStep(NamedTuple):
 
 
 def _ring_mode(rs: GaussianRasterizationSettings):
-    mode, order, queues = _band_mode(rs, "ring streaming")
+    _band_mode(rs, "ring streaming")
     if rs.settings.culling_settings.tile_based_culling:
         raise NotImplementedError(
             "tile_based_culling under ring streaming needs a pair-domain "
             "histogram per step; use parallel.spatial for it")
-    return mode, order, queues
 
 
 def ring_step(feat_r: torch.Tensor, ints_r: torch.Tensor, band: int,

@@ -50,14 +50,8 @@ from ..config import GaussianRasterizationSettings, SortMode
 from ..constants import TILE_Y
 from ..io.cameras import CameraArrays
 from ..models.gaussians import GaussianModel, row_block
-from ..render.pipeline import (
-    render_tiled,
-    render_tiled_hier,
-    render_tiled_kbuffer,
-    tile_grid,
-)
+from ..render.pipeline import render_sorted, sort_mode_of, tile_grid
 from ..render.preprocess import PreprocessOutput, preprocess
-from ..render.rasterize import _check_supported
 from ..train.loss import _gaussian_kernel1d
 from .collectives import (
     all_gather_plain,
@@ -187,15 +181,16 @@ def _band_prep(feat: torch.Tensor, ints: torch.Tensor, band: int,
 
 
 def _band_mode(rs: GaussianRasterizationSettings, what: str):
-    """(mode, order, queues) of the settings (``_check_supported``);
-    PPX_FULL, which ``what`` does not render, raises."""
-    mode, order, queues = _check_supported(rs)
+    """(mode, keywords) of the settings at 16x16 bins
+    (``render/pipeline.py::sort_mode_of``); PPX_FULL, which ``what`` does
+    not render, raises."""
+    mode, kw = sort_mode_of(rs)
     if mode == SortMode.PPX_FULL:
         raise NotImplementedError(
             f"PPX_FULL is the single-device quality oracle (forward only, like "
             f"the reference, backward.cu:733-736); {what} renders GLOBAL, "
             "PPX_KBUFFER and HIER")
-    return mode, order, queues
+    return mode, kw
 
 
 def render_band(feat_all: torch.Tensor, ints_all: torch.Tensor, band: int,
@@ -207,22 +202,11 @@ def render_band(feat_all: torch.Tensor, ints_all: torch.Tensor, band: int,
     render/pipeline.py at the image's size, and its rows are cut out (zeros
     past the image's height)."""
     rs = _with_camera(static, cam, feat_all.device)
-    mode, order, queues = _band_mode(rs, "band-sharded rendering")
+    mode, kw = _band_mode(rs, "band-sharded rendering")
     prep = _band_prep(feat_all, ints_all, band, cfg)
-    ext = rs.settings
-    common = dict(image_width=cfg.image_width, image_height=cfg.image_height,
-                  sort_order=order,
-                  tile_based_culling=ext.culling_settings.tile_based_culling,
-                  campos=rs.campos, inverse_vp=rs.inv_viewprojmatrix)
-    if mode == SortMode.PPX_KBUFFER:
-        out = render_tiled_kbuffer(prep, rs.bg, k=queues, **common)
-    elif mode == SortMode.HIER:
-        out = render_tiled_hier(
-            prep, rs.bg, queue_sizes=queues,
-            hier_4x4_culling=ext.culling_settings.hierarchical_4x4_culling,
-            **common)
-    else:
-        out = render_tiled(prep, rs.bg, **common)
+    out = render_sorted(mode, prep, rs.bg, image_width=cfg.image_width,
+                        image_height=cfg.image_height, campos=rs.campos,
+                        inverse_vp=rs.inv_viewprojmatrix, **kw)
     return band_rows(out[0], cfg, band), band_rows(out[1][None], cfg, band)[0]
 
 

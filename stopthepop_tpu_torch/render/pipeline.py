@@ -31,9 +31,10 @@ The kernels of the pairs (``kernels/pairs.py``) run on CUDA tensors in
 Z_DEPTH and DISTANCE without tile-based culling; the torch ops elsewhere
 (``render/duplicate.py::build_pairs``), with the same bits.
 
-With any per-Gaussian row requiring grad (and grad mode on) the blend goes
-through ``BlendGlobal`` / ``BlendKBuffer`` / ``BlendHier``; otherwise K1 /
-K3 / K5 is called directly.
+The four modes share one body, ``render_sorted``; what differs between them
+(the binning tiles taken, the kernels, the autograd Function, the camera
+tensors) is declared in ``_MODES``. ``sort_mode_of`` reads a mode and its
+options from the raster settings.
 
 The binning tile (``tile_x`` x ``tile_y``, 16x16 by default, as the
 reference) sets the pairs: preprocess, expansion and sort work on its grid.
@@ -56,15 +57,23 @@ resort modes take 16x16 and 32x16, as in the JAX package.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple, Optional
+
 import torch
 
-from ..config import GlobalSortOrder
+from ..config import GlobalSortOrder, SortMode
 from ..constants import TILE_X, TILE_Y
-from ..kernels.blend_vjp import BlendGlobal, BlendHier, BlendKBuffer, BlendSegments
-from ..kernels.full_blend import blend_full_forward
-from ..kernels.global_blend import binning_pieces, blend_global_forward
-from ..kernels.hier_blend import blend_hier_forward
-from ..kernels.kbuffer_blend import blend_kbuffer_forward
+from ..kernels import full_blend
+from ..kernels.blend_vjp import (
+    BlendGlobal,
+    BlendHier,
+    BlendKBuffer,
+    BlendSegments,
+    Kernels,
+)
+from ..kernels.global_blend import binning_pieces
+from ..kernels.hier_blend import check_hier_queues
+from ..kernels.kbuffer_blend import check_window
 from .duplicate import build_pairs
 from ..utils.profiling import span
 from .preprocess import PreprocessOutput
@@ -134,13 +143,121 @@ def _binned_pairs(prep, tile_x, tile_y, *, image_width, image_height,
         return pairs, segs, tile_grid(image_width, image_height)
 
 
-def _rows(prep: PreprocessOutput):
-    return (prep.mean2d.contiguous(), prep.conic_opacity.contiguous(),
-            prep.rgb.contiguous())
+class _TiledMode(NamedTuple):
+    """What differs between the sort modes' tiled renders: the one body,
+    ``render_sorted``, reads it."""
+    subdivision: Callable   # checks the binning tile; raises where refused
+    kernels: Kernels        # the forward wrapper, on its kernel module
+    function: Optional[type]  # the differentiable blend; None: forward only
+    # The detached tensors the kernels take after the rows, by name: fields
+    # of PreprocessOutput, "inverse_vp" and "campos".
+    camera: tuple
+    pieces: bool = False    # the forward wrapper takes the piece table
 
 
-def _needs_grad(rows) -> bool:
-    return torch.is_grad_enabled() and any(r.requires_grad for r in rows)
+_RESORT_CAMERA = ("cov3d_inv9", "inverse_vp", "campos")
+_MODES = {
+    SortMode.GLOBAL: _TiledMode(global_subdivision, BlendGlobal.kernels,
+                                BlendGlobal, ("depth",), pieces=True),
+    SortMode.PPX_KBUFFER: _TiledMode(resort_subdivision, BlendKBuffer.kernels,
+                                     BlendKBuffer, _RESORT_CAMERA),
+    # The depths, the culling thresholds and the camera only choose the
+    # cascade's order and validity: no gradient flows into them.
+    SortMode.HIER: _TiledMode(
+        resort_subdivision, BlendHier.kernels, BlendHier,
+        ("cov3d_inv9", "opacity_power_threshold", "inverse_vp", "campos")),
+    # Forward only, like the reference's renderSortedFullCUDA.
+    SortMode.PPX_FULL: _TiledMode(
+        resort_subdivision, Kernels(full_blend, "blend_full_forward"), None,
+        _RESORT_CAMERA),
+}
+
+
+def sort_mode_of(rs, tile_shape=None, batched_cascade: bool = False):
+    """(sort mode, ``render_sorted``'s keywords) of the raster settings
+    ``rs`` and the binning tile ``tile_shape`` (None: 16x16). The mode's
+    options: ``k`` for PPX_KBUFFER; ``queue_sizes``, ``hier_4x4_culling``
+    and ``batched_cascade`` for HIER. Raises where the queues or the tile
+    are out of the mode's range, or per-ray depths lack
+    ``inv_viewprojmatrix``."""
+    ext = rs.settings
+    mode = SortMode(ext.sort_settings.sort_mode)
+    order = GlobalSortOrder(ext.sort_settings.sort_order)
+    sizes = ext.sort_settings.queue_sizes
+    options = {}
+    if mode == SortMode.PPX_KBUFFER:
+        options = {"k": check_window(sizes.per_pixel)}
+    elif mode == SortMode.HIER:
+        options = {"queue_sizes": check_hier_queues(
+                       sizes.tile_4x4, sizes.tile_2x2, sizes.per_pixel),
+                   "hier_4x4_culling":
+                       ext.culling_settings.hierarchical_4x4_culling,
+                   "batched_cascade": batched_cascade}
+    per_ray = mode != SortMode.GLOBAL or order in (
+        GlobalSortOrder.PTD_CENTER, GlobalSortOrder.PTD_MAX)
+    if per_ray and rs.inv_viewprojmatrix is None:
+        raise ValueError(
+            f"{mode.name} with {order.name} needs inv_viewprojmatrix in the "
+            "raster settings (per-ray depths)")
+    tile_x, tile_y = (TILE_X, TILE_Y) if tile_shape is None else (
+        int(v) for v in tile_shape)
+    _MODES[mode].subdivision(tile_x, tile_y)
+    return mode, dict(
+        sort_order=order,
+        tile_based_culling=ext.culling_settings.tile_based_culling,
+        tile_x=tile_x, tile_y=tile_y, **options)
+
+
+def render_sorted(mode: SortMode, prep: PreprocessOutput, bg, *,
+                  image_width: int, image_height: int, campos, inverse_vp,
+                  sort_order: GlobalSortOrder, tile_based_culling: bool,
+                  tile_x: int, tile_y: int, snapshot=None, **options):
+    """The tiled render of the sort mode ``mode``; ``options`` are its
+    kernels' keywords (``sort_mode_of``).
+
+    Returns (color [3, H, W], final_T [H, W], n_contrib [H, W], pairs,
+    depth_acc [H, W]), as the JAX package's tiled renders do. The resort
+    modes and the per-tile-depth orders need ``campos`` and
+    ``inverse_vp``. ``snapshot``, the (host arrays, settings) of a
+    ``debug=True`` render, goes to the blend Function, whose backward dumps
+    it on failure. ``tile_x`` x ``tile_y`` is the binning tile (``prep``
+    must be made for it; the mode's ``subdivision`` says which it takes);
+    ``pairs`` is on its grid. The blend runs through the mode's Function
+    when a per-Gaussian row requires grad (and grad mode is on), else
+    straight through its forward wrapper.
+    """
+    spec = _MODES[mode]
+    spec.subdivision(tile_x, tile_y)
+    pairs, segs, (grid_x, grid_y) = _binned_pairs(
+        prep, tile_x, tile_y, image_width=image_width,
+        image_height=image_height, sort_order=sort_order,
+        tile_based_culling=tile_based_culling, campos=campos,
+        inverse_vp=inverse_vp)
+    with span("blend"):
+        rows = (prep.mean2d.contiguous(), prep.conic_opacity.contiguous(),
+                prep.rgb.contiguous())
+        sources = {**prep._asdict(), "inverse_vp": inverse_vp,
+                   "campos": campos}
+        cam = tuple(sources[n].detach().contiguous() for n in spec.camera)
+        kw = dict(grid_x=grid_x, grid_y=grid_y, width=image_width,
+                  height=image_height, **options)
+        if spec.function is not None and torch.is_grad_enabled() and any(
+                r.requires_grad for r in rows):
+            color, final_t, n_contrib, depth_acc = spec.function.apply_named(
+                *rows, *cam, pairs, snapshot=snapshot, segs=segs, **kw)
+        else:
+            if spec.function is None:  # forward only: no gradient anywhere
+                rows, bg = [r.detach() for r in rows], bg.detach()
+            if spec.pieces:
+                kw["pieces"] = segs.pieces
+            forward = getattr(spec.kernels.module, spec.kernels.forward)
+            color, final_t, n_contrib, depth_acc = forward(
+                pairs.gauss_id, segs.starts, segs.ends, *rows, *cam, **kw)
+        # Background composite outside the kernel, as in the JAX package:
+        # autograd gives d_bg and folds the background into the final_T
+        # cotangent.
+        color = color + final_t[None, :, :] * bg[:, None, None]
+    return color, final_t, n_contrib, pairs, depth_acc
 
 
 def render_tiled(
@@ -157,40 +274,13 @@ def render_tiled(
     tile_x: int = TILE_X,
     tile_y: int = TILE_Y,
 ):
-    """GLOBAL-mode tiled render.
-
-    Returns (color [3, H, W], final_T [H, W], n_contrib [H, W], pairs,
-    depth_acc [H, W]), as the JAX package's ``render_tiled`` does. The
-    per-tile-depth orders need ``campos`` and ``inverse_vp``. ``snapshot``,
-    the (host arrays, settings) of a ``debug=True`` render, goes to the
-    blend Function, whose backward dumps it on failure. ``tile_x`` x
-    ``tile_y`` is the binning tile (``prep`` must be made for it): any
-    positive size; ``pairs`` is on its grid.
-    """
-    global_subdivision(tile_x, tile_y)
-    pairs, segs, (grid_x, grid_y) = _binned_pairs(
-        prep, tile_x, tile_y, image_width=image_width,
-        image_height=image_height, sort_order=sort_order,
-        tile_based_culling=tile_based_culling, campos=campos,
-        inverse_vp=inverse_vp)
-    with span("blend"):
-        rows = _rows(prep)
-        depth = prep.depth.detach().contiguous()
-        kw = dict(grid_x=grid_x, grid_y=grid_y, width=image_width,
-                  height=image_height)
-        if _needs_grad(rows):
-            color, final_t, n_contrib, depth_acc = BlendGlobal.apply(
-                *rows, depth, pairs, grid_x, grid_y, image_width,
-                image_height, snapshot, segs)
-        else:
-            color, final_t, n_contrib, depth_acc = blend_global_forward(
-                pairs.gauss_id, segs.starts, segs.ends, *rows, depth, **kw,
-                pieces=segs.pieces)
-        # Background composite outside the kernel, as in the JAX package:
-        # autograd gives d_bg and folds the background into the final_T
-        # cotangent.
-        color = color + final_t[None, :, :] * bg[:, None, None]
-    return color, final_t, n_contrib, pairs, depth_acc
+    """GLOBAL-mode tiled render (``render_sorted``), as the JAX package's
+    ``render_tiled``: any positive binning tile."""
+    return render_sorted(
+        SortMode.GLOBAL, prep, bg, image_width=image_width,
+        image_height=image_height, campos=campos, inverse_vp=inverse_vp,
+        sort_order=sort_order, tile_based_culling=tile_based_culling,
+        tile_x=tile_x, tile_y=tile_y, snapshot=snapshot)
 
 
 def render_tiled_kbuffer(
@@ -208,35 +298,17 @@ def render_tiled_kbuffer(
     tile_x: int = TILE_X,
     tile_y: int = TILE_Y,
 ):
-    """PER_PIXEL_KBUFFER tiled render: every pixel resorts its tile's
+    """PER_PIXEL_KBUFFER tiled render (``render_sorted``), as the JAX
+    package's ``render_tiled_kbuffer``: every pixel resorts its tile's
     stream through a window of ``k`` entries by exact per-ray depth (kernel
-    K3; its backward K4).
-
-    Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits),
-    pairs, depth_acc [H, W]), as the JAX package's ``render_tiled_kbuffer``
-    does. ``snapshot`` as in ``render_tiled``; binning tile 16x16 or 32x16.
+    K3; its backward K4). n_contrib counts commits; binning tile 16x16 or
+    32x16.
     """
-    resort_subdivision(tile_x, tile_y)
-    pairs, segs, (grid_x, grid_y) = _binned_pairs(
-        prep, tile_x, tile_y, image_width=image_width,
-        image_height=image_height, sort_order=sort_order,
-        tile_based_culling=tile_based_culling, campos=campos,
-        inverse_vp=inverse_vp)
-    with span("blend"):
-        rows = _rows(prep)
-        cam = (prep.cov3d_inv9.detach().contiguous(),
-               inverse_vp.detach().contiguous(), campos.detach().contiguous())
-        if _needs_grad(rows):
-            color, final_t, n_contrib, depth_acc = BlendKBuffer.apply(
-                *rows, *cam, pairs, k, grid_x, grid_y, image_width,
-                image_height, snapshot, segs)
-        else:
-            color, final_t, n_contrib, depth_acc = blend_kbuffer_forward(
-                pairs.gauss_id, segs.starts, segs.ends, *rows, *cam, k=k,
-                grid_x=grid_x, grid_y=grid_y, width=image_width,
-                height=image_height)
-        color = color + final_t[None, :, :] * bg[:, None, None]
-    return color, final_t, n_contrib, pairs, depth_acc
+    return render_sorted(
+        SortMode.PPX_KBUFFER, prep, bg, image_width=image_width,
+        image_height=image_height, campos=campos, inverse_vp=inverse_vp,
+        sort_order=sort_order, tile_based_culling=tile_based_culling,
+        tile_x=tile_x, tile_y=tile_y, snapshot=snapshot, k=k)
 
 
 def render_tiled_hier(
@@ -256,44 +328,22 @@ def render_tiled_hier(
     tile_x: int = TILE_X,
     tile_y: int = TILE_Y,
 ):
-    """HIERARCHICAL tiled render: every 16x16 tile's stream cascades
-    through the tail (4x4 sub-tile), mid (2x2 quad) and head (pixel)
-    windows of ``queue_sizes`` = (tile_4x4, tile_2x2, per_pixel) entries, and
-    a head pop blends (kernel K5; its backward K6). ``batched_cascade``
-    moves the entries through the mid and head windows in sorted
-    sub-batches of 8 (``kernels/hier_blend.py``).
-
-    Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits with
-    alpha > 0), pairs, depth_acc [H, W]), as the JAX package's
-    ``render_tiled_hier`` does. ``snapshot`` as in ``render_tiled``; binning
-    tile 16x16 or 32x16.
+    """HIERARCHICAL tiled render (``render_sorted``), as the JAX package's
+    ``render_tiled_hier``: every 16x16 tile's stream cascades through the
+    tail (4x4 sub-tile), mid (2x2 quad) and head (pixel) windows of
+    ``queue_sizes`` = (tile_4x4, tile_2x2, per_pixel) entries, and a head
+    pop blends (kernel K5; its backward K6). ``batched_cascade`` moves the
+    entries through the mid and head windows in sorted sub-batches of 8
+    (``kernels/hier_blend.py``). n_contrib counts commits with alpha > 0;
+    binning tile 16x16 or 32x16.
     """
-    resort_subdivision(tile_x, tile_y)
-    pairs, segs, (grid_x, grid_y) = _binned_pairs(
-        prep, tile_x, tile_y, image_width=image_width,
-        image_height=image_height, sort_order=sort_order,
-        tile_based_culling=tile_based_culling, campos=campos,
-        inverse_vp=inverse_vp)
-    with span("blend"):
-        rows = _rows(prep)
-        # The depths, the culling thresholds and the camera only choose the
-        # cascade's order and validity: no gradient flows into them.
-        cam = (prep.cov3d_inv9.detach().contiguous(),
-               prep.opacity_power_threshold.detach().contiguous(),
-               inverse_vp.detach().contiguous(), campos.detach().contiguous())
-        queues = tuple(queue_sizes)
-        if _needs_grad(rows):
-            color, final_t, n_contrib, depth_acc = BlendHier.apply(
-                *rows, *cam, pairs, queues, hier_4x4_culling, grid_x, grid_y,
-                image_width, image_height, snapshot, segs, batched_cascade)
-        else:
-            color, final_t, n_contrib, depth_acc = blend_hier_forward(
-                pairs.gauss_id, segs.starts, segs.ends, *rows, *cam,
-                queue_sizes=queues, hier_4x4_culling=hier_4x4_culling,
-                grid_x=grid_x, grid_y=grid_y, width=image_width,
-                height=image_height, batched_cascade=batched_cascade)
-        color = color + final_t[None, :, :] * bg[:, None, None]
-    return color, final_t, n_contrib, pairs, depth_acc
+    return render_sorted(
+        SortMode.HIER, prep, bg, image_width=image_width,
+        image_height=image_height, campos=campos, inverse_vp=inverse_vp,
+        sort_order=sort_order, tile_based_culling=tile_based_culling,
+        tile_x=tile_x, tile_y=tile_y, snapshot=snapshot,
+        queue_sizes=tuple(queue_sizes), hier_4x4_culling=hier_4x4_culling,
+        batched_cascade=batched_cascade)
 
 
 def render_tiled_full(
@@ -309,31 +359,18 @@ def render_tiled_full(
     tile_x: int = TILE_X,
     tile_y: int = TILE_Y,
 ):
-    """PER_PIXEL_FULL tiled render: every pixel sorts its 16x16 tile's
+    """PER_PIXEL_FULL tiled render (``render_sorted``), as the JAX
+    package's ``render_tiled_full``: every pixel sorts its 16x16 tile's
     whole stream by exact per-ray depth and blends it (kernel K7). Forward
     only, like the reference's renderSortedFullCUDA: the inputs are
-    detached. There is no segment cap. Binning tile 16x16 or 32x16.
-
-    Returns (color [3, H, W], final_T [H, W], n_contrib [H, W] (commits),
-    pairs, depth_acc [H, W]), as the JAX package's ``render_tiled_full``
-    does.
+    detached. There is no segment cap. n_contrib counts commits; binning
+    tile 16x16 or 32x16.
     """
-    resort_subdivision(tile_x, tile_y)
-    pairs, segs, (grid_x, grid_y) = _binned_pairs(
-        prep, tile_x, tile_y, image_width=image_width,
-        image_height=image_height, sort_order=sort_order,
-        tile_based_culling=tile_based_culling, campos=campos,
-        inverse_vp=inverse_vp)
-    with span("blend"):
-        rows = [r.detach() for r in _rows(prep)]
-        color, final_t, n_contrib, depth_acc = blend_full_forward(
-            pairs.gauss_id, segs.starts, segs.ends, *rows,
-            prep.cov3d_inv9.detach().contiguous(),
-            inverse_vp.detach().contiguous(), campos.detach().contiguous(),
-            grid_x=grid_x, grid_y=grid_y, width=image_width,
-            height=image_height)
-        color = color + final_t[None, :, :] * bg.detach()[:, None, None]
-    return color, final_t, n_contrib, pairs, depth_acc
+    return render_sorted(
+        SortMode.PPX_FULL, prep, bg, image_width=image_width,
+        image_height=image_height, campos=campos, inverse_vp=inverse_vp,
+        sort_order=sort_order, tile_based_culling=tile_based_culling,
+        tile_x=tile_x, tile_y=tile_y)
 
 
 def render_tiled_timed(

@@ -319,20 +319,21 @@ def test_auto_rule_and_forward_only_tiled_path(monkeypatch):
               rotations=scene.rotations)
     assert rasterize.FULL_NAIVE_MAX == 1 << 26
     calls = []
-    for name in ("render_full_sort_naive", "render_tiled_full"):
+    for name in ("render_full_sort_naive", "render_sorted"):
         fn = getattr(rasterize, name)
         monkeypatch.setattr(rasterize, name,
                             lambda *a, _fn=fn, _n=name, **k: calls.append(_n)
                             or _fn(*a, **k))
     outs = {}
-    # At the limit the dense oracle, one past it kernel K7's path.
+    # At the limit the dense oracle, one past it kernel K7's path (the
+    # tiled render of PPX_FULL).
     for limit, want in ((n * w * h, "render_full_sort_naive"),
-                        (n * w * h - 1, "render_tiled_full")):
+                        (n * w * h - 1, "render_sorted")):
         monkeypatch.setattr(rasterize, "FULL_NAIVE_MAX", limit)
         with torch.no_grad():
             outs[want] = stt.GaussianRasterizer(rs, full_output=True)(*args, **kw)
         assert calls.pop() == want and not calls
-    naive, tiled = outs["render_full_sort_naive"], outs["render_tiled_full"]
+    naive, tiled = outs["render_full_sort_naive"], outs["render_sorted"]
     np.testing.assert_allclose(tiled.color.numpy(), naive.color.numpy(), atol=1e-5)
     np.testing.assert_allclose(tiled.final_t.numpy(), naive.final_t.numpy(),
                                atol=1e-5)

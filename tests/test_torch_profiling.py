@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import stopthepop_tpu_torch as stt
-from stopthepop_tpu_torch.kernels import blend_vjp
+from stopthepop_tpu_torch.kernels import global_blend, hier_blend
 from stopthepop_tpu_torch.render.pipeline import render_tiled, render_tiled_timed
 from stopthepop_tpu_torch.render.preprocess import preprocess
 from stopthepop_tpu_torch.utils.profiling import STAGES, StageTimer, trace
@@ -168,13 +168,14 @@ def test_debug_forward_failure_writes_snapshot_fw(tmp_path, monkeypatch, capsys)
 def test_debug_backward_failure_writes_snapshot_bw(mode, tmp_path,
                                                    monkeypatch):
     monkeypatch.setenv("STP_SNAPSHOT_DIR", str(tmp_path))
-    name = {stt.SortMode.GLOBAL: "blend_global_backward",
-            stt.SortMode.HIER: "blend_hier_backward"}[mode]
+    module, name = {
+        stt.SortMode.GLOBAL: (global_blend, "blend_global_backward"),
+        stt.SortMode.HIER: (hier_blend, "blend_hier_backward")}[mode]
 
     def fail(*args, **kw):
         raise RuntimeError("injected backward fault")
 
-    monkeypatch.setattr(blend_vjp, name, fail)
+    monkeypatch.setattr(module, name, fail)
     cam = make_camera(W, H, device="cpu")
     scene = random_scene(3, 40, device="cpu")
     means = scene.means3d.clone().requires_grad_(True)
